@@ -1,0 +1,163 @@
+"""CLAHE (Contrast-Limited Adaptive Histogram Equalization) on uint8
+tensors, bit-exact vs cv2.createCLAHE.
+
+Counterpart of gandtr_tpu/ops/clahe.py (`clahe_u8`, `channel_clahe`,
+`image_clahe`, `clahe_u8_dispatch`). Every descriptor input goes through
+LAB-CLAHE (clip 1.0, grid 8x8). Algorithm (OpenCV clahe.cpp semantics):
+
+  1. pad right/bottom with BORDER_REFLECT_101 so H, W divide the tile grid
+     (cv2 pads a FULL extra tile on an axis that already divides whenever
+     the other axis does not)
+  2. per-tile 256-bin histogram
+  3. clip at max(int(clip_limit * tile_area / 256), 1); redistribute the
+     excess floor-uniformly, the remainder to every (256//residual)-th bin
+  4. LUT per tile: round_half_even(cumsum * lut_scale), lut_scale the
+     correctly rounded float32 of 255 / tile_area
+  5. per-pixel bilinear interpolation between the 4 neighbouring tile LUTs
+     with cv2's float32 coordinate chain `pos * (1/ts) - 0.5`, each product
+     and sum rounded on its own (no FMA), round-half-even to uint8
+
+`clahe_u8` dispatches by the tensor's device: a CUDA tensor goes to the
+hand-written kernel pair K1 (kernels/clahe.py), a CPU tensor to
+`clahe_u8_plain`. Both take a whole batch (N, H, W) at once.
+"""
+import numpy as np
+import torch
+
+from gandtr_tpu_torch.ops import colorspace as cs
+
+
+def _grid(grid_size):
+    if isinstance(grid_size, int):
+        return grid_size, grid_size
+    return int(grid_size[0]), int(grid_size[1])
+
+
+def clahe_geometry(H, W, clip_limit, grid_size):
+    """cv2's tile geometry for an (H, W) image: (tile_h, tile_w, climit,
+    lut_scale). lut_scale is float32; rounding the float64 quotient to float32
+    equals the correctly rounded float32 division (53 >= 2*24 + 2 bits)."""
+    ty, tx = _grid(grid_size)
+    if H % ty == 0 and W % tx == 0:
+        pad_h = pad_w = 0
+    else:
+        pad_h = ty - (H % ty)
+        pad_w = tx - (W % tx)
+    tile_h = (H + pad_h) // ty
+    tile_w = (W + pad_w) // tx
+    area = tile_h * tile_w
+    if clip_limit > 0:
+        climit = max(int(clip_limit * area / 256.0), 1)
+    else:
+        climit = area  # no clipping
+    return tile_h, tile_w, climit, np.float32(255.0 / area)
+
+
+def reflect101(idx, n):
+    """BORDER_REFLECT_101 index map onto [0, n) (cv2 borderInterpolate)."""
+    if n == 1:
+        return torch.zeros_like(idx)
+    period = 2 * n - 2
+    idx = idx.remainder(period)
+    return torch.where(idx >= n, period - idx, idx)
+
+
+def _clip_histogram(hist, climit):
+    """Clip (..., 256) int histograms at `climit`, redistribute the excess."""
+    clipped = (hist - climit).clamp(min=0).sum(dim=-1, keepdim=True)
+    hist = hist.clamp(max=climit)
+    redist = clipped // 256
+    residual = clipped - redist * 256          # (..., 1) in [0, 255]
+    hist = hist + redist
+    # residual goes to bins j with j % step == 0 and j // step < residual
+    step = (256 // residual.clamp(min=1)).clamp(min=1)
+    bins = torch.arange(256, device=hist.device)
+    bonus = (bins % step == 0) & (bins // step < residual)
+    return hist + bonus.to(hist.dtype)
+
+
+def _round_half_even_u8(x):
+    """cv::saturate_cast<uchar>(float): round-half-to-even then clamp."""
+    return torch.round(x).clamp(0, 255).to(torch.uint8)
+
+
+def tile_coords(n, tsize, tcount):
+    """cv2's float32 interpolation coordinates along one axis, in numpy f32:
+    (i1, i2, a, 1 - a) for positions 0..n-1."""
+    inv = np.float32(1.0) / np.float32(tsize)
+    f = np.arange(n, dtype=np.float32) * inv - np.float32(0.5)
+    i1 = np.floor(f).astype(np.int64)
+    a = (f - i1).astype(np.float32)
+    i2 = np.clip(i1 + 1, 0, tcount - 1)
+    i1 = np.clip(i1, 0, tcount - 1)
+    return i1, i2, a, (np.float32(1.0) - a).astype(np.float32)
+
+
+def clahe_u8_plain(img, clip_limit=4.0, grid_size=(8, 8)):
+    """The plain PyTorch version of K1. img: (N, H, W) or (H, W) uint8."""
+    squeeze = img.dim() == 2
+    if squeeze:
+        img = img[None]
+    N, H, W = img.shape
+    ty, tx = _grid(grid_size)
+    tile_h, tile_w, climit, lut_scale = clahe_geometry(H, W, clip_limit,
+                                                       (ty, tx))
+    dev = img.device
+    T = ty * tx
+
+    ys = reflect101(torch.arange(ty * tile_h, device=dev), H)
+    xs = reflect101(torch.arange(tx * tile_w, device=dev), W)
+    padded = img[:, ys][:, :, xs]
+    tiles = padded.reshape(N, ty, tile_h, tx, tile_w).permute(0, 1, 3, 2, 4)
+    tiles = tiles.reshape(N, T, tile_h * tile_w).long()
+    ids = tiles + 256 * torch.arange(N * T, device=dev).view(N, T, 1)
+    hist = torch.bincount(ids.flatten(), minlength=N * T * 256)
+    hist = _clip_histogram(hist.view(N, T, 256), climit)
+    cdf = hist.cumsum(dim=-1).to(torch.float32)
+    lut = _round_half_even_u8(cdf * torch.tensor(lut_scale, device=dev))
+
+    def axis(n, ts, tc):
+        return [torch.from_numpy(v).to(dev)
+                for v in tile_coords(n, ts, tc)]
+
+    y1, y2, ya, oma_y = axis(H, tile_h, ty)
+    x1, x2, xa, oma_x = axis(W, tile_w, tx)
+    lutf = lut.view(N, T * 256).to(torch.float32)
+    v = img.long().view(N, H * W)
+
+    def corner(yi, xi):
+        base = ((yi[:, None] * tx + xi[None, :]) * 256).view(1, H * W)
+        return lutf.gather(1, base + v).view(N, H, W)
+
+    xa, oma_x = xa[None, None, :], oma_x[None, None, :]
+    ya, oma_y = ya[None, :, None], oma_y[None, :, None]
+    # separate eager ops: every product and sum rounds on its own, as in cv2
+    top = corner(y1, x1) * oma_x + corner(y1, x2) * xa
+    bot = corner(y2, x1) * oma_x + corner(y2, x2) * xa
+    out = _round_half_even_u8(top * oma_y + bot * ya)
+    return out[0] if squeeze else out
+
+
+def clahe_u8(img, clip_limit=4.0, grid_size=(8, 8)):
+    """Dispatch by device: the K1 kernel pair for a CUDA tensor, the plain
+    version for a CPU tensor. img: (N, H, W) or (H, W) uint8."""
+    if img.device.type == "cpu":
+        return clahe_u8_plain(img, clip_limit, grid_size)
+    from gandtr_tpu_torch.kernels.clahe import clahe_u8_cuda
+    return clahe_u8_cuda(img, clip_limit, grid_size)
+
+
+def channel_clahe(chan, clip_limit, grid_size):
+    """float [0,1] channel (N, H, W) -> truncate to uint8 at 255 -> CLAHE ->
+    /255 float (reference ChannelClahe.apply)."""
+    u8 = (chan.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    return clahe_u8(u8, clip_limit, grid_size).to(torch.float32) / 255.0
+
+
+def image_clahe(img, clip_limit=4.0, grid_size=8, colorspace="lab"):
+    """CLAHE on the lightness channel of `colorspace`, back to RGB.
+    img: (N, H, W, 3) or (H, W, 3) float RGB in [0, 1]."""
+    spc = cs.rgb2normspace(img, colorspace)
+    L = channel_clahe(spc[..., 0], clip_limit, grid_size)
+    spc = torch.cat([L[..., None], spc[..., 1:]], dim=-1)
+    return cs.normspace2rgb(spc, colorspace)

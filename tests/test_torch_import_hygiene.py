@@ -1,0 +1,72 @@
+"""The port stands alone: no module of gandtr_tpu_torch imports jax, flax
+or the JAX package, and its entry points refuse to fall back to the CPU."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "gandtr_tpu_torch"
+FORBIDDEN = ("jax", "flax", "gandtr_tpu")
+
+torch.set_num_threads(1)
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import gandtr_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'gandtr_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'gandtr_tpu'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 15 else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_source_file_names_jax():
+    """Also the imports inside functions, which the run above may not reach."""
+    bad = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += ["%s: %s" % (path.name, n) for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("entry", ["hub", "serve_http"])
+def test_entry_points_raise_without_cuda(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.serving.service import serve_http
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "hub":
+            hub.gem_vgg16_hedngan(pretrained=False)
+        else:
+            serve_http({}, block=False)
+
+
+def test_kernel_wrapper_takes_cuda_tensors_only():
+    """The CPU path is chosen by the tensor's device in ops/clahe.py; the
+    kernel's wrapper itself never falls back, and counts no launch."""
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.ops.clahe import clahe_u8
+    before = kclahe.LAUNCHES
+    img = torch.zeros((2, 16, 16), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kclahe.clahe_u8_cuda(img, 1.0, 8)
+    assert clahe_u8(img, 1.0, 8).shape == img.shape
+    assert kclahe.LAUNCHES == before
