@@ -6,7 +6,9 @@ The host transforms work on one image at a time: PIL image or uint8 array
 in, (H, W, 3) float32 CPU tensor out (NHWC like the JAX package; CLAHE runs
 its plain version there). `split_device_transform` gives the same
 preprocessing as a batch function on the tensor's device, where CLAHE is
-one launch of the K1 kernel pair for the whole batch.
+one launch of the K1 kernel pair for the whole batch. The generators'
+pipeline `pil2np | totensor | normalize` splits the same way (no CLAHE),
+and `device_quantize_rgb` turns a generator's output back into uint8 RGB.
 """
 import numpy as np
 import torch
@@ -122,3 +124,12 @@ def split_device_transform(transforms_str, mean_std):
         return (x - mean.to(x.device)) / std.to(x.device)
 
     return host_fn, device_fn
+
+
+def device_quantize_rgb(y, mean_std):
+    """Denormalize a generator output and truncate it to uint8 RGB on its
+    device, in float32: floor(clip(y * std + mean, 0, 1) * 255)."""
+    mean = torch.tensor(mean_std[0], dtype=torch.float32, device=y.device)
+    std = torch.tensor(mean_std[1], dtype=torch.float32, device=y.device)
+    rgb = torch.clamp(y.float() * std + mean, 0.0, 1.0)
+    return torch.floor(rgb * 255.0).to(torch.uint8)

@@ -6,16 +6,20 @@ on the CPU quietly. Only an explicit `device="cpu"` runs on the CPU.
 TF32 is switched off here, in one place, for both cuDNN convolutions and
 CUDA matmuls: the reference evaluation runs in float32, and TF32 keeps only
 about three decimal digits (cuDNN enables it for convolutions by default).
-Every entry point calls `resolve_device`, so the policy holds before any
-work reaches the card.
+cuDNN is also held to deterministic algorithms (a transposed convolution
+may otherwise sum with atomics), so a served image is the same bit for bit
+however often it is computed. Every entry point calls `resolve_device`, so
+the policy holds before any work reaches the card.
 """
 import torch
 
 
 def set_float32_policy():
-    """Full float32 on the card: TF32 off for convolutions and matmuls."""
+    """Full float32 on the card: TF32 off for convolutions and matmuls;
+    deterministic cuDNN algorithms."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 def resolve_device(device=None):

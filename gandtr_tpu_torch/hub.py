@@ -1,5 +1,6 @@
-"""Public model API (counterpart of gandtr_tpu/hub.py) for the GeM VGG16
-descriptor nets: `gem_vgg16_cyclegan` and `gem_vgg16_hedngan`.
+"""Public model API (counterpart of gandtr_tpu/hub.py): the GeM VGG16
+descriptor nets `gem_vgg16_cyclegan` and `gem_vgg16_hedngan`, and the
+day-to-night ResNet generators `cyclegan` and `hedngan`.
 
 `pretrained=False` gives seeded random weights (made on the CPU from a
 `torch.Generator`, then moved, so every device holds the same net). With
@@ -8,8 +9,11 @@ a local learned-whitening (Lw) pickle: this package downloads nothing. The
 published files are at `BASE_URL`.
 
 Each entry point runs on `cuda` unless the caller passes `device="cpu"`
-(device.py). `model(images)` takes normalized (N, H, W, 3) float images;
-`model.transform(pil_or_uint8)` is the host preprocessing of one image.
+(device.py). `model(images)` takes normalized (N, H, W, 3) float images
+and returns (N, D) descriptors or, for a generator, (N, H, W, 3) images in
+(-1, 1); `model.transform(pil_or_uint8)` is the host preprocessing of one
+image. Mixed precision is `model.net.compute_dtype = torch.bfloat16`, as the
+JAX package's `WrappedNet.compute_dtype`.
 """
 import math
 import pickle
@@ -22,6 +26,7 @@ from gandtr_tpu_torch.learning.network import WrappedNet
 from gandtr_tpu_torch.learning.wrappers import (CirMultiscaleAggregation,
                                                 CirtorchWhiten)
 from gandtr_tpu_torch.models import initialize_model
+from gandtr_tpu_torch.models.init import initialize_weights
 
 BASE_URL = "http://ptak.felk.cvut.cz/personal/jenicto2/download/iccv23_gan/"
 
@@ -29,11 +34,17 @@ EMBEDDING_DATA = {
     "transforms": "pil2np | apply_clahe:1.0 | totensor | normalize",
     "mean_std": [[0.485, 0.456, 0.406], [0.229, 0.224, 0.225]],
 }
+GENERATOR_DATA = {
+    "transforms": "pil2np | totensor | normalize",
+    "mean_std": [[0.5, 0.5, 0.5], [0.5, 0.5, 0.5]],
+}
 
 
 class HubModel:
-    """A descriptor net on a device with its host preprocessing transform.
-    `model(model.transform(img)[None])` -> (N, D) descriptors."""
+    """A net on a device with its host preprocessing transform.
+    `model(model.transform(img)[None])` -> (N, D) descriptors, or (N, H, W,
+    3) images for a generator: in the net's compute dtype, or float32 where
+    a frozen BatchNorm promoted them, as in the JAX package."""
 
     def __init__(self, net, transform, device, meta=None):
         self.net = net
@@ -133,3 +144,41 @@ def gem_vgg16_hedngan(pretrained=False, device=None, checkpoint=None,
     CLAHE (published as hedngan_embed_vgg16.pth and its _lw.pkl)."""
     return _embedding("vgg16", checkpoint, whitening, pretrained,
                       device=device)
+
+
+def _generator(norm_layer="instance", checkpoint=None, pretrained=True,
+               init_weights="normal_p2p", seed=0, device=None):
+    """The 9-block ResNet generator of the reference hub (no_antialias,
+    reflect padding), with seeded `init_weights` or a local checkpoint."""
+    dev = resolve_device(device)
+    module = initialize_model({
+        "architecture": "official_resnet_generator",
+        "no_antialias": True, "no_antialias_up": True,
+        "input_nc": 3, "output_nc": 3, "n_blocks": 9,
+        "norm_layer": norm_layer})
+    if pretrained:
+        state = torch.load(_local(checkpoint, "checkpoint"),
+                           map_location="cpu", weights_only=False)
+        module.load_state_dict(_checkpoint_model_state(state), strict=True)
+    else:
+        initialize_weights(module, init_weights, seed=seed)
+    module.to(dev).eval()
+    net = WrappedNet(module=module, meta=module.meta,
+                     data_params=dict(GENERATOR_DATA))
+    transform = initialize_transforms(GENERATOR_DATA["transforms"],
+                                      GENERATOR_DATA["mean_std"])
+    return HubModel(net, transform, dev, meta=dict(module.meta))
+
+
+def cyclegan(pretrained=False, device=None, checkpoint=None):
+    """ResNet CycleGAN day-to-night generator: instance norm, normal_p2p
+    init (published as cyclegan_generator_X.pth)."""
+    return _generator("instance", checkpoint, pretrained, device=device)
+
+
+def hedngan(pretrained=False, device=None, checkpoint=None):
+    """ResNet HED^N-GAN day-to-night generator (published as
+    hedngan_generator_X.pth, instance norm); not pretrained it is the
+    reference's batch-norm default with kaiming_p2p init."""
+    return _generator("instance" if pretrained else "batch", checkpoint,
+                      pretrained, init_weights="kaiming_p2p", device=device)

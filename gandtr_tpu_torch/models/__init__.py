@@ -1,5 +1,7 @@
-"""Model registry (counterpart of gandtr_tpu/models/__init__.py). Only the
-descriptor net `cirnet` (GeM VGG16) is ported so far."""
+"""Model registry (counterpart of gandtr_tpu/models/__init__.py). Ported so
+far: the descriptor net `cirnet` (GeM VGG16) and the ResNet generator
+`official_resnet_generator`."""
+from gandtr_tpu_torch.models.generators import ResnetGenerator
 from gandtr_tpu_torch.models.retrieval import GemRetrievalNet
 
 
@@ -13,8 +15,17 @@ def _cirnet(**kw):
     )
 
 
+def _resnet_generator(**kw):
+    # the reference's default is BATCH norm (p2p_networks.py:245); every
+    # iccv23 config sets norm_layer: instance explicitly
+    kw.setdefault("norm_type", kw.pop("norm_layer", "batch"))
+    kw.pop("track_running_stats", None)
+    return ResnetGenerator(**kw)
+
+
 MODEL_LABELS = {
     "cirnet": _cirnet,
+    "official_resnet_generator": _resnet_generator,
 }
 
 

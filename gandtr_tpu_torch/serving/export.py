@@ -4,20 +4,32 @@
 serving artifact, with the same `meta` keys: uint8 (N, H, W, 3) images in,
 the device preprocessing (/255, CLAHE, normalize) inside the forward, and
 requests padded up to a batch bucket and the outputs sliced (exact: every
-step is per image). Serializing it (`torch.export`) is not ported yet.
+step is per image). An embedding model answers (N, D) float32 descriptors;
+a generator answers uint8 (N, H, W, 3) images, quantized on the device
+(`device_quantize_rgb`). Serializing it (`torch.export`) is not ported yet.
 """
 import numpy as np
 import torch
 
-from gandtr_tpu_torch.data.transforms import split_device_transform
+from gandtr_tpu_torch.data.transforms import (device_quantize_rgb,
+                                              split_device_transform)
 from gandtr_tpu_torch.learning.wrappers import CirtorchWhiten
+from gandtr_tpu_torch.models.generators import ResnetGenerator
 
 FORMAT_VERSION = 1
 
 
-def _export_forward(model):
-    """(transforms, mean_std, forward) of a uint8-input embedding model:
-    forward((N, H, W, 3) uint8 tensor on the model's device) -> (N, D)."""
+def _artifact_kind(model):
+    """'embedding' (descriptor nets: output (N, D)) or 'generator'
+    (image to image: output (N, H, W, C)). Descriptor models carry a
+    pooling entry in their meta."""
+    return "embedding" if "pooling" in model.meta else "generator"
+
+
+def _export_forward(model, kind):
+    """(transforms, mean_std, forward) of a uint8-input model: forward((N,
+    H, W, 3) uint8 tensor on the model's device) -> (N, D) descriptors, or
+    uint8 (N, H, W, 3) images for a generator."""
     data_params = dict(model.net.data_params)
     mean_std = data_params["mean_std"]
     tf_str = data_params["transforms"]
@@ -29,7 +41,10 @@ def _export_forward(model):
 
     def forward(x):
         x = device_pre(x.to(torch.float32) / 255.0)
-        return model.net.apply(x, ctx=ctx)
+        y = model.net.apply(x, ctx=ctx)
+        if kind == "generator":
+            y = device_quantize_rgb(y, mean_std)
+        return y
 
     return tf_str, mean_std, forward
 
@@ -41,28 +56,35 @@ def _descriptor_dim(model):
     return int(model.meta["out_channels"])
 
 
+def _output_shape(model, kind, h, w):
+    if kind == "generator":
+        return list(ResnetGenerator.output_hw(h, w)) + [
+            int(model.meta["out_channels"])]
+    return [_descriptor_dim(model)]
+
+
 class Servable:
     """`servable(images)` on a numpy uint8 (N, H, W, 3) array -> numpy
-    (N, D) float32 descriptors, computed on `model.device`."""
+    (N, D) float32 descriptors, or uint8 (N, H, W, 3) images for a
+    generator, computed on `model.device`."""
 
     def __init__(self, model, image_hw, batch_buckets=(1, 4, 8)):
-        if "pooling" not in model.meta:
-            raise NotImplementedError("only embedding models are servable yet")
+        kind = _artifact_kind(model)
         self.model = model
         self.device = model.device
         self.buckets = sorted(set(int(b) for b in batch_buckets))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError("batch buckets must be >= 1: %r" % batch_buckets)
-        tf_str, mean_std, self._forward = _export_forward(model)
+        tf_str, mean_std, self._forward = _export_forward(model, kind)
         h, w = int(image_hw[0]), int(image_hw[1])
         self.meta = {
             "format_version": FORMAT_VERSION,
-            "kind": "embedding",
+            "kind": kind,
             "image_hw": [h, w],
             "batch_buckets": list(self.buckets),
             "input_dtype": "uint8",
             "with_mask": False,
-            "output_shape_per_item": [_descriptor_dim(model)],
+            "output_shape_per_item": _output_shape(model, kind, h, w),
             "transforms": tf_str,
             "mean_std": [list(map(float, mean_std[0])),
                          list(map(float, mean_std[1]))],

@@ -3,8 +3,9 @@ gandtr_tpu/serving/service.py).
 
 `BatchingService` collects concurrent requests (up to `max_batch`, or until
 `max_wait_ms` passes), runs ONE forward for them and fans the rows back out.
-`serve_http` is a stdlib ThreadingHTTPServer: npy, JPEG or PNG image in,
-JSON descriptor out. Endpoints: GET /healthz, GET /v1/models,
+`serve_http` is a stdlib ThreadingHTTPServer: npy, JPEG or PNG image in;
+out, a JSON descriptor from an embedding model or an `image/png` from a
+generator. Endpoints: GET /healthz, GET /v1/models,
 POST /v1/models/<name>:predict. (`:search` and the native decoder are not
 ported yet.)
 """
@@ -27,10 +28,12 @@ _STOP = object()
 class BatchingService:
     """Micro-batches concurrent `submit` calls into single `fn` invocations.
     `fn` takes stacked (N, ...) arrays and returns an (N, ...) array; each
-    submit returns a Future of its output row."""
+    submit returns a Future of its output row. `batches` counts the batches
+    formed."""
 
     def __init__(self, fn, max_batch=8, max_wait_ms=5.0):
         self.fn = fn
+        self.batches = 0
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1000.0
         self._q = queue.Queue()
@@ -87,6 +90,7 @@ class BatchingService:
 
     def _run(self, batch):
         futs = [f for _, f in batch]
+        self.batches += 1
         try:
             nargs = len(batch[0][0])
             stacked = [np.stack([item[0][j] for item in batch])
@@ -137,6 +141,14 @@ def _decode_image_bytes(body, content_type):
     return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
 
 
+def encode_png(img):
+    """uint8 (H, W, 3) RGB -> PNG bytes (PIL, default compression)."""
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(np.asarray(img)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
 def _fit_to_servable(img, meta):
     """Resize a decoded uint8 image to the servable's fixed (H, W)."""
     h, w = meta["image_hw"]
@@ -152,10 +164,11 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # quiet; the service layer logs
         pass
 
-    def _send(self, code, payload):
-        body = json.dumps(payload).encode()
+    def _send(self, code, payload, ctype="application/json"):
+        body = (json.dumps(payload).encode() if ctype == "application/json"
+                else payload)
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
@@ -194,7 +207,9 @@ class _Handler(BaseHTTPRequestHandler):
             out = entry.batcher.submit(x).result(timeout=600)
         except Exception as e:
             return self._send(500, {"error": "%s: %s" % (type(e).__name__, e)})
-        self._send(200, {"descriptor": [float(v) for v in out]})
+        if entry.meta["kind"] == "embedding":
+            return self._send(200, {"descriptor": [float(v) for v in out]})
+        self._send(200, encode_png(out), ctype="image/png")
 
 
 class _ModelEntry:

@@ -34,6 +34,60 @@ def test_k1_bit_equal_to_plain(cuda, shape, grid, clip):
     assert torch.equal(got, clahe_u8_plain(x, clip, grid))
 
 
+def _block_case(shape, seed=0):
+    """_random_case of tests/test_resblock_pallas.py at any shape."""
+    N, H, W, C = shape
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(N, H, W, C) * 0.5).astype(np.float32)
+    w1 = (rng.randn(3, 3, C, C) * 0.05).astype(np.float32)
+    w2 = (rng.randn(3, 3, C, C) * 0.05).astype(np.float32)
+    b1 = (rng.randn(C) * 0.1).astype(np.float32)
+    b2 = (rng.randn(C) * 0.1).astype(np.float32)
+    return x, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 23, 64), (2, 16, 24, 256),
+                                   (1, 48, 64, 128)])
+def test_k3_matches_plain(cuda, shape):
+    """K3 against its plain version on the same bf16 inputs: they share every
+    rounding point and differ in summation order only, so the bound is the
+    JAX kernel test's (tests/test_resblock_pallas.py:47-49); two launches on
+    the same input are bit-equal (fixed reduction order, no atomics)."""
+    from gandtr_tpu_torch.device import set_float32_policy
+    from gandtr_tpu_torch.kernels import resblock as kres
+    from gandtr_tpu_torch.ops.resblock import (fused_resblock,
+                                               fused_resblock_plain)
+    set_float32_policy()
+    x, w1, b1, w2, b2 = [torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+                         for a in _block_case(shape)]
+    before = kres.LAUNCHES
+    got = fused_resblock(x, w1, b1, w2, b2)
+    again = fused_resblock(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert kres.LAUNCHES == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got, again)
+    d = (got.float() - fused_resblock_plain(x, w1, b1, w2, b2).float()).abs()
+    assert float(d.max()) < 0.06 and float(d.mean()) < 0.01
+
+
+def test_k3_refuses_what_it_does_not_take(cuda):
+    from gandtr_tpu_torch.kernels.resblock import fused_resblock_cuda
+    C = 24
+    x = torch.zeros((1, 8, 8, C), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((9 * C, C), dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros((C,), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="C % 16"):
+        fused_resblock_cuda(x, w, b, w, b)
+    x = torch.zeros((1, 8, 8, 32), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((9 * 32, 32), dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros((32,), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_resblock_cuda(x.permute(0, 2, 1, 3), w, b, w, b)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_resblock_cuda(x.float(), w, b, w, b)
+
+
 def test_served_descriptor_matches_cpu(cuda):
     """TF32 off on the card: within 1e-4 of the port on the CPU."""
     from gandtr_tpu_torch import hub

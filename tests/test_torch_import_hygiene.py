@@ -10,6 +10,11 @@ import torch
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "gandtr_tpu_torch"
 FORBIDDEN = ("jax", "flax", "gandtr_tpu")
+NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
+          "kernels.clahe", "kernels.resblock", "models.retrieval",
+          "models.layers", "models.init", "models.generators",
+          "learning.network", "data.transforms", "serving.export",
+          "serving.service", "utils.weights")
 
 torch.set_num_threads(1)
 
@@ -25,8 +30,9 @@ def test_importing_every_module_loads_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'gandtr_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'gandtr_tpu'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 15 else 0)\n")
+        "need = {'gandtr_tpu_torch.' + m for m in %r}\n"
+        "print(len(names), bad, sorted(need - set(names)))\n"
+        "sys.exit(1 if bad or need - set(names) else 0)\n" % (NEEDED,))
     out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -47,7 +53,8 @@ def test_no_source_file_names_jax():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("entry", ["hub", "serve_http"])
+@pytest.mark.parametrize("entry", ["hub", "serve_http", "cyclegan",
+                                   "hedngan"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from gandtr_tpu_torch import hub
@@ -55,8 +62,11 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "hub":
             hub.gem_vgg16_hedngan(pretrained=False)
-        else:
+        elif entry == "serve_http":
             serve_http({}, block=False)
+        else:
+            getattr(hub, entry)(pretrained=False)
+
 
 
 def test_kernel_wrapper_takes_cuda_tensors_only():
@@ -70,3 +80,18 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
         kclahe.clahe_u8_cuda(img, 1.0, 8)
     assert clahe_u8(img, 1.0, 8).shape == img.shape
     assert kclahe.LAUNCHES == before
+
+
+def test_resblock_wrapper_takes_cuda_tensors_only():
+    """The same for K3: ops/resblock.py picks the plain version for a CPU
+    tensor; the wrapper raises and counts nothing."""
+    from gandtr_tpu_torch.kernels import resblock as kres
+    from gandtr_tpu_torch.ops.resblock import fused_resblock
+    before = kres.LAUNCHES
+    x = torch.zeros((1, 4, 4, 16), dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, 16, 16), dtype=torch.bfloat16)
+    b = torch.zeros((16,), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kres.fused_resblock_cuda(x, w.view(144, 16), b, w.view(144, 16), b)
+    assert fused_resblock(x, w, b, w, b).shape == x.shape
+    assert kres.LAUNCHES == before

@@ -1,6 +1,7 @@
-"""The port's served path as a whole, on the CPU: uint8 images -> LAB CLAHE
--> normalize -> GeM VGG16 at 3 scales -> (Lw) -> descriptor, against the
-JAX package's serving forward on the same weights; then the HTTP server."""
+"""The port's served paths as a whole, on the CPU, against the JAX package's
+serving forward on the same weights: uint8 images -> LAB CLAHE -> normalize
+-> GeM VGG16 at 3 scales -> (Lw) -> descriptor, and uint8 images ->
+normalize -> ResNet generator -> uint8 images; then the HTTP server."""
 import io
 import json
 import threading
@@ -18,7 +19,8 @@ from gandtr_tpu.serving.export import _export_forward
 from gandtr_tpu_torch import hub as thub
 from gandtr_tpu_torch.learning.wrappers import CirtorchWhiten as TWhiten
 from gandtr_tpu_torch.serving.export import Servable
-from gandtr_tpu_torch.serving.service import BatchingService, serve_http
+from gandtr_tpu_torch.serving.service import (BatchingService, encode_png,
+                                              serve_http)
 from gandtr_tpu_torch.utils.weights import from_jax_variables
 
 torch.set_num_threads(1)
@@ -165,6 +167,70 @@ def test_hub_loads_local_checkpoint_and_lw(models, tmp_path):
     with pytest.raises(ValueError, match="local file"):
         thub.gem_vgg16_hedngan(pretrained=True, device="cpu",
                                checkpoint=thub.BASE_URL + "x.pth")
+
+
+GEN_HW = (32, 48)
+
+
+@pytest.fixture(scope="module")
+def generators():
+    """The hub's cyclegan generator (9 blocks, full width) in both packages,
+    on the JAX one's seeded weights."""
+    jm = jhub._generator("instance", pretrained=False)
+    tm = thub._generator("instance", pretrained=False, device="cpu")
+    tm.net.module.load_state_dict(from_jax_variables(
+        jax.tree_util.tree_map(np.asarray, jm.variables)), strict=True)
+    return jm, tm
+
+
+def test_served_generator_matches_jax(generators):
+    """float32 on both sides; the uint8 images within one level: a float32
+    summation-order difference can carry a value across a floor boundary."""
+    jm, tm = generators
+    x = np.random.RandomState(3).randint(0, 256, (2,) + GEN_HW + (3,),
+                                         dtype=np.uint8)
+    _, _, forward = _export_forward(jm, from_uint8=True, kind="generator")
+    want = np.asarray(jax.jit(forward)(jnp.asarray(x)))
+    servable = Servable(tm, GEN_HW)
+    got = servable(x)
+    assert servable.meta["kind"] == "generator"
+    assert servable.meta["output_shape_per_item"] == list(GEN_HW) + [3]
+    assert got.dtype == want.dtype == np.uint8
+    assert got.shape == want.shape == (2,) + GEN_HW + (3,)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_http_generator_answers_png(generators):
+    """:predict on a generator answers image/png, which decodes to the
+    direct call's uint8 image exactly (both run as a batch of one)."""
+    from PIL import Image
+    _, tm = generators
+    servable = Servable(tm, GEN_HW)
+    server = serve_http({"gen": servable}, port=0, block=False, device="cpu")
+    try:
+        base = "http://127.0.0.1:%d" % server.server_address[1]
+        meta = _get(base + "/v1/models")["gen"]
+        assert meta["kind"] == "generator"
+        x = np.random.RandomState(4).randint(0, 256, (2,) + GEN_HW + (3,),
+                                             dtype=np.uint8)
+        for img in x:
+            buf = io.BytesIO()
+            np.save(buf, img)
+            req = urllib.request.Request(
+                base + "/v1/models/gen:predict", data=buf.getvalue(),
+                method="POST",
+                headers={"Content-Type": "application/octet-stream"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                assert r.headers["Content-Type"] == "image/png"
+                body = r.read()
+            want = servable(img[None])[0]
+            assert body == encode_png(want)
+            got = np.asarray(Image.open(io.BytesIO(body)))
+            assert got.dtype == np.uint8 and got.shape == GEN_HW + (3,)
+            np.testing.assert_array_equal(got, want)
+        assert server.models["gen"].batcher.batches == 2
+    finally:
+        server.close()
 
 
 def test_batching_service_under_contention():
