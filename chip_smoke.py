@@ -8,6 +8,15 @@
 3. K1 (static CLAHE) against its plain PyTorch version on the card:
    bit-equal on a batch of 8 at 768x1024, a 29x35 and a 362x500 image, at
    grids 8 and 4; kernel and plain medians by CUDA events.
+   K2 (VGG16's 64/128-channel 3x3 conv) against its plain version at the
+   fine-tune's (7, 364, 364, 64) and (7, 182, 182, 128) and at (2, 30,
+   26, 64) and (2, 15, 13, 128), bf16 and float32 out, with and without
+   ReLU: within 2e-2 and 2e-5, bit-equal on repeat; its autograd backward
+   against autograd of the plain conv under the kernel's ReLU mask; K2,
+   plain, library (cuDNN bf16 conv + bias + ReLU) medians and the bound.
+   K4 (masked CLAHE, LUT build + interpolation) against its plain version
+   bit for bit on a (7, 364, 364) bucket of the fine-tune's rectangles,
+   grids 8 and 4, clips 1.0 and 4.0; kernel and plain medians.
 4. K3 (the fused ResNet block) against its plain version and the float32
    block, at the served block shape (8, 192, 256, 256) and at (2, 17, 23,
    64): within max 0.06 and mean 0.01, and two launches bit-equal; K3,
@@ -28,8 +37,21 @@
    and mean 0.01, and within 1e-4. With the served seeded normal_p2p
    weights, a chaotic net, within mean 0.01; the rest is printed beside
    the net's own response to a one-level input change.
-7. Stage breakdowns of one batch of each path, the `{"kernels": [...]}`
-   line, the card's line again, and last `{"ok": true, "device": {...}}`.
+7. The GeM fine-tune tuple step of finetune.yml (`FINETUNE`: the
+   published network and learning sections, seeded weights, the embed in
+   bf16) through `build_finetune_experiment` on `cuda`: T=5 tuples of 7
+   uint8 images in a 364 bucket, the anchors of tuples 0, 2 and 4 through
+   the frozen 9-block batch-norm generator; 2 warm-up steps, then 5 timed
+   steps with every launch count set to 0 just before them: finite losses,
+   every embed parameter moved, the generator untouched, float32 master
+   parameters, K2 launched 10 and K4 5 times per step. Then one step's
+   breakdown by CUDA events, and parity: the bf16 step with K2 and K4
+   swapped for their plain versions (loss within 1%, descriptors within
+   5e-3, the updated conv weights within 1e-4 of their size), and one
+   float32 tuple on the card against the port on the CPU (within 1e-4).
+8. Stage breakdowns of one batch of each served path, the `{"kernels":
+   [...]}` line, the card's line again, and last `{"ok": true, "device":
+   {...}}`.
 
 Exits nonzero, printing no result, without CUDA or without the package.
 """
@@ -55,6 +77,14 @@ F32_FLOP_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_FLOP_S = 989e12      # H100 SXM dense bf16 tensor cores
 K3_SHAPES = [(N_REQ, HW[0] // 4, HW[1] // 4, 256), (2, 17, 23, 64)]
 K3_MAX, K3_MEAN = 0.06, 0.01   # tests/test_resblock_pallas.py:47-49
+# the GeM fine-tune tuple step: T tuples of S images in a 364 bucket (the
+# published image_size 362, rounded for the generator), with the
+# rectangles imresize(., 362) leaves
+BUCKET = 364
+K4_RECTS = [(362, 241), (272, 362), (362, 362), (362, 203), (300, 362),
+            (41, 57), (29, 35)]
+K2_SHAPES = [(7, BUCKET, BUCKET, 64), (7, BUCKET // 2, BUCKET // 2, 128),
+             (2, 30, 26, 64), (2, 15, 13, 128)]
 
 
 def card_line():
@@ -101,17 +131,21 @@ def build_all():
     return names
 
 
-def reset_launches():
+def _kernel_modules():
     from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
     from gandtr_tpu_torch.kernels import resblock as kres
-    kclahe.LAUNCHES = 0
-    kres.LAUNCHES = 0
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    return {"K1": kclahe, "K2": kvgg, "K3": kres, "K4": kmasked}
+
+
+def reset_launches():
+    for mod in _kernel_modules().values():
+        mod.LAUNCHES = 0
 
 
 def launches():
-    from gandtr_tpu_torch.kernels import clahe as kclahe
-    from gandtr_tpu_torch.kernels import resblock as kres
-    return {"K1": kclahe.LAUNCHES, "K3": kres.LAUNCHES}
+    return {k: mod.LAUNCHES for k, mod in _kernel_modules().items()}
 
 
 def check_k1(dev):
@@ -254,6 +288,171 @@ def check_k3(dev):
     del x, w1, w2, b1, b2, args, got, again
     torch.cuda.empty_cache()
     return out
+
+
+def _within(got, want, tol):
+    """max |got - want| - tol * (1 + |want|) <= 0, and the max |diff|."""
+    d = (got.float() - want.float()).abs()
+    excess = float((d - tol * (1 + want.float().abs())).max())
+    return excess <= 0, float(d.max())
+
+
+def check_k2(dev):
+    """K2 against its plain version (float32 sums of the same bf16 products)
+    at the fine-tune path's two shapes and two ragged ones, bf16 and float32
+    out, with and without ReLU: within 2e-5 (float32 out) and 2e-2 (bf16
+    out) of 1 + |plain| (tests/test_vggconv_pallas.py:38, :51), and two
+    launches bit-equal. Then Conv3x3Same's backward against autograd of the
+    plain conv under the kernel's own ReLU mask, and the timings at the
+    path's shapes (bf16 out, ReLU, as VGG16 calls it)."""
+    import torch.nn.functional as F
+    from gandtr_tpu_torch.device import set_float32_policy
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.ops.vggconv import conv3x3_same_plain
+    set_float32_policy()        # the plain conv in full float32
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {"shapes": {}, "max_abs_err": 0.0}
+    for shape in K2_SHAPES:
+        N, H, W, C = shape
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((3, 3, C, C), generator=g, device=dev)
+             / (3.0 * C ** 0.5)).to(torch.bfloat16)
+        b = torch.randn((C,), generator=g, device=dev) * 0.1
+        wmat = w.reshape(9 * C, C)
+        for out_dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            for relu in (False, True):
+                got = kvgg.conv3x3_same_cuda(x, wmat, b, relu, out_dtype)
+                again = kvgg.conv3x3_same_cuda(x, wmat, b, relu, out_dtype)
+                want = conv3x3_same_plain(x, w, b, relu, out_dtype)
+                torch.cuda.synchronize()
+                ok, err = _within(got, want, tol)
+                print("K2 %-18s %-8s relu %d: max |kernel - plain| = %.3g, "
+                      "repeat bit-equal %s"
+                      % (shape, str(out_dtype).split(".")[1], relu, err,
+                         torch.equal(got, again)))
+                if not ok or not torch.equal(got, again):
+                    raise AssertionError("K2 at %s %s relu %d: %g"
+                                         % (shape, out_dtype, relu, err))
+                if shape in K2_SHAPES[:2] and out_dtype == torch.bfloat16 \
+                        and relu:
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+                del got, again, want
+        if shape in (K2_SHAPES[1], K2_SHAPES[2]):
+            _check_k2_backward(x, w, b, g)
+        if shape not in K2_SHAPES[:2]:
+            continue
+        t = {"ms": cuda_ms(lambda: kvgg.conv3x3_same_cuda(
+            x, wmat, b, True, torch.bfloat16), reps=20)}
+        t["plain_ms"] = cuda_ms(lambda: conv3x3_same_plain(
+            x, w, b, True, torch.bfloat16), reps=5)
+        xl = x.permute(0, 3, 1, 2)     # NHWC memory seen as NCHW
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bl = b.to(torch.bfloat16)
+        t["library_ms"] = cuda_ms(lambda: torch.relu(F.conv2d(
+            xl, wl, bl, padding=1)), reps=20)
+        flops = 2 * N * H * W * 9 * C * C
+        nbytes = 2 * N * H * W * C * 2 + 9 * C * C * 2 + C * 4
+        t["bound_ms"] = 1e3 * max(flops / BF16_FLOP_S, nbytes / HBM_BYTES_S)
+        t["bound_by"] = ("operations" if flops / BF16_FLOP_S
+                         >= nbytes / HBM_BYTES_S else "bytes")
+        t["tflop_s"] = flops / t["ms"] / 1e9
+        print("K2 at %s (bf16 out, ReLU): kernel %.4f ms (%.1f TFLOP/s), "
+              "plain %.4f ms, library %.4f ms, bound %.4f ms (%s)"
+              % (shape, t["ms"], t["tflop_s"], t["plain_ms"],
+                 t["library_ms"], t["bound_ms"], t["bound_by"]))
+        out["shapes"][str(shape)] = t
+        del xl, wl
+    # one tuple's K2 work: conv1_2 and conv2_2 each once
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        out[key] = sum(t[key] for t in out["shapes"].values())
+    out["bound_by"] = "operations"
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_k2_backward(x, w, b, g):
+    """dx, dw, db of Conv3x3Same (K2 forward, ReLU, bf16 out) against
+    autograd of the float32 conv of the same bf16 values, with the kernel's
+    output > 0 as the ReLU mask: within 1% of the largest |gradient|."""
+    import torch.nn.functional as F
+    from gandtr_tpu_torch.ops.vggconv import Conv3x3Same
+    xb = x.detach().clone().requires_grad_(True)
+    wb = w.detach().clone().requires_grad_(True)
+    bf = b.detach().clone().requires_grad_(True)
+    co = torch.randn(x.shape, generator=g, device=x.device)
+    y = Conv3x3Same.apply(xb, wb, bf, True, torch.bfloat16)
+    (y.float() * co).sum().backward()
+    mask = (y > 0).detach()
+    xr = x.detach().float().requires_grad_(True)
+    wr = w.detach().float().requires_grad_(True)
+    br = b.detach().clone().requires_grad_(True)
+    yr = F.conv2d(xr.permute(0, 3, 1, 2), wr.permute(3, 2, 0, 1), br,
+                  padding=1).permute(0, 2, 3, 1)
+    (torch.where(mask, yr, 0.0) * co).sum().backward()
+    errs = {}
+    for name, got, want in (("dx", xb.grad, xr.grad), ("dw", wb.grad, wr.grad),
+                            ("db", bf.grad, br.grad)):
+        d = float((got.float() - want).abs().max())
+        errs[name] = d / float(want.abs().max())
+        if d > 0.01 * float(want.abs().max()) + 1e-6:
+            raise AssertionError("K2 backward %s at %s: %g" % (
+                name, tuple(x.shape), d))
+    print("K2 backward at %s: max |autograd - plain autograd| / max |plain| "
+          "= dx %.3g, dw %.3g, db %.3g" % ((tuple(x.shape),)
+                                            + tuple(errs.values())))
+
+
+def k4_batch(dev, seed=0):
+    """A (7, 364, 364) uint8 bucket with the rectangles imresize(., 362)
+    leaves, each smooth content plus noise (so some bins clip), zero band."""
+    rng = np.random.RandomState(seed)
+    imgs = np.zeros((len(K4_RECTS), BUCKET, BUCKET), np.uint8)
+    for i, (h, w) in enumerate(K4_RECTS):
+        yy, xx = np.mgrid[:h, :w]
+        base = (yy * (3 + i) + xx * (5 - i)) % 97 + 60
+        imgs[i, :h, :w] = np.clip(base + rng.randint(-40, 40, (h, w)), 0, 255)
+    return (torch.from_numpy(imgs).to(dev),
+            torch.tensor(K4_RECTS, dtype=torch.int32, device=dev))
+
+
+def check_k4(dev):
+    """K4 (masked LUT build + interpolation) against its plain version on
+    the card, bit for bit (band included: both write 0 there), at grids 8
+    and 4 and clips 1.0 and 4.0; two launches bit-equal; timings at the
+    fine-tune's setting (clip 1.0, grid 8)."""
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.ops.clahe import clahe_u8_masked_plain
+    img, hw = k4_batch(dev)
+    worst = 0
+    for grid in (8, 4):
+        for clip in (1.0, 4.0):
+            got = kmasked.clahe_u8_masked_cuda(img, hw, clip, grid)
+            again = kmasked.clahe_u8_masked_cuda(img, hw, clip, grid)
+            want = clahe_u8_masked_plain(img, hw, clip, grid)
+            torch.cuda.synchronize()
+            d = int((got.int() - want.int()).abs().max())
+            worst = max(worst, d)
+            print("K4 %s grid %d clip %.1f: max |kernel - plain| = %d, "
+                  "repeat bit-equal %s" % (tuple(img.shape), grid, clip, d,
+                                           torch.equal(got, again)))
+            if d or not torch.equal(got, again):
+                raise AssertionError("K4 differs from its plain version")
+    ms = cuda_ms(lambda: kmasked.clahe_u8_masked_cuda(img, hw, 1.0, 8),
+                 reps=20)
+    plain_ms = cuda_ms(lambda: clahe_u8_masked_plain(img, hw, 1.0, 8), reps=5)
+    n, h, w = img.shape
+    # each input byte read once, each output byte written once, hw read
+    # once; per pixel the f32 work of the interpolation (as K1's)
+    nbytes = 2 * n * h * w + hw.numel() * 4
+    flops = 17 * n * h * w
+    bound_s = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S)
+    print("K4 at %s grid 8: kernel %.4f ms, plain %.4f ms, bound %.5f ms"
+          % (tuple(img.shape), ms, plain_ms, bound_s * 1e3))
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_S
+                         >= flops / F32_FLOP_S else "operations")}
 
 
 def _post_npy(url, img):
@@ -483,6 +682,352 @@ def generator_parity(model, images):
     return out
 
 
+MEANSTD_GEN = [[0.5, 0.5, 0.5], [0.5, 0.5, 0.5]]
+MEANSTD_IMNET = [[0.485, 0.456, 0.406], [0.229, 0.224, 0.225]]
+# gandtr_tpu/scenarios/configs/iccv23/parameters/finetune.yml as published
+# (network, learning; data.train cut to what the step reads), with the
+# published checkpoints out of reach: augment.path null (seeded normal_p2p
+# weights), embed.model.pretrained false (seeded), and the embed computing
+# in bf16 (runtime.dtype, as bench.py:378 runs it).
+# tests/test_torch_finetune.py holds it to the YAML file.
+FINETUNE = {
+    "network": {
+        "type": "CirSequentialNetwork",
+        "sequence": "augment,embed",
+        "augment": {
+            "type": "SingleNetwork",
+            "path": None,
+            "model": {"architecture": "official_resnet_generator",
+                      "no_antialias": True, "no_antialias_up": True,
+                      "input_nc": 3, "output_nc": 3, "n_blocks": 9,
+                      "norm_layer": "batch"},
+            "runtime": {
+                "frozen": True,
+                "wrappers": ("meanstd_post:[[0.5,0.5,0.5],[0.5,0.5,0.5]]:"
+                             "[[0.485,0.456,0.406],[0.229,0.224,0.225]],"
+                             "clahepost:[[0.5,0.5,0.5],[0.5,0.5,0.5]]:1.0,"
+                             "cir_ratio_pass_through:0.25:anc"),
+                "data": {"transforms": "pil2np | totensor | normalize",
+                         "mean_std": MEANSTD_GEN}}},
+        "embed": {
+            "type": "SingleNetwork",
+            "model": {"architecture": "cirnet", "cir_architecture": "vgg16",
+                      "local_whitening": False, "pooling": "gem",
+                      "pretrained": False, "regional": False,
+                      "whitening": False},
+            "initialize": False,
+            "runtime": {
+                "data": {"transforms": ("pil2np | apply_clahe:1.0 | "
+                                        "totensor | normalize"),
+                         "mean_std": MEANSTD_IMNET},
+                "wrappers": "cirfaketuplebatch",
+                "dtype": "bfloat16"}}},
+    "learning": {
+        "type": "TrainValLearning",
+        "checkpoints": {
+            "directory": "experiments/cirtorch/vgg16_${SCENARIO_NAME}",
+            "checkpoint_every": 2, "store_every": 10},
+        "training": {
+            "type": "EpochTraining", "epochs": 40, "seed": 0,
+            "deterministic": False, "dispatch_chunk": 8,
+            "criterion": {"loss": "contrastive", "margin": 0.75},
+            "epoch_iteration": {"type": "SupervisedEpoch",
+                                "batch_average": False, "fakebatch": True,
+                                "data": "train", "criterion": "default"},
+            "optimizer": {"algorithm": "adam", "lr": 5.0e-07, "beta1": 0.9,
+                          "beta2": 0.999, "weight_decay": 0.0005},
+            "scheduler": {"algorithm": "gamma", "gamma": 0.99}}},
+    "data": {"train": {"dataset": {"image_size": 362, "neg_num": 5},
+                       "loader": {"batch_size": 5}}},
+}
+FT_T, FT_S = 5, 7              # tuples per step, images per tuple
+FT_WARMUP, FT_STEPS = 2, 5
+FT_LABELS = [-1, 1, 0, 0, 0, 0, 0]
+FT_PASS = (0, 2, 4)            # tuples whose anchor takes the generator
+
+
+def finetune_config(dtype="bfloat16"):
+    import copy
+    cfg = copy.deepcopy(FINETUNE)
+    cfg["network"]["embed"]["runtime"]["dtype"] = dtype
+    return cfg
+
+
+def finetune_batch(dev, T=None, seed=0):
+    """uint8 tuples (T, S, 364, 364, 3) of smooth content plus noise in the
+    K4 rectangles (a different order in each tuple), their (h, w), the
+    labels and the pass mask, on `dev`."""
+    T = T or FT_T
+    rng = np.random.RandomState(seed)
+    imgs = np.zeros((T, FT_S, BUCKET, BUCKET, 3), np.uint8)
+    hws = np.zeros((T, FT_S, 2), np.int32)
+    for t in range(T):
+        for s in range(FT_S):
+            h, w = K4_RECTS[(s + t) % len(K4_RECTS)]
+            yy, xx = np.mgrid[:h, :w]
+            for c in range(3):
+                base = (yy * (2 + s + c) + xx * (3 + t)) % 151 + 40
+                imgs[t, s, :h, :w, c] = np.clip(
+                    base + rng.randint(-30, 30, (h, w)), 0, 255)
+            hws[t, s] = (h, w)
+    labels = np.asarray([FT_LABELS] * T, np.float32)
+    pmask = np.zeros((T, FT_S), bool)
+    pmask[[t for t in FT_PASS if t < T], 0] = True
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (imgs, hws, labels, pmask))
+
+
+def _descriptors(exp, x, masks, pmask, t=0):
+    """Tuple t's descriptors (S, D) through the augment chain and the embed
+    net, as the step computes them, without autograd."""
+    models = exp["models"]
+    with torch.no_grad():
+        xa, ma = models["augment"].apply(
+            x[t], ctx={"pass_mask": pmask[t]}, train=True,
+            model_positions=(0,), mask=masks[t])
+        return models["embed"].apply(xa, train=True, mask=ma).float()
+
+
+def _embed_params(exp):
+    return {k: v.detach().clone() for k, v in
+            exp["models"]["embed"].module.named_parameters()}
+
+
+def run_finetune(dev):
+    """The fine-tune tuple step through its entry point: warm-up steps, then
+    timed steps with every launch count set to 0 just before them."""
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
+    exp = build_finetune_experiment(finetune_config(), device=dev)
+    batch = finetune_batch(dev)
+    first = _embed_params(exp)
+    aug_before = {k: v.clone() for k, v in
+                  exp["models"]["augment"].module.state_dict().items()}
+    state = exp["state"]
+    for _ in range(FT_WARMUP):
+        state, m = exp["step"](state, *batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(FT_STEPS):
+        state, m = exp["step"](state, *batch)
+        losses.append(m["total"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    losses = [float(v) for v in losses]
+    embed = exp["models"]["embed"].module
+    moved = sum(int(not torch.equal(p.detach(), first[k]))
+                for k, p in embed.named_parameters())
+    aug_same = all(torch.equal(v, aug_before[k]) for k, v in
+                   exp["models"]["augment"].module.state_dict().items())
+    dtypes = sorted({str(p.dtype) for p in embed.parameters()})
+    out = {"ms_per_step": 1e3 * secs / FT_STEPS,
+           "images_per_s": FT_T * FT_S * FT_STEPS / secs,
+           "losses": losses, "launches": counts,
+           "embed_params_moved": moved,
+           "embed_params": len(first), "master_dtypes": dtypes,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("fine-tune step (T=%d, S=%d, %d bucket, bf16 embed): %s"
+          % (FT_T, FT_S, BUCKET, json.dumps(out)))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite fine-tune loss %s" % losses)
+    if moved != len(first) or not aug_same or dtypes != ["torch.float32"]:
+        raise AssertionError("fine-tune update: %d of %d embed parameters "
+                             "moved, augment unchanged %s, master %s"
+                             % (moved, len(first), aug_same, dtypes))
+    if counts["K2"] != 2 * FT_T * FT_STEPS or \
+            counts["K4"] != FT_T * FT_STEPS:
+        raise AssertionError("fine-tune launches %s over %d steps"
+                             % (counts, FT_STEPS))
+    return exp, batch, out
+
+
+def conv_flops(module, fn):
+    """Multiply-add FLOPs (2 per MAC) of the convolutions `fn()` runs in
+    `module`, counted from the shapes they see (forward hooks)."""
+    total = [0]
+
+    def hook(m, inp, out):
+        k = m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            total[0] += 2 * inp[0].numel() * k * m.out_channels // m.groups
+        else:
+            total[0] += 2 * out.numel() * k * m.in_channels // m.groups
+
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def finetune_breakdown(exp, batch):
+    """CUDA-event times of one step's parts, the tuples' shares summed:
+    staging, the generator on the anchors, the augment wrappers (meanstd,
+    masked CLAHE by K4, the gate), the embed forward with the loss, the
+    backward, the optimizer."""
+    from gandtr_tpu_torch.ops import losses as L
+    models = exp["models"]
+    augment, embed = models["augment"], models["embed"]
+    opt = exp["state"].optimizer
+    imgs_u8, hws, labels, pmask = batch
+    parts = {}
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    for rep in range(2):           # the second repetition is reported
+        marks.clear()
+        opt.zero_grad(set_to_none=True)
+        mark("start")
+        x, masks = exp["stage"](imgs_u8, hws)
+        mark("stage")
+        for t in range(x.shape[0]):
+            with torch.no_grad():
+                augment.module(x[t][:1], mask=masks[t][:1])
+                mark("generator")
+                augment.apply(x[t], ctx={"pass_mask": pmask[t]}, train=True,
+                              model_positions=(), mask=masks[t])
+                mark("wrappers")
+                xa, ma = augment.apply(x[t], ctx={"pass_mask": pmask[t]},
+                                       train=True, model_positions=(0,),
+                                       mask=masks[t])
+                mark("augment")
+            d = embed.apply(xa, train=True, mask=ma)
+            loss = L.contrastive_loss(d.T, labels[t], 1, margin=0.75)
+            mark("embed_forward")
+            loss.backward()
+            mark("backward")
+        opt.step()
+        mark("optimizer")
+        torch.cuda.synchronize()
+    parts = {}
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        parts[name] = parts.get(name, 0.0) + a.elapsed_time(b)
+    total = marks[0][1].elapsed_time(marks[-1][1])
+    # the "augment" mark re-ran the generator and the wrappers together, as
+    # the step does; it is not part of one step's work
+    step_ms = total - parts.pop("augment")
+    out = {k + "_ms": v for k, v in parts.items()}
+    out["step_ms"] = step_ms
+    # the conv work of the step's generator and embed forwards, and its
+    # rate over each part's time (K2's convs are counted by the hooks of
+    # the conv modules whose weights they take, which they replace)
+    with torch.no_grad():
+        gen_flop = sum(conv_flops(augment.module, lambda t=t: augment.module(
+            x[t][:1], mask=masks[t][:1])) for t in range(x.shape[0]))
+    emb_flop = x.shape[0] * conv_flops(
+        embed.module, lambda: _k2_free_embed(embed, x[0], masks[0]))
+    out["generator_conv_gflop"] = gen_flop / 1e9
+    out["generator_conv_tflop_s"] = gen_flop / parts["generator"] / 1e9
+    out["embed_forward_conv_gflop"] = emb_flop / 1e9
+    out["embed_forward_conv_tflop_s"] = (emb_flop / parts["embed_forward"]
+                                         / 1e9)
+    print("fine-tune breakdown (one step, T=%d, S=%d): %s"
+          % (x.shape[0], x.shape[1], json.dumps(out)))
+    return out
+
+
+def _k2_free_embed(embed, x, mask):
+    """The embed net's float32 forward on one tuple: every conv an
+    nn.Conv2d call, so conv_flops sees the convs K2 runs on the path too."""
+    with torch.no_grad():
+        embed.module(x, mask=mask)
+
+
+def finetune_parity(dev):
+    """(a) The bf16 step with K2 and K4 swapped for their plain versions,
+    on the same weights and batch: the loss within 1% relative, tuple 0's
+    descriptors within 5e-3, and the updated conv weights' largest
+    difference within 1e-4 of their largest value. (b) One tuple in float32 (no K2), on the
+    card against the port on the CPU, the generator with kaiming_p2p
+    weights: loss and descriptors within 1e-4. The seeded normal_p2p
+    generator is a chaotic net (generator_parity), so its float32 summation
+    order on the card against the CPU would show in its output, not the
+    step's; the fine-tune's published generator is a trained one."""
+    from gandtr_tpu_torch.models.init import initialize_weights
+    from gandtr_tpu_torch.ops import clahe as clahe_ops
+    from gandtr_tpu_torch.ops import vggconv
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
+    batch = finetune_batch(dev, T=2, seed=1)
+    res = {}
+    for name in ("kernels", "plain"):
+        k2, k4 = vggconv.conv3x3_same, clahe_ops.clahe_u8_masked
+        if name == "plain":
+            vggconv.conv3x3_same = (lambda x, w, b=None, relu=False,
+                                    out_dtype=None: vggconv.
+                                    conv3x3_same_plain(x, w, b, relu,
+                                                       out_dtype))
+            clahe_ops.clahe_u8_masked = clahe_ops.clahe_u8_masked_plain
+        try:
+            reset_launches()
+            exp = build_finetune_experiment(finetune_config(), device=dev)
+            x, masks = exp["stage"](batch[0], batch[1])
+            desc = _descriptors(exp, x, masks, batch[3])
+            _, m = exp["step"](exp["state"], *batch)
+            res[name] = (float(m["total"]), desc, _embed_params(exp),
+                         launches())
+        finally:
+            vggconv.conv3x3_same, clahe_ops.clahe_u8_masked = k2, k4
+    (lk, dk, pk, ck), (lp, dp, pp, cp) = res["kernels"], res["plain"]
+    if cp["K2"] or cp["K4"] or not (ck["K2"] and ck["K4"]):
+        raise AssertionError("parity launches: kernels %s, plain %s"
+                             % (ck, cp))
+    rel_loss = abs(lk - lp) / abs(lp)
+    d_desc = float((dk - dp).abs().max())
+    # Adam's first step moves each parameter by about lr (5e-7; 5e-6 for
+    # GeM's p) whatever its gradient's size, so a gradient near 0 whose sign
+    # differs moves a zero-initialised bias by 2 lr: the largest |diff| is
+    # read in units of lr, and relative to the weights' own size
+    lr = FINETUNE["learning"]["training"]["optimizer"]["lr"]
+    d_par_lr = max(float((pk[k] - pp[k]).abs().max()) for k in pp) / lr
+    d_par = max(float((pk[k] - pp[k]).abs().max() / pp[k].abs().max())
+                for k in pp if pp[k].dim() > 1)
+    print("fine-tune parity (bf16, K2 and K4 vs their plain versions, T=2): "
+          "loss %.7g vs %.7g (rel %.3g), tuple-0 descriptors max |diff| "
+          "%.3g; updated embed parameters: max |diff| %.3g lr, and over "
+          "the conv weights max |diff| / max |weight| %.3g"
+          % (lk, lp, rel_loss, d_desc, d_par_lr, d_par))
+    if not (rel_loss <= 1e-2 and d_desc <= 5e-3 and d_par <= 1e-4):
+        raise AssertionError("fine-tune kernels vs plain: loss %g desc %g "
+                             "weights %g" % (rel_loss, d_desc, d_par))
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    out32 = {}
+    for d in (dev, torch.device("cpu")):
+        b = tuple(a[:1].to(d) for a in batch)
+        exp = build_finetune_experiment(finetune_config(None), device=d)
+        initialize_weights(exp["models"]["augment"].module, "kaiming_p2p", 0)
+        x, masks = exp["stage"](b[0], b[1])
+        desc = _descriptors(exp, x, masks, b[3]).cpu()
+        t0 = time.perf_counter()
+        _, m = exp["step"](exp["state"], *b)
+        loss = float(m["total"])
+        out32[d.type] = (loss, desc, time.perf_counter() - t0)
+    (lg, dg, _), (lc, dc, cpu_s) = out32["cuda"], out32["cpu"]
+    d32 = float((dg - dc).abs().max())
+    print("fine-tune float32, one tuple, card vs CPU port: loss %.8g vs %.8g "
+          "(|diff| %.3g), descriptors max |diff| %.3g (CPU step %.1f s)"
+          % (lg, lc, abs(lg - lc), d32, cpu_s))
+    if abs(lg - lc) > 1e-4 or d32 > 1e-4:
+        raise AssertionError("fine-tune float32 card vs CPU: loss %g desc %g"
+                             % (abs(lg - lc), d32))
+    torch.cuda.empty_cache()
+    return {"bf16_loss_rel": rel_loss, "bf16_desc_max": d_desc,
+            "bf16_param_max_lr": d_par_lr, "bf16_weight_max_rel": d_par,
+            "f32_loss_abs": abs(lg - lc),
+            "f32_desc_max": d32}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -500,6 +1045,8 @@ def main():
     build_all()
     dev = torch.device("cuda")
     k1 = check_k1(dev)
+    k2 = check_k2(dev)
+    k4 = check_k4(dev)
 
     lw = seeded_lw()
     model = hub.gem_vgg16_hedngan(pretrained=False, whitening=lw)
@@ -611,6 +1158,16 @@ def main():
           % (N_REQ, HW[0], HW[1], json.dumps(gen_breakdown)))
     parity = generator_parity(gen, images)
     print("generator parity: %s" % json.dumps(parity))
+    del model, gen, servable, gen_servable, server
+    torch.cuda.empty_cache()
+
+    # ---- fine-tune tuple step
+    torch.cuda.reset_peak_memory_stats()
+    ft_exp, ft_batch, ft = run_finetune(dev)
+    ft["breakdown"] = finetune_breakdown(ft_exp, ft_batch)
+    del ft_exp, ft_batch
+    torch.cuda.empty_cache()
+    ft["parity"] = finetune_parity(dev)
 
     print(json.dumps({"kernels": [{
         "name": "clahe_u8 (K1: LUT + interpolation)",
@@ -637,6 +1194,31 @@ def main():
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+    }, {
+        "name": ("conv3x3_same (K2: VGG16 conv1_2 + conv2_2 of one tuple, "
+                 "bias + ReLU, bf16 out)"),
+        "route": "cuda",
+        "source": "gandtr_tpu_torch/csrc/vggconv.cu",
+        "replaces": "gandtr_tpu/ops/vggconv_pallas.py:94",
+        "launches": ft["launches"]["K2"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
+    }, {
+        "name": "clahe_u8_masked (K4: masked LUT build + interpolation)",
+        "route": "cuda",
+        "source": "gandtr_tpu_torch/csrc/clahe_masked.cu",
+        "replaces": "gandtr_tpu/ops/clahe_pallas.py:289",
+        "launches": ft["launches"]["K4"],
+        "max_abs_err": k4["max_abs_err"],
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": None,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

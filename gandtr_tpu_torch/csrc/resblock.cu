@@ -16,18 +16,18 @@
 //
 // One block call is 9 launches on the caller's stream, none of which
 // synchronises:
-//   conv3x3_reflect_kernel<false>  conv1 as an implicit GEMM: M = N*H*W
-//                                  pixels, N = C_out, K = 9*C_in. The
-//                                  reflect pad is addressed while the A tile
+//   conv1, an implicit GEMM        M = N*H*W pixels, N = C_out, K = 9*C_in,
+//                                  on the core shared with K2 (csrc/
+//                                  conv3x3_igemm.cuh: bf16 wmma 16x16x16,
+//                                  f32 accumulators). Its A loader is the
+//                                  reflect pad, addressed while the A tile
 //                                  loads (row -1 -> 1, row H -> H-2), never
-//                                  materialised. bf16 tensor cores (wmma
-//                                  16x16x16) with f32 accumulators; the
-//                                  epilogue rounds to bf16, then adds the
-//                                  bias as a bf16 add.
+//                                  materialised; its epilogue rounds to
+//                                  bf16, then adds the bias as a bf16 add.
 //   in_partial_kernel, in_finalize_kernel   (twice: mean, then variance)
 //                                  deterministic statistics: a fixed
 //                                  summation order, no float atomics.
-//   conv3x3_reflect_kernel<true>   conv2; its A-tile load applies the
+//   conv2                          the same GEMM; its A loader applies the
 //                                  normalize + ReLU + bf16 round to t1 at
 //                                  the reflected coordinate, so `a` is
 //                                  never written.
@@ -47,201 +47,84 @@
 // steps use __fsub_rn / __fmul_rn / __fadd_rn, the statistics __fdiv_rn and
 // __fsqrt_rn, and every bf16 round is round-to-nearest-even. All element
 // offsets are 64-bit.
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "conv3x3_igemm.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using conv3x3::bf16;
+using conv3x3::load8f;
+using conv3x3::pack8;
+using conv3x3::THREADS;
+using conv3x3::unpack8;
 
-constexpr int BM = 128;        // pixels per CTA tile
 constexpr int BN = 128;        // output channels per CTA tile
-constexpr int BK = 32;         // K per pipeline step
-constexpr int A_LD = BK + 8;   // padded smem rows: conflict-free ldmatrix
-constexpr int B_LD = BN + 8;
-constexpr int THREADS = 256;   // 8 warps: 2 (M) x 4 (N), 64x32 each
-constexpr int SMEM_BYTES = (2 * BM * A_LD + 2 * BK * B_LD) * 2;
-static_assert(SMEM_BYTES >= 8 * 256 * 4, "epilogue scratch must fit");
+constexpr int WM = 2, WN = 4;  // 8 warps: 2 (M) x 4 (N), 64x32 each
 
 __device__ __forceinline__ int reflect1(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-__device__ __forceinline__ void unpack8(const uint4& v, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+// A operand: src at the reflected tap; with kNormA, bf16(max((src - mean) *
+// inv, 0)) of it (conv2's input, so `a` is never written).
+template <bool kNormA>
+struct ReflectLoad {
+  const bf16* src;
+  const float* mean;
+  const float* inv;
+  int H, W, C;
+  __device__ __forceinline__ uint4 operator()(int n, int y, int x, int ky, int kx,
+                                              int ci) const {
+    const int yy = reflect1(y + ky - 1, H), xx = reflect1(x + kx - 1, W);
+    const int64_t off = (((int64_t)n * H + yy) * W + xx) * C + ci;
+    uint4 v = *reinterpret_cast<const uint4*>(src + off);
+    if (kNormA) {
+      float f[8], mu[8], iv[8];
+      unpack8(v, f);
+      load8f(mean + (int64_t)n * C + ci, mu);
+      load8f(inv + (int64_t)n * C + ci, iv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = __bfloat1622float2(h[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
+      for (int e = 0; e < 8; ++e) {
+        const float r = __fmul_rn(__fsub_rn(f[e], mu[e]), iv[e]);
+        f[e] = r < 0.0f ? 0.0f : r;  // ReLU; NaN stays NaN
+      }
+      v = pack8(f);
+    }
+    return v;
   }
-}
+};
 
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 v;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+// Epilogue: dst = bf16(bf16(acc) + b), the bias a bf16 add.
+struct BiasBf16Store {
+  const bf16* bias;
+  bf16* dst;
+  int C;
+  __device__ __forceinline__ void operator()(const float* acc, int64_t m, int co) const {
+    float f[8], bb[8];
+    unpack8(*reinterpret_cast<const uint4*>(bias + co), bb);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return v;
-}
+    for (int e = 0; e < 8; ++e)
+      f[e] = __fadd_rn(__bfloat162float(__float2bfloat16_rn(acc[e])), bb[e]);
+    *reinterpret_cast<uint4*>(dst + m * C + co) = pack8(f);
+  }
+};
 
-__device__ __forceinline__ void load8f(const float* p, float* f) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-// One output tile of a reflect-padded 3x3 conv, C_in = C_out = C.
-// kNormA: the A operand is bf16(max((src - mean) * inv, 0)) of `src`.
 template <bool kNormA>
 __global__ void __launch_bounds__(THREADS, 2)
 conv3x3_reflect_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wmat,
                        const bf16* __restrict__ bias, const float* __restrict__ mean,
                        const float* __restrict__ inv, bf16* __restrict__ dst,
                        int H, int W, int C, int64_t M) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  bf16* As = reinterpret_cast<bf16*>(smem);   // [2][BM][A_LD]
-  bf16* Bs = As + 2 * BM * A_LD;              // [2][BK][B_LD]
+  conv3x3::igemm_tile<BN, WM, WN>(ReflectLoad<kNormA>{src, mean, inv, H, W, C}, wmat,
+                                  BiasBf16Store{bias, dst, C}, H, W, C, M);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int K = 9 * C;
-  const int KT = (K + BK - 1) / BK;
-
-  // A loader: rows r and r + 64, the 8-wide k chunk j of each k step
-  const int a_row = tid >> 2, a_j = tid & 3;
-  int a_n[2], a_y[2], a_x[2];
-  bool a_ok[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int64_t m = m0 + a_row + s * 64;
-    a_ok[s] = m < M;
-    const int64_t mm = a_ok[s] ? m : 0;
-    const int64_t hw = (int64_t)H * W;
-    a_n[s] = (int)(mm / hw);
-    const int64_t r = mm - (int64_t)a_n[s] * hw;
-    a_y[s] = (int)(r / W);
-    a_x[s] = (int)(r - (int64_t)a_y[s] * W);
-  }
-  // B loader: k rows v >> 4, output-channel chunk (v & 15) * 8, v = tid, tid + 256
-  uint4 ra[2], rb[2];
-
-  auto load_tiles = [&](int kt) {
-    const int k0 = kt * BK + a_j * 8;
-    if (k0 < K) {
-      const int tap = k0 / C, ci = k0 - tap * C;
-      const int ky = tap / 3, kx = tap - 3 * ky;
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (a_ok[s]) {
-          const int yy = reflect1(a_y[s] + ky - 1, H);
-          const int xx = reflect1(a_x[s] + kx - 1, W);
-          const int64_t off = (((int64_t)a_n[s] * H + yy) * W + xx) * C + ci;
-          v = *reinterpret_cast<const uint4*>(src + off);
-          if (kNormA) {
-            float f[8], mu[8], iv[8];
-            unpack8(v, f);
-            load8f(mean + (int64_t)a_n[s] * C + ci, mu);
-            load8f(inv + (int64_t)a_n[s] * C + ci, iv);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const float y = __fmul_rn(__fsub_rn(f[e], mu[e]), iv[e]);
-              f[e] = y < 0.0f ? 0.0f : y;  // ReLU; NaN stays NaN
-            }
-            v = pack8(f);
-          }
-        }
-        ra[s] = v;
-      }
-    } else {
-      ra[0] = ra[1] = make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int v = tid + s * THREADS;
-      const int k = kt * BK + (v >> 4);
-      const int co = n0 + (v & 15) * 8;
-      rb[s] = (k < K && co < C)
-                  ? *reinterpret_cast<const uint4*>(wmat + (int64_t)k * C + co)
-                  : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto store_tiles = [&](int buf) {
-    bf16* a = As + buf * BM * A_LD;
-    bf16* b = Bs + buf * BK * B_LD;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      *reinterpret_cast<uint4*>(a + (a_row + s * 64) * A_LD + a_j * 8) = ra[s];
-      const int v = tid + s * THREADS;
-      *reinterpret_cast<uint4*>(b + (v >> 4) * B_LD + (v & 15) * 8) = rb[s];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  load_tiles(0);
-  store_tiles(0);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < KT) load_tiles(kt + 1);  // in flight during the MMAs
-    const bf16* a = As + cur * BM * A_LD;
-    const bf16* b = Bs + cur * BK * B_LD;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], a + (wm * 64 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], b + kk * B_LD + wn * 32 + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    if (kt + 1 < KT) store_tiles(cur ^ 1);
-    __syncthreads();
-  }
-
-  // epilogue: one 16x16 fragment at a time through this warp's scratch
-  float* scratch = reinterpret_cast<float*>(smem) + warp * 256;
-  const int er = lane >> 1, ec = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int64_t m = m0 + wm * 64 + i * 16 + er;
-      const int co = n0 + wn * 32 + j * 16 + ec;
-      if (m < M && co < C) {
-        float f[8], bb[8];
-        unpack8(*reinterpret_cast<const uint4*>(bias + co), bb);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float r = __bfloat162float(__float2bfloat16_rn(scratch[er * 16 + ec + e]));
-          f[e] = __fadd_rn(r, bb[e]);
-        }
-        *reinterpret_cast<uint4*>(dst + m * C + co) = pack8(f);
-      }
-      __syncwarp();
-    }
-  }
+template <bool kNormA>
+cudaError_t conv3x3_reflect(const bf16* src, const bf16* wmat, const bf16* bias,
+                            const float* mean, const float* inv, bf16* dst, int H,
+                            int W, int C, int64_t M, cudaStream_t s) {
+  conv3x3_reflect_kernel<kNormA><<<conv3x3::grid<BN>(M, C), THREADS, 0, s>>>(
+      src, wmat, bias, mean, inv, dst, H, W, C, M);
+  return cudaGetLastError();
 }
 
 // Per-channel partial sums of one image over one chunk of its pixels:
@@ -359,19 +242,17 @@ extern "C" int resblock_launch(const void* x, const void* w1, const void* b1,
   const int64_t nc = (int64_t)n * c;
   float *mean1 = st, *inv1 = st + nc, *mean2 = st + 2 * nc, *inv2 = st + 3 * nc;
   const int64_t M = (int64_t)n * h * w;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (c + BN - 1) / BN);
 
-  conv3x3_reflect_kernel<false><<<grid, THREADS, 0, s>>>(
-      xb, static_cast<const bf16*>(w1), static_cast<const bf16*>(b1), nullptr, nullptr,
-      t1b, h, w, c, M);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = conv3x3_reflect<false>(xb, static_cast<const bf16*>(w1),
+                                           static_cast<const bf16*>(b1), nullptr,
+                                           nullptr, t1b, h, w, c, M, s);
   if (err != cudaSuccess) return (int)err;
   if ((err = in_stats(t1b, part, mean1, inv1, n, h * w, c, chunk, eps, s)) != cudaSuccess)
     return (int)err;
-  conv3x3_reflect_kernel<true><<<grid, THREADS, 0, s>>>(
-      t1b, static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), mean1, inv1, t2b,
-      h, w, c, M);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = conv3x3_reflect<true>(t1b, static_cast<const bf16*>(w2),
+                                   static_cast<const bf16*>(b2), mean1, inv1, t2b, h,
+                                   w, c, M, s)) != cudaSuccess)
+    return (int)err;
   if ((err = in_stats(t2b, part, mean2, inv2, n, h * w, c, chunk, eps, s)) != cudaSuccess)
     return (int)err;
   const int64_t nvec = M * c / 8;

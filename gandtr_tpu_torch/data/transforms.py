@@ -92,8 +92,10 @@ def initialize_transforms(augmentations, mean_std):
 def split_device_transform(transforms_str, mean_std):
     """Split `pil2np [| apply_clahe:...] | totensor | normalize` into
     (host_fn, device_fn): `host_fn(PIL) -> uint8 (H, W, 3)` array (decode
-    only), and `device_fn((N, H, W, 3) float32 in [0, 1]) -> normalized`,
-    which runs CLAHE and (x - mean) / std on the tensor's device.
+    only), and `device_fn((N, H, W, 3) float32 in [0, 1], mask=None) ->
+    normalized`, which runs CLAHE and (x - mean) / std on the tensor's
+    device; with `mask` (N, H, W) of a padded bucket, CLAHE takes each
+    image's valid rectangle (ops/clahe.py::image_clahe_masked).
     Returns (None, None) for any other pipeline."""
     parts = [x.strip() for x in str(transforms_str).split("|") if x.strip()]
     if len(parts) < 3 or parts[0] != "pil2np" or parts[-1] != "normalize":
@@ -118,9 +120,18 @@ def split_device_transform(transforms_str, mean_std):
             return np.asarray(pic.convert("RGB"))
         return np.asarray(pic)
 
-    def device_fn(x):
+    def device_fn(x, mask=None):
         if clahe_args is not None:
-            x = clahe_ops.image_clahe(x, *clahe_args)
+            if mask is None:
+                x = clahe_ops.image_clahe(x, *clahe_args)
+            else:
+                # padded bucket: each image's CLAHE on its valid rectangle
+                from gandtr_tpu_torch.ops.maskprop import MaskState
+                one = x.dim() == 3
+                hw = MaskState.maybe(mask[None] if one else mask).hw_tensor()
+                x = clahe_ops.image_clahe_masked(x[None] if one else x, hw,
+                                                 *clahe_args)
+                x = x[0] if one else x
         return (x - mean.to(x.device)) / std.to(x.device)
 
     return host_fn, device_fn

@@ -6,12 +6,13 @@ Each `csrc/<name>.cu` compiles, with a plain C interface, into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
          -shared -Xcompiler -fPIC -Xptxas -v
 
-The hash covers the source and the flags, so a changed source rebuilds and
-an unchanged one loads what is already built. Never `--use_fast_math`: the
-CLAHE kernels must round exactly as cv2 does. `build(names)` starts one nvcc
-for each source that needs it, all together, and waits for them; the
-compiler's output (with ptxas's register and shared-memory report) is kept
-beside each library as `<lib>.log`.
+The hash covers the source, the shared headers (`csrc/*.cuh`) and the
+flags, so a changed source or header rebuilds and an unchanged one loads
+what is already built. Never `--use_fast_math`: the CLAHE kernels must
+round exactly as cv2 does. `build(names)` starts one nvcc for each source
+that needs it, all together, and waits for them; the compiler's output
+(with ptxas's register and shared-memory report) is kept beside each
+library as `<lib>.log`.
 """
 import ctypes
 import hashlib
@@ -40,9 +41,11 @@ def _nvcc():
 
 
 def library_path(name):
-    src = CSRC / ("%s.cu" % name)
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / ("%s.cu" % name)).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / ("lib%s_%s.so" % (name, digest))
 
 

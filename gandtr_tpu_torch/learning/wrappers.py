@@ -2,12 +2,29 @@
 wrapper is a pair `pre(x, ctx) -> (x, meta)` / `post(y, ctx, meta) -> y`
 composed around a model forward. NHWC batches in, (N, D) descriptors out.
 
-Ported so far: the eval chain of the descriptor hub models, multiscale
-aggregation and learned whitening.
+Ported so far: the eval chain of the descriptor hub models (multiscale
+aggregation, learned whitening) and the fine-tune chain of the augment net
+(`meanstd_post`, `clahepost`, `cir_ratio_pass_through`, `cirfaketuplebatch`),
+with the string DSL that configs write them in. The md5-name augmentation
+gate is decided on the host per image name and reaches the batch as a
+boolean `ctx["pass_mask"]` tensor; the selection is a `torch.where`.
+
+In the padded-bucket mode (`ctx["mask_state"]`, ops/maskprop.py) ClahePost
+computes each image's CLAHE on its valid rectangle, the whole batch in one
+K4 launch pair on the card (the JAX package maps images one at a time,
+`lax.map`, a compiler choice that does not carry over), and
+CirRatioPassThrough keeps each pass-through row's input rectangle.
 """
+import hashlib
+import json
+import os
+import re
+
 import numpy as np
 import torch
 
+from gandtr_tpu_torch.ops import clahe as clahe_ops
+from gandtr_tpu_torch.ops.maskprop import MaskState
 from gandtr_tpu_torch.ops.resize import scale_resize
 
 
@@ -59,6 +76,173 @@ class CirtorchWhiten(Wrapper):
     def post(self, y, ctx, meta):
         X = (y - self.m[None, :]) @ self.P[:self.dimensions, :].T
         return X / (torch.linalg.vector_norm(X, dim=-1, keepdim=True) + 1e-6)
+
+
+def _as_chan(v, device=None):
+    """[c1, c2, c3] -> a (3,) float32 tensor (broadcasts over NHWC)."""
+    return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+
+def _meanstd(v):
+    return json.loads(v) if isinstance(v, str) else v
+
+
+def metadata_name(path):
+    """The name the reference hashes: the basename without its last
+    extension (datahelpers.py:44); for a lazy h5 path `store.h5#cid` the
+    per-image key."""
+    if ".h5#" in path:
+        path = path.split("#", 1)[1]
+    return os.path.basename(path).rsplit(".", 1)[0]
+
+
+def cir_hash_passthrough(name, probability):
+    """The reference's deterministic md5 gate (wrapper.py:137-143): the last
+    4 hex digits of md5(name) as a uniform sample, below `probability`."""
+    rand = int(hashlib.md5(name.encode("utf8")).hexdigest()[-4:], 16) \
+        / (16 ** 4)
+    return rand < probability
+
+
+class CirRatioPassThrough(Wrapper):
+    """The GAN-augmentation switch (wrapper.py:120-146): an image takes the
+    wrapped model's output only if its label matches and its name's hash
+    falls under the ratio; `ctx["pass_mask"]` (N,) bool carries that per
+    image, decided on the host (`cir_hash_passthrough`)."""
+
+    def __init__(self, ratio_through, image_label):
+        self.probability = float(ratio_through)
+        self.image_label = re.compile(image_label)
+
+    def pre(self, x, ctx):
+        return x, x
+
+    def post(self, y, ctx, original):
+        mask = torch.as_tensor(ctx["pass_mask"], device=y.device)
+        st = ctx.get("mask_state")
+        if st is not None and st.active:
+            # a pass-through row keeps its input rectangle, a model row the
+            # model's output one
+            st_in = ctx["mask_state_in"]
+            ctx["mask_state"] = MaskState(tuple(
+                torch.where(mask, a, b) for a, b in zip(st.hw, st_in.hw)))
+        return torch.where(mask[:, None, None, None], y, original.to(y.dtype))
+
+
+class FakeBatch(Wrapper):
+    """Tuple flattening (wrapper.py:266-279): a (T, S, ...) batch becomes
+    (T*S, ...) around the model and is restored after; a plain (N, H, W, C)
+    batch passes through, as in the reference."""
+
+    def pre(self, x, ctx):
+        if x.dim() <= 4:
+            return x, None
+        return x.reshape((-1,) + tuple(x.shape[2:])), tuple(x.shape)
+
+    def post(self, y, ctx, shape):
+        if shape is None:
+            return y
+        return y.reshape(shape[:2] + tuple(y.shape[1:]))
+
+
+class CirFakeTupleBatch(FakeBatch):
+    """Tuple flattening with the descriptors back as (T, S, D) blocks
+    (wrapper.py:282-305)."""
+
+
+class MeanStdPost(Wrapper):
+    """Distribution adaptation after the model (wrapper.py:149-190): from
+    the input normalization to the output one."""
+
+    def __init__(self, input_meanstd, output_meanstd):
+        im, om = _meanstd(input_meanstd), _meanstd(output_meanstd)
+        if any(v == 0 for v in np.atleast_1d(im[1])) or \
+                any(v == 0 for v in np.atleast_1d(om[1])):
+            raise ValueError(
+                "Some std element is zero, leading to zero division.")
+        self.im = [_as_chan(v) for v in im]
+        self.om = [_as_chan(v) for v in om]
+
+    def _adapt(self, x):
+        x = x * self.im[1].to(x.device) + self.im[0].to(x.device)
+        return (x - self.om[0].to(x.device)) / self.om[1].to(x.device)
+
+    def post(self, y, ctx, meta):
+        return self._adapt(y)
+
+
+class ClahePost(Wrapper):
+    """CLAHE between the generator and the descriptor net (wrapper.py:
+    325-348): unnormalize to [0, 1], LAB CLAHE, normalize again. The
+    reference goes to the CPU and cv2 one image at a time; here the batch
+    stays on its device, with each image's own geometry in the masked
+    mode."""
+
+    def __init__(self, meanstd, clip_limit=4, grid_size=8, colorspace="lab"):
+        self.meanstd = [_as_chan(v) for v in _meanstd(meanstd)]
+        self.clip_limit = float(clip_limit)
+        self.grid_size = int(grid_size)
+        self.colorspace = colorspace
+
+    def post(self, y, ctx, meta):
+        mean, std = (v.to(y.device) for v in self.meanstd)
+        y = y * std + mean
+        st = ctx.get("mask_state")
+        if st is not None and st.active:
+            y = clahe_ops.image_clahe_masked(y, st.hw_tensor(),
+                                             self.clip_limit, self.grid_size,
+                                             self.colorspace)
+        else:
+            y = clahe_ops.image_clahe(y, self.clip_limit, self.grid_size,
+                                      self.colorspace)
+        return (y - mean) / std
+
+
+WRAPPERS_LABELS = {
+    "cirfaketuplebatch": CirFakeTupleBatch,
+    "cir_ratio_pass_through": CirRatioPassThrough,
+    "meanstd_post": MeanStdPost,
+    "clahepost": ClahePost,
+}
+
+
+def _split(s, sep):
+    """Split at `sep` outside brackets (the reference's utils.py:95-112)."""
+    parts, depth, cur = [], 0, ""
+    for ch in s:
+        if ch in "[({":
+            depth += 1
+        elif ch in "])}":
+            depth -= 1
+        if ch == sep and depth == 0:
+            parts.append(cur)
+            cur = ""
+        else:
+            cur += ch
+    return parts + [cur]
+
+
+def split_wrapper_string(s):
+    """`name:arg:arg,name2:...` -> one string per wrapper."""
+    return [p for p in _split(s, ",") if p]
+
+
+def _split_args(wrap):
+    """`name:arg:arg` -> [name, arg, arg], bracket-aware."""
+    return _split(wrap, ":")
+
+
+def initialize_wrappers(net_wrappers):
+    """A wrapper string (`name:arg:arg,name2:...`) -> a list of wrappers
+    (wrapper.py:384-396)."""
+    wraps = []
+    for wrap in [x.strip() for x in split_wrapper_string(net_wrappers or "")
+                 if x.strip()]:
+        wname, *args = _split_args(wrap)
+        if wname not in WRAPPERS_LABELS:
+            raise NotImplementedError("wrapper %r is not ported yet" % wname)
+        wraps.append(WRAPPERS_LABELS[wname](*args))
+    return wraps
 
 
 def apply_wrapped(wrappers, forward, x, ctx=None):

@@ -8,17 +8,60 @@ loads with `load_state_dict(strict=True)`. Activations stay channels-last
 
 An eligible residual block (ops/resblock.py::eligible: inference, bf16,
 reflect padding, instance norm, bias) runs as one fused op, K3 on the card;
-any other runs its layers one by one. Only the unmasked forward with
-`no_antialias` sampling is ported: the feature taps (`layers`,
-`encode_only`), the masked mode, the blur-pool sampling, ResnetEncoder /
-ResnetDecoder and UnetGenerator come later.
+any other runs its layers one by one.
+
+Masked mode (`forward(x, mask=...)`, the padded-bucket form of
+gandtr_tpu/models/generators.py:145-286): each image is the valid top-left
+rectangle of a zero-padded bucket, and the forward equals the exact-shape
+forward on it. Reflect padding reflects at each image's own boundary
+(maskprop.masked_reflect_pad), instance norm averages over the valid region
+(maskprop.masked_instance_norm), a frozen BatchNorm or the last conv is
+followed by re-zeroing the band; sizes follow torch's floor rule for the
+stride-2 convs and x2 for the transposed convs; the call returns
+`(y, out_mask)`. K3 is not used there (it has no masked form), and a
+training-mode BatchNorm is refused. Only `no_antialias` sampling is ported:
+the feature taps (`layers`, `encode_only`), the blur-pool sampling,
+ResnetEncoder / ResnetDecoder and UnetGenerator come later.
 """
 import torch
 from torch import nn
 
-from gandtr_tpu_torch.models.layers import (Conv, ConvTranspose, Pad,
-                                            make_norm, tensor_key)
+from gandtr_tpu_torch.models.layers import (BatchNorm, Conv, ConvTranspose,
+                                            InstanceNorm, Pad, make_norm,
+                                            tensor_key)
 from gandtr_tpu_torch.ops import resblock
+from gandtr_tpu_torch.ops.maskprop import (MaskState, masked_instance_norm,
+                                           masked_reflect_pad)
+
+_NORMS = (InstanceNorm, BatchNorm, nn.Identity)
+
+
+def _masked_layers(layers, h, ms):
+    """Run `layers` (NHWC) on padded-bucket images, carrying the valid
+    rectangle `ms`; returns (h, ms)."""
+    layers = list(layers)
+    for i, layer in enumerate(layers):
+        if isinstance(layer, Pad):
+            if layer.mode not in ("reflect", "refl"):
+                raise NotImplementedError("masked %s padding" % layer.mode)
+            h, ms = masked_reflect_pad(h, ms, layer.pad)
+        elif isinstance(layer, Conv):
+            h = layer(h)
+            ms = ms.downsample(layer.kernel_size[0], layer.stride[0],
+                               layer.pad)
+            if i + 1 == len(layers) or not isinstance(layers[i + 1], _NORMS):
+                h = ms.apply(h)  # no norm follows to re-zero the bias band
+        elif isinstance(layer, ConvTranspose):
+            h, ms = layer(h), ms.upsample(2)
+        elif isinstance(layer, InstanceNorm):
+            h = masked_instance_norm(h, ms, layer.epsilon)
+        elif isinstance(layer, (BatchNorm, nn.Identity)):
+            h = ms.apply(layer(h))
+        elif isinstance(layer, ResnetBlock):
+            h = layer(h, ms=ms)
+        else:  # ReLU, Tanh, Dropout: zero stays zero
+            h = layer(h)
+    return h, ms
 
 
 class ResnetBlock(nn.Module):
@@ -55,7 +98,10 @@ class ResnetBlock(nn.Module):
                 .contiguous() for c in (c1, c2)))
         return self._hwio[1]
 
-    def forward(self, x):
+    def forward(self, x, ms=None):
+        if ms is not None and ms.active:
+            h, _ = _masked_layers(self.conv_block, x, ms)
+            return x + h
         c1, c2 = (self.conv_block[i] for i in self._convs)
         graph = torch.is_grad_enabled() and (x.requires_grad
                                              or c1.weight.requires_grad)
@@ -96,10 +142,20 @@ class ResnetGenerator(nn.Module):
                   norm(c // 2), nn.ReLU()]
         m += [Pad(3, "reflect"), Conv(ngf, output_nc, 7), nn.Tanh()]
         self.model = nn.Sequential(*m)
+        self.norm_type = norm_type
         self.meta = {"in_channels": input_nc, "out_channels": output_nc}
 
-    def forward(self, x):
-        return self.model(x)
+    def forward(self, x, mask=None):
+        """x: (N, H, W, input_nc). With `mask` (N, H, W), the masked mode:
+        returns (y, out_mask) with the output's valid rectangles."""
+        if mask is None:
+            return self.model(x)
+        if self.training and self.norm_type == "batch":
+            raise NotImplementedError(
+                "masked generator requires frozen (eval-mode) BN")
+        ms = MaskState.maybe(mask)
+        y, ms = _masked_layers(self.model, ms.apply(x), ms)
+        return y, ms.mask(y.shape[1], y.shape[2], y.dtype)
 
     @staticmethod
     def output_hw(h, w):

@@ -21,9 +21,10 @@ class GeM(nn.Module):
         self.p = nn.Parameter(torch.full((1,), float(p)))
         self.eps = eps
 
-    def forward(self, x):
-        """x: (N, H, W, C) -> (N, C)."""
-        return pool_ops.gem(x, p=self.p, eps=self.eps)
+    def forward(self, x, mask=None):
+        """x: (N, H, W, C) -> (N, C); `mask` (N, H, W) restricts the mean
+        to the valid positions."""
+        return pool_ops.gem(x, p=self.p, eps=self.eps, mask=mask)
 
 
 class GemRetrievalNet(nn.Module):
@@ -41,14 +42,21 @@ class GemRetrievalNet(nn.Module):
         self.pool = GeM(gem_p_init)
         self.whiten = nn.Linear(dim, dim) if whitening else None
 
-    def forward(self, x):
-        """x: (N, H, W, 3) -> (N, D) L2-normalized descriptors."""
+    def forward(self, x, mask=None):
+        """x: (N, H, W, 3) -> (N, D) L2-normalized descriptors. `mask`
+        (N, H, W) marks each image's valid top-left rectangle in a padded
+        bucket: the features carry it exactly and GeM pools over it."""
         # the NHWC input viewed as NCHW is channels-last in memory, which
         # is the layout cuDNN's fastest convolutions take
-        o = self.features(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        feat_mask = None
+        if mask is None:
+            o = self.features(x.permute(0, 3, 1, 2))
+        else:
+            o, feat_mask = self.features(x.permute(0, 3, 1, 2), mask=mask)
+        o = o.permute(0, 2, 3, 1)
         if self.lwhiten is not None:
             o = self.lwhiten(o)
-        o = l2n(self.pool(o))
+        o = l2n(self.pool(o, mask=feat_mask))
         if self.whiten is not None:
             o = l2n(self.whiten(o))
         return o

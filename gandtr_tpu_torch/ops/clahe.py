@@ -20,6 +20,15 @@ LAB-CLAHE (clip 1.0, grid 8x8). Algorithm (OpenCV clahe.cpp semantics):
 `clahe_u8` dispatches by the tensor's device: a CUDA tensor goes to the
 hand-written kernel pair K1 (kernels/clahe.py), a CPU tensor to
 `clahe_u8_plain`. Both take a whole batch (N, H, W) at once.
+
+The masked form (`clahe_u8_masked`, counterpart of the JAX package's
+`clahe_u8_masked`) runs on a padded bucket (N, H, W) with each image's
+valid top-left (h, w) rectangle given as an (N, 2) int32 tensor on the same
+device, and computes cv2's result on the exact (h, w) image: the geometry
+(pad rule, tile sizes, clip limit, LUT scale, interpolation coordinates)
+comes from each image's own (h, w) on the device, never through the host.
+The band outside the rectangle is 0. A CUDA batch goes to K4
+(kernels/clahe_masked.py), a CPU batch to `clahe_u8_masked_plain`.
 """
 import numpy as np
 import torch
@@ -65,7 +74,7 @@ def reflect101(idx, n):
 def _clip_histogram(hist, climit):
     """Clip (..., 256) int histograms at `climit`, redistribute the excess."""
     clipped = (hist - climit).clamp(min=0).sum(dim=-1, keepdim=True)
-    hist = hist.clamp(max=climit)
+    hist = torch.minimum(hist, torch.as_tensor(climit, device=hist.device))
     redist = clipped // 256
     residual = clipped - redist * 256          # (..., 1) in [0, 255]
     hist = hist + redist
@@ -145,6 +154,118 @@ def clahe_u8(img, clip_limit=4.0, grid_size=(8, 8)):
         return clahe_u8_plain(img, clip_limit, grid_size)
     from gandtr_tpu_torch.kernels.clahe import clahe_u8_cuda
     return clahe_u8_cuda(img, clip_limit, grid_size)
+
+
+def masked_geometry(hw, clip_limit, grid_size):
+    """cv2's geometry of each valid rectangle, on hw's device: (tile_h,
+    tile_w, climit, lut_scale), each (N,). The pad rule is clahe_geometry's;
+    climit is int(f32(clip) * f32(area) / 256) as the JAX package computes
+    it; lut_scale the correctly rounded float32 of 255 / area."""
+    ty, tx = _grid(grid_size)
+    h, w = hw[:, 0].long(), hw[:, 1].long()
+    both = (h % ty == 0) & (w % tx == 0)
+    tile_h = (h + torch.where(both, 0, ty - h % ty)) // ty
+    tile_w = (w + torch.where(both, 0, tx - w % tx)) // tx
+    area = tile_h * tile_w
+    if clip_limit > 0:
+        climit = (torch.tensor(clip_limit, dtype=torch.float32)
+                  .to(hw.device) * area.float() / 256.0).long().clamp(min=1)
+    else:
+        climit = area
+    lut_scale = (255.0 / area.double()).float()
+    return tile_h, tile_w, climit, lut_scale
+
+
+def clahe_u8_masked_plain(img, hw, clip_limit=4.0, grid_size=(8, 8)):
+    """The plain PyTorch version of K4 with its LUT build. img: (N, H, W)
+    uint8 bucket; hw: (N, 2) int32 valid sizes. The histogram is taken over
+    the virtual reflect-101 padded image (the JAX package's
+    `hist_form="virtual"`, bit-identical to its band form)."""
+    N, H, W = img.shape
+    ty, tx = _grid(grid_size)
+    T = ty * tx
+    dev = img.device
+    tile_h, tile_w, climit, lut_scale = masked_geometry(hw, clip_limit,
+                                                        (ty, tx))
+    h, w = hw[:, 0].long(), hw[:, 1].long()
+    n_idx = torch.arange(N, device=dev)
+
+    # (1) histograms over the padded rect (ty*tile_h, tx*tile_w) of the
+    # virtual image: reflect-101 about the valid boundary, one bounce,
+    # clamped into the buffer
+    yv = torch.arange(H + ty, device=dev)[None, :]
+    xv = torch.arange(W + tx, device=dev)[None, :]
+    ry = torch.where(yv < h[:, None], yv, 2 * h[:, None] - 2 - yv)
+    rx = torch.where(xv < w[:, None], xv, 2 * w[:, None] - 2 - xv)
+    virt = img[n_idx[:, None, None], ry.clamp(0, H - 1)[:, :, None],
+               rx.clamp(0, W - 1)[:, None, :]].long()
+    inside = ((yv < (ty * tile_h)[:, None])[:, :, None]
+              & (xv < (tx * tile_w)[:, None])[:, None, :])
+    tid = ((yv // tile_h[:, None]).clamp(max=ty - 1)[:, :, None] * tx
+           + (xv // tile_w[:, None]).clamp(max=tx - 1)[:, None, :])
+    ids = ((n_idx[:, None, None] * T + tid) * 256 + virt).flatten()
+    hist = torch.zeros(N * T * 256, dtype=torch.long, device=dev)
+    hist.scatter_add_(0, ids, inside.long().flatten())
+    hist = _clip_histogram(hist.view(N, T, 256), climit.view(N, 1, 1))
+    cdf = hist.cumsum(dim=-1).to(torch.float32)
+    lutf = _round_half_even_u8(cdf * lut_scale.view(N, 1, 1)).view(
+        N, T * 256).to(torch.float32)
+
+    # (2) interpolation over the whole buffer with each image's geometry
+    def axis(n, ts, tc):
+        inv = (1.0 / ts.double()).float()
+        f = torch.arange(n, device=dev, dtype=torch.float32)[None, :] \
+            * inv[:, None] - 0.5
+        fl = torch.floor(f)
+        a = f - fl
+        i = fl.long()
+        return i.clamp(0, tc - 1), (i + 1).clamp(0, tc - 1), a, 1.0 - a
+
+    y1, y2, ya, oma_y = axis(H, tile_h, ty)
+    x1, x2, xa, oma_x = axis(W, tile_w, tx)
+    v = img.long().view(N, H * W)
+
+    def corner(yi, xi):
+        base = (yi[:, :, None] * tx + xi[:, None, :]) * 256
+        return lutf.gather(1, base.view(N, H * W) + v).view(N, H, W)
+
+    xa, oma_x = xa[:, None, :], oma_x[:, None, :]
+    ya, oma_y = ya[:, :, None], oma_y[:, :, None]
+    # separate eager ops: every product and sum rounds on its own, as in cv2
+    top = corner(y1, x1) * oma_x + corner(y1, x2) * xa
+    bot = corner(y2, x1) * oma_x + corner(y2, x2) * xa
+    out = _round_half_even_u8(top * oma_y + bot * ya)
+    valid = ((torch.arange(H, device=dev)[None, :] < h[:, None])[:, :, None]
+             & (torch.arange(W, device=dev)[None, :] < w[:, None])[:, None, :])
+    return out * valid
+
+
+def clahe_u8_masked(img, hw, clip_limit=4.0, grid_size=(8, 8)):
+    """Dispatch by device: K4 (LUT build + interpolation, one launch pair
+    for the batch) for a CUDA tensor, the plain version for a CPU tensor.
+    img: (N, H, W) uint8; hw: (N, 2) int32 on img's device."""
+    if img.device.type == "cpu":
+        return clahe_u8_masked_plain(img, hw, clip_limit, grid_size)
+    from gandtr_tpu_torch.kernels.clahe_masked import clahe_u8_masked_cuda
+    return clahe_u8_masked_cuda(img, hw, clip_limit, grid_size)
+
+
+def channel_clahe_masked(chan, hw, clip_limit, grid_size):
+    """channel_clahe of each image's valid rectangle; the band is 0."""
+    u8 = (chan.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    return clahe_u8_masked(u8.contiguous(), hw, clip_limit,
+                           grid_size).to(torch.float32) / 255.0
+
+
+def image_clahe_masked(img, hw, clip_limit=4.0, grid_size=8,
+                       colorspace="lab"):
+    """image_clahe of each valid rectangle of a padded (N, H, W, 3) batch;
+    the colour conversions are per pixel, so only the CLAHE channel needs
+    the geometry. Band pixels carry no meaning (callers re-mask)."""
+    spc = cs.rgb2normspace(img, colorspace)
+    L = channel_clahe_masked(spc[..., 0], hw, clip_limit, grid_size)
+    spc = torch.cat([L[..., None], spc[..., 1:]], dim=-1)
+    return cs.normspace2rgb(spc, colorspace)
 
 
 def channel_clahe(chan, clip_limit, grid_size):

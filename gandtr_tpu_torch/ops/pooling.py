@@ -14,7 +14,13 @@ def spoc(x):
     return x.mean(dim=(1, 2))
 
 
-def gem(x, p=3.0, eps=1e-6):
+def gem(x, p=3.0, eps=1e-6, mask=None):
     """Generalized mean: mean(clamp(x, eps)^p)^(1/p) over H, W. `p` is a
-    scalar or a 0-d / (1,) tensor (the learnable GeM parameter)."""
-    return x.clamp(min=eps).pow(p).mean(dim=(1, 2)).pow(1.0 / p)
+    scalar or a 0-d / (1,) tensor (the learnable GeM parameter). With
+    `mask` (N, H, W) the mean runs over the valid positions only (a padded
+    bucket)."""
+    xp = x.clamp(min=eps).pow(p)
+    if mask is None:
+        return xp.mean(dim=(1, 2)).pow(1.0 / p)
+    m = mask[..., None].to(x.dtype)
+    return ((xp * m).sum(dim=(1, 2)) / m.sum(dim=(1, 2))).pow(1.0 / p)

@@ -23,6 +23,10 @@ wrapper level dropped:
 
 and each BatchNorm gets `num_batches_tracked` = 0, which torch's state has
 and JAX's has not, so the result loads with `strict=True`.
+
+The fine-tune tree {"augment": variables, "embed": variables} (the JAX
+fine-tune state's `variables`) gives {"augment": state_dict, "embed":
+state_dict}, the generator's batch statistics and the GeM `p` included.
 """
 import numpy as np
 import torch
@@ -78,7 +82,10 @@ def _layout(path, value):
 
 def from_jax_variables(variables):
     """{'params': {...}[, 'batch_stats': {...}]} of numpy arrays ->
-    {torch name: tensor}."""
+    {torch name: tensor}; a tree of such trees by net name (the fine-tune's
+    {'augment', 'embed'}) -> {net name: state_dict}."""
+    if "params" not in variables:
+        return {name: from_jax_variables(v) for name, v in variables.items()}
     out = {}
     for collection in ("params", "batch_stats"):
         for path, value in _walk(variables.get(collection, {})):

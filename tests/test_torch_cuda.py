@@ -1,5 +1,5 @@
-"""The port on the card: K1 against its plain version and the served path
-on `cuda`. Marked `cuda`; each test skips where torch sees no GPU. Run on
+"""The port on the card: K1 to K4 against their plain versions, the served
+path and the fine-tune step on `cuda`. Marked `cuda`; each test skips where torch sees no GPU. Run on
 a GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -97,3 +97,111 @@ def test_served_descriptor_matches_cpu(cuda):
     on_card = Servable(hub.gem_vgg16_hedngan(), (96, 128))(img)
     on_cpu = Servable(hub.gem_vgg16_hedngan(device="cpu"), (96, 128))(img)
     np.testing.assert_allclose(on_card, on_cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 30, 26, 64), (2, 15, 13, 128),
+                                   (1, 64, 48, 64)])
+@pytest.mark.parametrize("out_dtype,tol", [(torch.float32, 2e-5),
+                                           (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2_matches_plain(cuda, shape, out_dtype, tol, relu):
+    """K2 against its plain version on the same bf16 inputs: the same exact
+    products, summed in another order (tests/test_vggconv_pallas.py:38,
+    :51); two launches bit-equal."""
+    from gandtr_tpu_torch.device import set_float32_policy
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.ops.vggconv import conv3x3_same_plain
+    set_float32_policy()
+    C = shape[-1]
+    rng = np.random.RandomState(C + shape[1])
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.randn(3, 3, C, C) / (3 * np.sqrt(C)))
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(C).astype(np.float32)).to(cuda)
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    before = kvgg.LAUNCHES
+    got = kvgg.conv3x3_same_cuda(x, w.reshape(9 * C, C), b, relu, out_dtype)
+    again = kvgg.conv3x3_same_cuda(x, w.reshape(9 * C, C), b, relu,
+                                   out_dtype)
+    torch.cuda.synchronize()
+    assert kvgg.LAUNCHES == before + 2
+    assert got.dtype == out_dtype and torch.equal(got, again)
+    want = conv3x3_same_plain(x, w, b, relu, out_dtype).float()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+def test_k2_backward_under_the_kernels_mask(cuda):
+    """Conv3x3Same's gradients (K2 forward) against autograd of the float32
+    conv of the same bf16 values under the kernel's ReLU mask."""
+    from gandtr_tpu_torch.ops.vggconv import Conv3x3Same
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 19, 23, 64).astype(np.float32))
+    w = torch.from_numpy((rng.randn(3, 3, 64, 64) / 24).astype(np.float32))
+    b = torch.from_numpy(rng.randn(64).astype(np.float32))
+    co = torch.from_numpy(rng.randn(2, 19, 23, 64).astype(np.float32))
+    x, w, b, co = (t.to(cuda) for t in (x, w, b, co))
+    xb = x.to(torch.bfloat16).requires_grad_(True)
+    wb = w.to(torch.bfloat16).requires_grad_(True)
+    bf = b.clone().requires_grad_(True)
+    y = Conv3x3Same.apply(xb, wb, bf, True, torch.bfloat16)
+    (y.float() * co).sum().backward()
+    xr = xb.detach().float().requires_grad_(True)
+    wr = wb.detach().float().requires_grad_(True)
+    br = b.clone().requires_grad_(True)
+    yr = torch.nn.functional.conv2d(xr.permute(0, 3, 1, 2),
+                                    wr.permute(3, 2, 0, 1), br, padding=1)
+    (torch.where(y.detach() > 0, yr.permute(0, 2, 3, 1), 0.0)
+     * co).sum().backward()
+    for got, want in ((xb.grad, xr.grad), (wb.grad, wr.grad),
+                      (bf.grad, br.grad)):
+        d = float((got.float() - want).abs().max())
+        assert d <= 0.01 * float(want.abs().max()) + 1e-6, d
+
+
+@pytest.mark.parametrize("bucket,rects", [
+    (64, [(41, 57), (64, 64), (29, 35)]),
+    (364, [(362, 241), (272, 362), (362, 362), (41, 57)])])
+@pytest.mark.parametrize("clip,grid", [(1.0, 8), (4.0, 4)])
+def test_k4_bit_equal_to_plain(cuda, bucket, rects, clip, grid):
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.ops.clahe import clahe_u8_masked_plain
+    rng = np.random.RandomState(bucket)
+    img = np.zeros((len(rects), bucket, bucket), np.uint8)
+    for i, (h, w) in enumerate(rects):
+        img[i, :h, :w] = rng.randint(0, 256, (h, w))
+    x = torch.from_numpy(img).to(cuda)
+    hw = torch.tensor(rects, dtype=torch.int32, device=cuda)
+    before = kmasked.LAUNCHES
+    got = kmasked.clahe_u8_masked_cuda(x, hw, clip, grid)
+    torch.cuda.synchronize()
+    assert kmasked.LAUNCHES == before + 1
+    assert torch.equal(got, clahe_u8_masked_plain(x, hw, clip, grid))
+
+
+def test_finetune_step_launches_k2_and_k4(cuda):
+    """One bf16 fine-tune step through its entry point at a small size (the
+    generator cut to ngf 4 and one block, a 32 bucket): a finite loss, K2
+    twice and K4 once per tuple."""
+    import chip_smoke
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
+    cfg = chip_smoke.finetune_config()
+    cfg["network"]["augment"]["model"].update(ngf=4, n_blocks=1)
+    exp = build_finetune_experiment(cfg)
+    rng = np.random.RandomState(0)
+    T, S = 2, 7
+    imgs = torch.from_numpy(rng.randint(0, 256, (T, S, 32, 32, 3),
+                                        dtype=np.uint8)).to(cuda)
+    hws = torch.tensor([[(30, 26), (26, 30)] * 3 + [(32, 32)]] * T,
+                       dtype=torch.int32, device=cuda)
+    labels = torch.tensor([[-1, 1, 0, 0, 0, 0, 0]] * T, dtype=torch.float32,
+                          device=cuda)
+    pmask = torch.zeros((T, S), dtype=torch.bool, device=cuda)
+    pmask[0, 0] = True
+    k2, k4 = kvgg.LAUNCHES, kmasked.LAUNCHES
+    _, m = exp["step"](exp["state"], imgs, hws, labels, pmask)
+    assert np.isfinite(float(m["total"]))
+    assert (kvgg.LAUNCHES - k2, kmasked.LAUNCHES - k4) == (2 * T, T)

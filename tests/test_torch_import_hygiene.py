@@ -14,7 +14,11 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "kernels.clahe", "kernels.resblock", "models.retrieval",
           "models.layers", "models.init", "models.generators",
           "learning.network", "data.transforms", "serving.export",
-          "serving.service", "utils.weights")
+          "serving.service", "utils.weights", "ops.maskprop", "ops.vggconv",
+          "ops.losses", "kernels.vggconv", "kernels.clahe_masked",
+          "learning.criteria", "learning.optimizers", "learning.schedules",
+          "learning.supervised", "data.cir_datasets",
+          "scenarios.finetune_build")
 
 torch.set_num_threads(1)
 
@@ -54,16 +58,20 @@ def test_no_source_file_names_jax():
 
 
 @pytest.mark.parametrize("entry", ["hub", "serve_http", "cyclegan",
-                                   "hedngan"])
+                                   "hedngan", "finetune"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
     from gandtr_tpu_torch.serving.service import serve_http
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "hub":
             hub.gem_vgg16_hedngan(pretrained=False)
         elif entry == "serve_http":
             serve_http({}, block=False)
+        elif entry == "finetune":
+            build_finetune_experiment({"network": {}, "learning": {}})
         else:
             getattr(hub, entry)(pretrained=False)
 
