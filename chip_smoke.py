@@ -4,7 +4,10 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every CUDA source of the port (gandtr_tpu_torch/csrc/*.cu, one
-   nvcc each, all at once) into the ignored gandtr_tpu_torch/_build/.
+   nvcc each, all at once) into the ignored gandtr_tpu_torch/_build/,
+   prints ptxas's register and spill report, and counts HGMMA (wgmma) and
+   UTMALDG (TMA load) instructions in the conv kernels' SASS
+   (`cuobjdump -sass`, where the toolkit has it): no HGMMA fails.
 3. K1 (static CLAHE) against its plain PyTorch version on the card:
    bit-equal on a batch of 8 at 768x1024, a 29x35 and a 362x500 image, at
    grids 8 and 4; kernel and plain medians by CUDA events.
@@ -20,7 +23,8 @@
 4. K3 (the fused ResNet block) against its plain version and the float32
    block, at the served block shape (8, 192, 256, 256) and at (2, 17, 23,
    64): within max 0.06 and mean 0.01, and two launches bit-equal; K3,
-   plain and library (cuDNN bf16 convs + torch instance norm) medians.
+   plain and library (cuDNN bf16 convs + torch instance norm) medians, and
+   the kernels one block call runs on the stream (torch.profiler).
 5. One server (`serve_http` on 127.0.0.1) holds both models of the port:
    the GeM-VGG16 hub model (seeded random weights, full width, multiscale,
    a seeded Lw) and the cyclegan hub generator (seeded random weights, 9
@@ -53,6 +57,7 @@
    [...]}` line, the card's line again, and last `{"ok": true, "device":
    {...}}`.
 
+Times are CUDA events around a window of back-to-back calls (`cuda_ms`).
 Exits nonzero, printing no result, without CUDA or without the package.
 """
 import io
@@ -96,20 +101,23 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=10, warmup=2):
-    """Median milliseconds of `fn()` on the card, by CUDA events."""
+def cuda_ms(fn, reps=10, warmup=2, runs=3):
+    """Milliseconds of one `fn()` on the card: CUDA events around `reps`
+    calls in a row (so the host's launch work overlaps the card's), the
+    median over `runs` such windows."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
@@ -124,11 +132,36 @@ def build_all():
         ptxas = log.read_text() if log.exists() else "(already built)"
         print("built %s -> %s" % (name, so.relative_to(ROOT)))
         for line in ptxas.splitlines():
-            if ("registers" in line or "spill" in line
-                    or "error" in line.lower()):
+            if ("registers" in line or "spill" in line or "wgmma" in line
+                    or "setmaxnreg" in line or "error" in line.lower()):
                 print("  " + line.strip())
     print("build: %d sources in %.1f s" % (len(names), secs))
-    return names
+    return libs
+
+
+def sass_report(libs, names=("vggconv", "resblock")):
+    """Whether each conv kernel's SASS has HGMMA (wgmma) and UTMALDG (TMA
+    loads), from `cuobjdump -sass` of its built library; None where the
+    toolkit has no cuobjdump."""
+    from gandtr_tpu_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = {}
+    for name in names:
+        if not os.path.exists(tool):
+            out[name] = None
+            continue
+        sass = subprocess.run([tool, "-sass", str(libs[name])],
+                              capture_output=True, text=True, timeout=300)
+        if sass.returncode != 0:
+            raise RuntimeError("cuobjdump failed on %s: %s"
+                               % (name, sass.stderr[-2000:]))
+        out[name] = {op: sass.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    print("SASS of the conv kernels (instruction counts): %s"
+          % json.dumps(out))
+    for name, counts in out.items():
+        if counts is not None and not counts["HGMMA"]:
+            raise AssertionError("%s has no HGMMA in its SASS" % name)
+    return out
 
 
 def _kernel_modules():
@@ -223,6 +256,21 @@ def _block_library(x, w1, b1, w2, b2, eps=1e-5):
     return x + F.instance_norm(conv(h, w2, b2), eps=eps)
 
 
+def _stream_launches(fn):
+    """Kernels the card ran for one `fn()`, by torch.profiler's CUDA events
+    ("not measured" where the profiler sees none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.lower().startswith(("memset", "memcpy"))]
+    return len(names) if names else "not measured"
+
+
 def check_k3(dev):
     """K3 against its plain version and the float32 block; returns the
     errors and the timings at the served block shape."""
@@ -280,10 +328,14 @@ def check_k3(dev):
         out["bound_by"] = ("operations" if flops / BF16_FLOP_S
                            >= nbytes / HBM_BYTES_S else "bytes")
         out["tflop_s"] = flops / out["ms"] / 1e9
+        out["stream_launches"] = _stream_launches(
+            lambda: fused_resblock(*args))
         print("K3 at %s: kernel %.3f ms (%.1f TFLOP/s), plain %.3f ms, "
               "library %.3f ms, bound %.4f ms (%s)"
               % (shape, out["ms"], out["tflop_s"], out["plain_ms"],
                  out["library_ms"], out["bound_ms"], out["bound_by"]))
+        print("K3 launches per block call on the stream (torch.profiler): "
+              "%s" % out["stream_launches"])
         del xl, lw1, lw2
     del x, w1, w2, b1, b2, args, got, again
     torch.cuda.empty_cache()
@@ -1042,7 +1094,7 @@ def main():
     print(card)
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
-    build_all()
+    sass_report(build_all())
     dev = torch.device("cuda")
     k1 = check_k1(dev)
     k2 = check_k2(dev)

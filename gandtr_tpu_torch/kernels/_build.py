@@ -8,7 +8,10 @@ Each `csrc/<name>.cu` compiles, with a plain C interface, into
 
 The hash covers the source, the shared headers (`csrc/*.cuh`) and the
 flags, so a changed source or header rebuilds and an unchanged one loads
-what is already built. Never `--use_fast_math`: the CLAHE kernels must
+what is already built. Nothing links libcuda: the conv kernels' TMA tensor
+maps are encoded by `cuTensorMapEncodeTiled`, which the libraries take from
+the runtime's driver entry point (`cudaGetDriverEntryPoint`), and they opt
+in to their dynamic shared memory (above 48 KB) themselves. Never `--use_fast_math`: the CLAHE kernels must
 round exactly as cv2 does. `build(names)` starts one nvcc for each source
 that needs it, all together, and waits for them; the compiler's output
 (with ptxas's register and shared-memory report) is kept beside each

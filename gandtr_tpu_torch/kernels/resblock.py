@@ -5,18 +5,19 @@ plain PyTorch version is ops/resblock.py::fused_resblock_plain, which
 ops/resblock.py's dispatch takes for CPU tensors; this wrapper takes CUDA
 tensors only and launches the kernels or raises -- it never falls back.
 
-`LAUNCHES` counts block calls that launched the kernels (nine launches on
-the stream per call: two convs, two sets of statistics, the residual).
+`LAUNCHES` counts block calls that launched the kernels (five launches on
+the stream per call: two convs, each with its tile statistics, two
+finalizes, the residual).
 """
 import ctypes
 
 import torch
 
+from gandtr_tpu_torch.kernels import conv3x3_plan
+
 LAUNCHES = 0
 
 _LIB = None
-# pixels per statistics CTA: 192 chunks an image at 192x256
-_STATS_CHUNK = 256
 
 
 def _lib():
@@ -67,18 +68,21 @@ def fused_resblock_cuda(x, wmat1, b1, wmat2, b2, eps=1e-5):
                            ("wmat2", wmat2, (9 * C, C)), ("b2", b2, (C,))):
         _check(name, t, shape, dev)
     lib = _lib()
-    chunks = -(-(H * W) // _STATS_CHUNK)
+    geo = conv3x3_plan.geometry(H, W, C)
+    tiles = geo.tiles_y * geo.tiles_x
     t1 = torch.empty_like(x)
     t2 = torch.empty_like(x)
     out = torch.empty_like(x)
-    partial = torch.empty((N * chunks * C,), dtype=torch.float32, device=dev)
+    # each tile's (count, mean, M2) per channel
+    partial = torch.empty((N * tiles * 3 * C,), dtype=torch.float32,
+                          device=dev)
     stats = torch.empty((4 * N * C,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.resblock_launch(
             x.data_ptr(), wmat1.data_ptr(), b1.data_ptr(), wmat2.data_ptr(),
             b2.data_ptr(), t1.data_ptr(), t2.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), stats.data_ptr(), N, H, W, C, _STATS_CHUNK,
+            partial.data_ptr(), stats.data_ptr(), N, H, W, C, tiles,
             float(eps), stream)
     if err:
         raise RuntimeError("resblock kernel launch failed: %s"

@@ -14,7 +14,9 @@ rounded to bf16 and the bf16 bias added as a bf16 add; the statistics are
 float32 over the bf16 values, two passes (mean, then the mean of squared
 deviations); the normalized, ReLU'd activation is rounded to bf16 before
 conv2; the output is bf16((t2 - mean2) * inv2 + x). They differ from each
-other and from the JAX kernel only in summation order.
+other and from the JAX kernel only in summation order (K3 takes each
+output tile's mean and squared deviations and combines the tiles by Chan's
+formula).
 """
 import torch
 import torch.nn.functional as F

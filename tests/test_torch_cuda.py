@@ -1,5 +1,6 @@
-"""The port on the card: K1 to K4 against their plain versions, the served
-path and the fine-tune step on `cuda`. Marked `cuda`; each test skips where torch sees no GPU. Run on
+"""The port on the card: K1 to K4 against their plain versions (K2 and K3
+also at shapes that are no multiple of their tiles, and with images smaller
+than a tile), the served path and the fine-tune step on `cuda`. Marked `cuda`; each test skips where torch sees no GPU. Run on
 a GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -47,7 +48,9 @@ def _block_case(shape, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(2, 17, 23, 64), (2, 16, 24, 256),
-                                   (1, 48, 64, 128)])
+                                   (1, 48, 64, 128), (2, 33, 18, 64),
+                                   (1, 11, 45, 128), (2, 9, 33, 256),
+                                   (1, 6, 7, 16), (1, 10, 9, 320)])
 def test_k3_matches_plain(cuda, shape):
     """K3 against its plain version on the same bf16 inputs: they share every
     rounding point and differ in summation order only, so the bound is the
@@ -100,7 +103,9 @@ def test_served_descriptor_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("shape", [(2, 30, 26, 64), (2, 15, 13, 128),
-                                   (1, 64, 48, 64)])
+                                   (1, 64, 48, 64), (2, 33, 70, 64),
+                                   (1, 21, 45, 128), (3, 7, 5, 64),
+                                   (4, 3, 9, 128), (2, 1, 1, 64)])
 @pytest.mark.parametrize("out_dtype,tol", [(torch.float32, 2e-5),
                                            (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("relu", [False, True])
@@ -129,6 +134,34 @@ def test_k2_matches_plain(cuda, shape, out_dtype, tol, relu):
     want = conv3x3_same_plain(x, w, b, relu, out_dtype).float()
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_conv_kernels_bit_equal_on_repeat(cuda, kernel):
+    """Three launches at a path shape (K2: the fine-tune's conv2_2, K3: a
+    served block of 2 images) are bit-equal: no split K, no atomics."""
+    from gandtr_tpu_torch.kernels import resblock as kres
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).to(
+            torch.bfloat16)
+
+    if kernel == "K2":
+        C = 128
+        args = (randn(7, 182, 182, C), randn(9 * C, C, scale=0.03),
+                torch.randn(C, generator=g, device=cuda))
+        outs = [kvgg.conv3x3_same_cuda(*args, relu=True) for _ in range(3)]
+    else:
+        C = 256
+        args = (randn(2, 192, 256, C, scale=0.5), randn(9 * C, C, scale=0.05),
+                randn(C, scale=0.1), randn(9 * C, C, scale=0.05),
+                randn(C, scale=0.1))
+        outs = [kres.fused_resblock_cuda(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0].float()).all()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 def test_k2_backward_under_the_kernels_mask(cuda):
