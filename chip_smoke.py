@@ -9,8 +9,9 @@
    UTMALDG (TMA load) instructions in the conv kernels' SASS
    (`cuobjdump -sass`, where the toolkit has it): no HGMMA fails.
 3. K1 (static CLAHE) against its plain PyTorch version on the card:
-   bit-equal on a batch of 8 at 768x1024, a 29x35 and a 362x500 image, at
-   grids 8 and 4; kernel and plain medians by CUDA events.
+   bit-equal on a batch of 8 at 768x1024, a 29x35, a 362x500, a 3x5 and a
+   32x37 image, at grids 8 and 4, two launches bit-equal, one kernel on the
+   stream a call; kernel and plain medians by CUDA events.
    K2 (VGG16's 64/128-channel 3x3 conv) against its plain version at the
    fine-tune's (7, 364, 364, 64) and (7, 182, 182, 128) and at (2, 30,
    26, 64) and (2, 15, 13, 128), bf16 and float32 out, with and without
@@ -18,8 +19,10 @@
    against autograd of the plain conv under the kernel's ReLU mask; K2,
    plain, library (cuDNN bf16 conv + bias + ReLU) medians and the bound.
    K4 (masked CLAHE, LUT build + interpolation) against its plain version
-   bit for bit on a (7, 364, 364) bucket of the fine-tune's rectangles,
-   grids 8 and 4, clips 1.0 and 4.0; kernel and plain medians.
+   bit for bit on a (7, 364, 364) bucket of the fine-tune's rectangles and
+   a (4, 61, 75) one with 3x5 and 32x37 rectangles, grids 8 and 4, clips
+   1.0 and 4.0, one kernel on the stream a call; kernel and plain medians.
+   K1 and K4 are one kernel (csrc/clahe.cu) in static and masked mode.
 4. K3 (the fused ResNet block) against its plain version and the float32
    block, at the served block shape (8, 192, 256, 256) and at (2, 17, 23,
    64): within max 0.06 and mean 0.01, and two launches bit-equal; K3,
@@ -182,8 +185,11 @@ def launches():
 
 
 def check_k1(dev):
-    """K1 against its plain version, bit for bit; returns the max |diff|
-    and the timings at the main path's shape."""
+    """K1 against its plain version, bit for bit: a batch of 8 at 768x1024,
+    a 29x35 image, smooth content, a 3x5 image (cv2's pad larger than the
+    image), and a 32x37 one (H divides the grid, W does not: an extra tile
+    row); one kernel on the stream a call; returns the max |diff| and the
+    timings at the main path's shape."""
     from gandtr_tpu_torch.kernels import clahe as kclahe
     from gandtr_tpu_torch.ops.clahe import clahe_u8_plain
     rng = np.random.RandomState(0)
@@ -191,22 +197,29 @@ def check_k1(dev):
              rng.randint(0, 256, (29, 35), dtype=np.uint8),
              # smooth content with a narrow range: many clipped bins
              (np.add.outer(np.arange(362), np.arange(500)) % 64
-              + rng.randint(0, 8, (362, 500))).astype(np.uint8)]
+              + rng.randint(0, 8, (362, 500))).astype(np.uint8),
+             rng.randint(0, 256, (3, 5), dtype=np.uint8),
+             rng.randint(0, 256, (2, 32, 37), dtype=np.uint8)]
     worst = 0
     for img in cases:
         x = torch.from_numpy(img).to(dev)
         for grid, clip in [(8, 1.0), (4, 1.0), (8, 4.0)]:
             got = kclahe.clahe_u8_cuda(x, clip, grid)
-            torch.cuda.synchronize()
+            again = kclahe.clahe_u8_cuda(x, clip, grid)
             want = clahe_u8_plain(x, clip, grid)
             torch.cuda.synchronize()
             d = int((got.int() - want.int()).abs().max())
             worst = max(worst, d)
-            print("K1 %-16s grid %d clip %.1f: max |kernel - plain| = %d"
-                  % (tuple(img.shape), grid, clip, d))
-    if worst:
-        raise AssertionError("K1 differs from its plain version")
+            print("K1 %-16s grid %d clip %.1f: max |kernel - plain| = %d, "
+                  "repeat bit-equal %s" % (tuple(img.shape), grid, clip, d,
+                                           torch.equal(got, again)))
+            if d or not torch.equal(got, again):
+                raise AssertionError("K1 differs from its plain version")
     x = torch.from_numpy(cases[0]).to(dev)
+    per_call = _stream_launches(lambda: kclahe.clahe_u8_cuda(x, 1.0, 8))
+    print("K1 kernels on the stream a call (torch.profiler): %s" % per_call)
+    if per_call != 1:
+        raise AssertionError("K1 ran %s kernels in one call" % per_call)
     ms = cuda_ms(lambda: kclahe.clahe_u8_cuda(x, 1.0, 8), reps=20)
     plain_ms = cuda_ms(lambda: clahe_u8_plain(x, 1.0, 8), reps=5)
     n, h, w = x.shape
@@ -220,7 +233,7 @@ def check_k1(dev):
     print("K1 at %s grid 8: kernel %.4f ms, plain %.4f ms, bound %.4f ms"
           % (tuple(x.shape), ms, plain_ms, bound_s * 1e3))
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_s * 1e3,
+            "bound_ms": bound_s * 1e3, "stream_launches": per_call,
             "bound_by": ("bytes" if nbytes / HBM_BYTES_S
                          >= flops / F32_FLOP_S else "operations")}
 
@@ -256,19 +269,23 @@ def _block_library(x, w1, b1, w2, b2, eps=1e-5):
     return x + F.instance_norm(conv(h, w2, b2), eps=eps)
 
 
-def _stream_launches(fn):
-    """Kernels the card ran for one `fn()`, by torch.profiler's CUDA events
-    ("not measured" where the profiler sees none)."""
+def _stream_launches(fn, tries=3):
+    """Kernels the card ran for one `fn()`, by torch.profiler's CUDA events;
+    a profile that records no kernel at all (the profiler drops one now and
+    then) is taken again, up to `tries` times, then "not measured"."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not e.name.lower().startswith(("memset", "memcpy"))]
-    return len(names) if names else "not measured"
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.lower().startswith(("memset", "memcpy"))]
+        if names:
+            return len(names)
+    return "not measured"
 
 
 def check_k3(dev):
@@ -471,25 +488,38 @@ def k4_batch(dev, seed=0):
 def check_k4(dev):
     """K4 (masked LUT build + interpolation) against its plain version on
     the card, bit for bit (band included: both write 0 there), at grids 8
-    and 4 and clips 1.0 and 4.0; two launches bit-equal; timings at the
-    fine-tune's setting (clip 1.0, grid 8)."""
+    and 4 and clips 1.0 and 4.0, on the fine-tune's bucket and on a
+    (4, 61, 75) one with a 3x5 rectangle (the pad larger than it), a 32x37
+    one (h divides the grid, w does not: an extra tile row), a 40x64 one
+    and the whole buffer; two launches bit-equal; one kernel on the stream
+    a call; timings at the fine-tune's setting (clip 1.0, grid 8)."""
     from gandtr_tpu_torch.kernels import clahe_masked as kmasked
     from gandtr_tpu_torch.ops.clahe import clahe_u8_masked_plain
     img, hw = k4_batch(dev)
+    edge_rects = [(3, 5), (32, 37), (40, 64), (61, 75)]
+    edge = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (len(edge_rects), 61, 75), dtype=np.uint8)).to(dev)
+    edge_hw = torch.tensor(edge_rects, dtype=torch.int32, device=dev)
     worst = 0
-    for grid in (8, 4):
-        for clip in (1.0, 4.0):
-            got = kmasked.clahe_u8_masked_cuda(img, hw, clip, grid)
-            again = kmasked.clahe_u8_masked_cuda(img, hw, clip, grid)
-            want = clahe_u8_masked_plain(img, hw, clip, grid)
-            torch.cuda.synchronize()
-            d = int((got.int() - want.int()).abs().max())
-            worst = max(worst, d)
-            print("K4 %s grid %d clip %.1f: max |kernel - plain| = %d, "
-                  "repeat bit-equal %s" % (tuple(img.shape), grid, clip, d,
-                                           torch.equal(got, again)))
-            if d or not torch.equal(got, again):
-                raise AssertionError("K4 differs from its plain version")
+    for x, xhw in ((img, hw), (edge, edge_hw)):
+        for grid in (8, 4):
+            for clip in (1.0, 4.0):
+                got = kmasked.clahe_u8_masked_cuda(x, xhw, clip, grid)
+                again = kmasked.clahe_u8_masked_cuda(x, xhw, clip, grid)
+                want = clahe_u8_masked_plain(x, xhw, clip, grid)
+                torch.cuda.synchronize()
+                d = int((got.int() - want.int()).abs().max())
+                worst = max(worst, d)
+                print("K4 %s grid %d clip %.1f: max |kernel - plain| = %d, "
+                      "repeat bit-equal %s" % (tuple(x.shape), grid, clip, d,
+                                               torch.equal(got, again)))
+                if d or not torch.equal(got, again):
+                    raise AssertionError("K4 differs from its plain version")
+    per_call = _stream_launches(
+        lambda: kmasked.clahe_u8_masked_cuda(img, hw, 1.0, 8))
+    print("K4 kernels on the stream a call (torch.profiler): %s" % per_call)
+    if per_call != 1:
+        raise AssertionError("K4 ran %s kernels in one call" % per_call)
     ms = cuda_ms(lambda: kmasked.clahe_u8_masked_cuda(img, hw, 1.0, 8),
                  reps=20)
     plain_ms = cuda_ms(lambda: clahe_u8_masked_plain(img, hw, 1.0, 8), reps=5)
@@ -502,7 +532,7 @@ def check_k4(dev):
     print("K4 at %s grid 8: kernel %.4f ms, plain %.4f ms, bound %.5f ms"
           % (tuple(img.shape), ms, plain_ms, bound_s * 1e3))
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_s * 1e3,
+            "bound_ms": bound_s * 1e3, "stream_launches": per_call,
             "bound_by": ("bytes" if nbytes / HBM_BYTES_S
                          >= flops / F32_FLOP_S else "operations")}
 
@@ -1222,14 +1252,14 @@ def main():
     ft["parity"] = finetune_parity(dev)
 
     print(json.dumps({"kernels": [{
-        "name": "clahe_u8 (K1: LUT + interpolation)",
+        "name": "clahe_u8 (K1: static CLAHE, LUTs + interpolation in one "
+                "kernel)",
         "route": "cuda",
         "source": "gandtr_tpu_torch/csrc/clahe.cu",
-        "replaces": "gandtr_tpu/ops/clahe_pallas.py:139",
+        "replaces": "gandtr_tpu/ops/clahe_pallas.py:62",
         "launches": desc_launches["K1"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
-        "kernel_ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
@@ -1260,9 +1290,10 @@ def main():
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
     }, {
-        "name": "clahe_u8_masked (K4: masked LUT build + interpolation)",
+        "name": ("clahe_u8_masked (K4: masked CLAHE, LUT build + "
+                 "interpolation in one kernel)"),
         "route": "cuda",
-        "source": "gandtr_tpu_torch/csrc/clahe_masked.cu",
+        "source": "gandtr_tpu_torch/csrc/clahe.cu",
         "replaces": "gandtr_tpu/ops/clahe_pallas.py:289",
         "launches": ft["launches"]["K4"],
         "max_abs_err": k4["max_abs_err"],

@@ -6,7 +6,7 @@ The host transforms work on one image at a time: PIL image or uint8 array
 in, (H, W, 3) float32 CPU tensor out (NHWC like the JAX package; CLAHE runs
 its plain version there). `split_device_transform` gives the same
 preprocessing as a batch function on the tensor's device, where CLAHE is
-one launch of the K1 kernel pair for the whole batch. The generators'
+one launch of the K1 kernel for the whole batch. The generators'
 pipeline `pil2np | totensor | normalize` splits the same way (no CLAHE),
 and `device_quantize_rgb` turns a generator's output back into uint8 RGB.
 """

@@ -6,7 +6,9 @@ day-to-night ResNet generators `cyclegan` and `hedngan`.
 `torch.Generator`, then moved, so every device holds the same net). With
 `pretrained=True` the caller passes a local checkpoint path, and optionally
 a local learned-whitening (Lw) pickle: this package downloads nothing. The
-published files are at `BASE_URL`.
+published files are at `BASE_URL`. A descriptor checkpoint's own data
+params (`network_params.runtime.data`) set the model's transform and
+`net.data_params`, as in the reference hub.
 
 Each entry point runs on `cuda` unless the caller passes `device="cpu"`
 (device.py). `model(images)` takes normalized (N, H, W, 3) float images
@@ -75,16 +77,38 @@ def _init_random(module, seed=0):
     return module
 
 
-def _checkpoint_model_state(state):
-    """The parameter state dict of a loaded network checkpoint: the
-    reference's flat file {"model_state", ...}, a wrapped {"net": {...}}, or
-    a plain state dict."""
+def _checkpoint_net_state(state):
+    """The network entry of a loaded checkpoint: the reference's flat file
+    {"network_params", "model_state", ...}, a wrapped {"net": {...}}, or a
+    plain state dict (taken as {"model_state": state})."""
     if not isinstance(state, dict):
         raise TypeError("checkpoint is not a dict: %r" % type(state))
     if "net" in state:
         state = state["net"]
-    state = state.get("model_state", state)
-    return {k: torch.as_tensor(v) for k, v in state.items()}
+    return state if "model_state" in state else {"model_state": state}
+
+
+def _checkpoint_model_state(state):
+    """The parameter state dict of a loaded network checkpoint (any layout
+    `_checkpoint_net_state` takes)."""
+    return {k: torch.as_tensor(v)
+            for k, v in _checkpoint_net_state(state)["model_state"].items()}
+
+
+def _checkpoint_data_params(net_state, default):
+    """The checkpoint's runtime data params (`network_params.runtime.data`)
+    over `default`: its transform pipeline, under `transforms` or the
+    reference's older name `augmentations` (the first wins), and its
+    `mean_std`; each absent key keeps the default."""
+    runtime = (net_state.get("network_params") or {}).get("runtime") or {}
+    data = runtime.get("data") or {}
+    out = dict(default)
+    tf = data.get("transforms", data.get("augmentations"))
+    if tf:
+        out["transforms"] = tf
+    if data.get("mean_std"):
+        out["mean_std"] = data["mean_std"]
+    return out
 
 
 def _local(path, what):
@@ -105,10 +129,14 @@ def _embedding(architecture, checkpoint=None, whitening=None,
         "architecture": "cirnet", "cir_architecture": architecture,
         "pooling": "gem", "local_whitening": False, "whitening": False})
     _init_random(module, seed)
+    data_params = dict(EMBEDDING_DATA)
     if pretrained:
         state = torch.load(_local(checkpoint, "checkpoint"),
                            map_location="cpu", weights_only=False)
-        module.load_state_dict(_checkpoint_model_state(state), strict=True)
+        net_state = _checkpoint_net_state(state)
+        module.load_state_dict(_checkpoint_model_state(net_state),
+                               strict=True)
+        data_params = _checkpoint_data_params(net_state, data_params)
     module.to(dev).eval()
 
     eval_wrappers = []
@@ -122,7 +150,6 @@ def _embedding(architecture, checkpoint=None, whitening=None,
     if multiscale:
         eval_wrappers.append(CirMultiscaleAggregation(scales=True))
         msp = float(module.pool.p.detach().cpu()[0])
-    data_params = dict(EMBEDDING_DATA)
     net = WrappedNet(module=module, wrappers_eval=eval_wrappers,
                      meta=module.meta, data_params=data_params)
     transform = initialize_transforms(data_params["transforms"],

@@ -1,18 +1,20 @@
-"""Wrapper of K1, the static CLAHE kernel pair (csrc/clahe.cu).
+"""Wrapper of the CLAHE kernel (csrc/clahe.cu) in static mode: K1.
 
 Replaces gandtr_tpu/ops/clahe_pallas.py::clahe_u8_pallas on the TPU. Its
 plain PyTorch version is ops/clahe.py::clahe_u8_plain, which ops/clahe.py's
 dispatch takes for CPU tensors; this wrapper takes CUDA tensors only and
-launches the kernels or raises -- it never falls back.
+launches the kernel or raises -- it never falls back. `launch` is shared
+with K4's wrapper (kernels/clahe_masked.py), which runs the same kernel in
+masked mode.
 
-`LAUNCHES` counts calls that launched the kernel pair (one LUT kernel and one
-interpolation kernel for the whole batch).
+`LAUNCHES` counts calls that launched the kernel (one launch for the whole
+batch: LUTs and interpolation in one kernel).
 """
 import ctypes
 
 import torch
 
-from gandtr_tpu_torch.ops.clahe import _grid, clahe_geometry
+from gandtr_tpu_torch.ops.clahe import _grid
 
 LAUNCHES = 0
 
@@ -27,19 +29,43 @@ def _lib():
         from gandtr_tpu_torch.kernels import _build
         lib = _build.load("clahe")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.clahe_u8_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
-                                        ctypes.c_float, p]
-        lib.clahe_u8_launch.restype = i
+        lib.clahe_launch.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_double,
+                                     p]
+        lib.clahe_launch.restype = i
         lib.clahe_error_string.argtypes = [i]
         lib.clahe_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
+def launch(img, hw, out, clip_limit, grid_size):
+    """One launch of the CLAHE kernel on img's current stream: img, out
+    contiguous uint8 (N, H, W) on one CUDA device; hw an int32 (N, 2) tensor
+    there (masked mode) or None (static mode). Raises if the launch fails."""
+    lib = _LIB or _lib()
+    index = img.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return launch(img, hw, out, clip_limit, grid_size)
+    ty, tx = _grid(grid_size)
+    N, H, W = img.shape
+    err = lib.clahe_launch(img.data_ptr(),
+                           None if hw is None else hw.data_ptr(),
+                           out.data_ptr(), N, H, W, ty, tx, float(clip_limit),
+                           # the current stream by torch's C accessor (which
+                           # Triton's launcher calls too): 0.14 us against
+                           # 4.2 for torch.cuda.current_stream() on an H100
+                           # host (scripts/torch_kernel_ab.py)
+                           torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        raise RuntimeError("clahe kernel launch failed: %s"
+                           % lib.clahe_error_string(err).decode())
+
+
 def clahe_u8_cuda(img, clip_limit=4.0, grid_size=(8, 8)):
     """K1 on a CUDA uint8 batch (N, H, W) or image (H, W) -> same shape."""
     global LAUNCHES
-    if img.device.type != "cuda":
+    if not img.is_cuda:
         raise ValueError("clahe_u8_cuda needs a CUDA tensor, got %s"
                          % img.device)
     if img.dtype != torch.uint8:
@@ -51,20 +77,7 @@ def clahe_u8_cuda(img, clip_limit=4.0, grid_size=(8, 8)):
         raise ValueError("clahe_u8_cuda needs a contiguous tensor")
     squeeze = img.dim() == 2
     x = img[None] if squeeze else img
-    N, H, W = x.shape
-    ty, tx = _grid(grid_size)
-    tile_h, tile_w, climit, lut_scale = clahe_geometry(H, W, clip_limit,
-                                                       (ty, tx))
-    lib = _lib()
-    luts = torch.empty((N, ty * tx, 256), dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.clahe_u8_launch(x.data_ptr(), luts.data_ptr(),
-                                  out.data_ptr(), N, H, W, ty, tx, tile_h,
-                                  tile_w, climit, float(lut_scale), stream)
-    if err:
-        raise RuntimeError("clahe kernel launch failed: %s"
-                           % lib.clahe_error_string(err).decode())
+    launch(x, None, out, clip_limit, grid_size)
     LAUNCHES += 1
     return out[0] if squeeze else out

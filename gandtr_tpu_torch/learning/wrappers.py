@@ -11,7 +11,7 @@ boolean `ctx["pass_mask"]` tensor; the selection is a `torch.where`.
 
 In the padded-bucket mode (`ctx["mask_state"]`, ops/maskprop.py) ClahePost
 computes each image's CLAHE on its valid rectangle, the whole batch in one
-K4 launch pair on the card (the JAX package maps images one at a time,
+K4 launch on the card (the JAX package maps images one at a time,
 `lax.map`, a compiler choice that does not carry over), and
 CirRatioPassThrough keeps each pass-through row's input rectangle.
 """

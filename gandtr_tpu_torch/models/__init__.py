@@ -7,6 +7,8 @@ from gandtr_tpu_torch.models.retrieval import GemRetrievalNet
 
 def _cirnet(**kw):
     arch = kw.pop("cir_architecture", None) or kw.pop("architecture", "vgg16")
+    if kw.pop("regional", False):
+        raise NotImplementedError("regional (Rpool) is not ported yet")
     return GemRetrievalNet(
         architecture=arch,
         pooling=kw.pop("pooling", "gem"),

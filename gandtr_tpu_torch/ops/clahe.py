@@ -18,7 +18,7 @@ LAB-CLAHE (clip 1.0, grid 8x8). Algorithm (OpenCV clahe.cpp semantics):
      and sum rounded on its own (no FMA), round-half-even to uint8
 
 `clahe_u8` dispatches by the tensor's device: a CUDA tensor goes to the
-hand-written kernel pair K1 (kernels/clahe.py), a CPU tensor to
+hand-written kernel K1 (kernels/clahe.py), a CPU tensor to
 `clahe_u8_plain`. Both take a whole batch (N, H, W) at once.
 
 The masked form (`clahe_u8_masked`, counterpart of the JAX package's
@@ -28,7 +28,8 @@ device, and computes cv2's result on the exact (h, w) image: the geometry
 (pad rule, tile sizes, clip limit, LUT scale, interpolation coordinates)
 comes from each image's own (h, w) on the device, never through the host.
 The band outside the rectangle is 0. A CUDA batch goes to K4
-(kernels/clahe_masked.py), a CPU batch to `clahe_u8_masked_plain`.
+(kernels/clahe_masked.py), a CPU batch to `clahe_u8_masked_plain`. K1 and
+K4 are one CUDA kernel (csrc/clahe.cu) in its static and masked modes.
 """
 import numpy as np
 import torch
@@ -148,7 +149,7 @@ def clahe_u8_plain(img, clip_limit=4.0, grid_size=(8, 8)):
 
 
 def clahe_u8(img, clip_limit=4.0, grid_size=(8, 8)):
-    """Dispatch by device: the K1 kernel pair for a CUDA tensor, the plain
+    """Dispatch by device: the K1 kernel for a CUDA tensor, the plain
     version for a CPU tensor. img: (N, H, W) or (H, W) uint8."""
     if img.device.type == "cpu":
         return clahe_u8_plain(img, clip_limit, grid_size)
@@ -241,7 +242,7 @@ def clahe_u8_masked_plain(img, hw, clip_limit=4.0, grid_size=(8, 8)):
 
 
 def clahe_u8_masked(img, hw, clip_limit=4.0, grid_size=(8, 8)):
-    """Dispatch by device: K4 (LUT build + interpolation, one launch pair
+    """Dispatch by device: K4 (LUT build + interpolation, one launch
     for the batch) for a CUDA tensor, the plain version for a CPU tensor.
     img: (N, H, W) uint8; hw: (N, 2) int32 on img's device."""
     if img.device.type == "cpu":

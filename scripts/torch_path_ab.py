@@ -1,5 +1,6 @@
-"""Time the port's conv paths of this checkout against another tree's, on
-one GPU: the served generator (K3) and the fine-tune tuple step (K2).
+"""Time the port's paths of this checkout against another tree's, on one
+GPU: the served descriptor (K1), the served generator (K3) and the
+fine-tune tuple step (K2 and K4).
 
     python3 scripts/torch_path_ab.py OTHER_ROOT [--rounds 2]
 
@@ -8,6 +9,9 @@ with `git archive` into a directory that .gitignore lists. Each round runs
 each tree in a fresh process (the other tree first in even rounds), which
 builds that tree's kernels and measures, through that tree's own package:
 
+- the served descriptor (hub `gem_vgg16_hedngan`, seeded weights, a batch
+  of 8 at 768x1024): the direct `Servable` call by host clock (median of 3
+  after a warm-up);
 - the served generator (hub `cyclegan`, seeded weights, bf16, a batch of 8
   at 768x1024): the direct `Servable` call by host clock (median of 3 after
   a warm-up) and the nine residual blocks by CUDA events (median of 3
@@ -39,10 +43,20 @@ with contextlib.redirect_stdout(io.StringIO()):
     c.build_all()
 dev = torch.device("cuda")
 out = {}
-gen = hub.cyclegan(pretrained=False)
-gen.net.compute_dtype = torch.bfloat16
 images = np.random.RandomState(2).randint(0, 256, (c.N_REQ,) + c.HW + (3,),
                                           dtype=np.uint8)
+sv = Servable(hub.gem_vgg16_hedngan(pretrained=False), c.HW)
+sv(images)
+walls = []
+for _ in range(3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sv(images)
+    walls.append(1e3 * (time.perf_counter() - t0))
+out["desc_direct_ms"] = float(np.median(walls))
+del sv
+gen = hub.cyclegan(pretrained=False)
+gen.net.compute_dtype = torch.bfloat16
 sv = Servable(gen, c.HW)
 sv(images)
 walls = []

@@ -22,7 +22,9 @@ def cuda():
 
 
 @pytest.mark.parametrize("shape,grid,clip", [
-    ((2, 768, 1024), 8, 1.0), ((29, 35), 4, 4.0), ((3, 37, 53), 8, 1.0)])
+    ((2, 768, 1024), 8, 1.0), ((29, 35), 4, 4.0), ((3, 37, 53), 8, 1.0),
+    # cv2's pad larger than the image; H divides the grid and W does not
+    ((3, 5), 8, 1.0), ((2, 32, 37), 8, 4.0), ((2, 32, 36), 4, 1.0)])
 def test_k1_bit_equal_to_plain(cuda, shape, grid, clip):
     from gandtr_tpu_torch.kernels import clahe as kclahe
     from gandtr_tpu_torch.ops.clahe import clahe_u8_plain
@@ -194,7 +196,9 @@ def test_k2_backward_under_the_kernels_mask(cuda):
 
 @pytest.mark.parametrize("bucket,rects", [
     (64, [(41, 57), (64, 64), (29, 35)]),
-    (364, [(362, 241), (272, 362), (362, 362), (41, 57)])])
+    (364, [(362, 241), (272, 362), (362, 362), (41, 57)]),
+    # the pad larger than the rectangle; h divides the grid and w does not
+    (61, [(3, 5), (32, 37), (40, 56), (61, 61), (1, 1)])])
 @pytest.mark.parametrize("clip,grid", [(1.0, 8), (4.0, 4)])
 def test_k4_bit_equal_to_plain(cuda, bucket, rects, clip, grid):
     from gandtr_tpu_torch.kernels import clahe_masked as kmasked
@@ -210,6 +214,24 @@ def test_k4_bit_equal_to_plain(cuda, bucket, rects, clip, grid):
     torch.cuda.synchronize()
     assert kmasked.LAUNCHES == before + 1
     assert torch.equal(got, clahe_u8_masked_plain(x, hw, clip, grid))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_clahe_one_kernel_a_call(cuda, kernel):
+    """K1 and K4 are one launch of one kernel (csrc/clahe.cu) a call, with
+    no LUT tensor between two kernels."""
+    import chip_smoke
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    if kernel == "K1":
+        x = torch.randint(0, 256, (8, 768, 1024), dtype=torch.uint8,
+                          device=cuda)
+        assert chip_smoke._stream_launches(
+            lambda: kclahe.clahe_u8_cuda(x, 1.0, 8)) == 1
+    else:
+        img, hw = chip_smoke.k4_batch(cuda)
+        assert chip_smoke._stream_launches(
+            lambda: kmasked.clahe_u8_masked_cuda(img, hw, 1.0, 8)) == 1
 
 
 def test_finetune_step_launches_k2_and_k4(cuda):
