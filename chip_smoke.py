@@ -56,9 +56,29 @@
    swapped for their plain versions (loss within 1%, descriptors within
    5e-3, the updated conv weights within 1e-4 of their size), and one
    float32 tuple on the card against the port on the CPU (within 1e-4).
-8. Stage breakdowns of one batch of each served path, the `{"kernels":
-   [...]}` line, the card's line again, and last `{"ok": true, "device":
-   {...}}`.
+8. The retrieval eval of parameters/eval.yml (`EVAL`: its network and
+   data sections as shipped, GeM-VGG16 full width with seeded weights, a
+   seeded 512x512 Lw pickle) through the port's validate stage on `cuda`,
+   on a seeded synthetic roxford5k-style set written to a temp dir (48
+   database JPEGs and 6 queries with bbx crops, photo sizes from 800x600
+   to 1280x960, a gnd with easy / hard / junk lists). Twice: with
+   `shape_bucket: 64` (masked chain, K4) and `null` (exact shapes, K1),
+   each once to warm up and once with every launch count set to 0 just
+   before it: descriptors finite and unit norm, bucketed within 1e-4 of
+   exact, equal APs for the queries whose ranks agree, K4 (bucketed) or K1
+   (exact) launched once per extracted batch; the stage's set-up timed
+   alone. K4 and K1 on the very inputs the counted runs gave them (each
+   distinct bucket and rectangles, or exact shape, once): bit-equal to
+   the plain version, one kernel a call, timed against the bound. The
+   card's busy share over the dataset's evaluation (set-up left out;
+   torch.profiler) and the host's time in the extractor's calls there.
+   Then the ranking on the card against numpy's float64 argsort, two
+   database images against the port on the CPU (within 1e-4), and the
+   host / device split per image.
+9. Stage breakdowns of one batch of each served path, the `{"kernels":
+   [...]}` line (K1 and K4 with their launches by path and their times at
+   the eval's geometry), the card's line again, and last `{"ok": true,
+   "device": {...}}`.
 
 Times are CUDA events around a window of back-to-back calls (`cuda_ms`).
 Exits nonzero, printing no result, without CUDA or without the package.
@@ -184,6 +204,41 @@ def launches():
     return {k: mod.LAUNCHES for k, mod in _kernel_modules().items()}
 
 
+def _clahe_bound(shape, valid_px, n_sizes=0):
+    """(bound seconds, "bytes" or "operations") of a CLAHE call on a uint8
+    (N, H, W) buffer of which `valid_px` pixels are inside the images'
+    rectangles: those read once, the whole buffer written once, the (N, 2)
+    int32 sizes read once; the interpolation's 17 f32 operations a valid
+    pixel (two coordinate chains of a mul and two subs, the two `1 - a`,
+    6 mul + 3 add in the lerp; the per-tile LUT work is negligible)."""
+    nbytes = valid_px + int(np.prod(shape)) + 4 * n_sizes
+    flops = 17 * valid_px
+    by_bytes = nbytes / HBM_BYTES_S >= flops / F32_FLOP_S
+    return (max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S),
+            "bytes" if by_bytes else "operations")
+
+
+def _clahe_case(name, kernel, plain, shape, valid_px, n_sizes, per_call):
+    """One CLAHE call on an eval input: bit-equal to its plain version, one
+    kernel on the stream (`per_call`, as counted); kernel and plain medians
+    and the bound."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    d = int((got.int() - want.int()).abs().max())
+    if d or not torch.equal(got, kernel()) or per_call != 1:
+        raise AssertionError("%s %s: max |kernel - plain| %d, %s kernels "
+                             "a call" % (name, tuple(shape), d, per_call))
+    ms = cuda_ms(kernel, reps=20)
+    plain_ms = cuda_ms(plain, reps=3)
+    bound_s, bound_by = _clahe_bound(shape, valid_px, n_sizes)
+    print("%s %s: bit-equal to plain, 1 kernel a call; kernel %.4f ms, "
+          "plain %.4f ms, bound %.5f ms (%s)"
+          % (name, tuple(shape), ms, plain_ms, bound_s * 1e3, bound_by))
+    return {"shape": list(shape), "max_abs_err": d, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by}
+
+
 def check_k1(dev):
     """K1 against its plain version, bit for bit: a batch of 8 at 768x1024,
     a 29x35 image, smooth content, a 3x5 image (cv2's pad larger than the
@@ -222,20 +277,12 @@ def check_k1(dev):
         raise AssertionError("K1 ran %s kernels in one call" % per_call)
     ms = cuda_ms(lambda: kclahe.clahe_u8_cuda(x, 1.0, 8), reps=20)
     plain_ms = cuda_ms(lambda: clahe_u8_plain(x, 1.0, 8), reps=5)
-    n, h, w = x.shape
-    # each input byte read once, each output byte written once; per pixel
-    # the interpolation's f32 work: two coordinate chains of a mul and two
-    # subs, the two `1 - a`, 6 mul + 3 add in the lerp (the per-tile LUT
-    # work is negligible beside it)
-    nbytes = 2 * n * h * w
-    flops = 17 * n * h * w
-    bound_s = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S)
+    bound_s, bound_by = _clahe_bound(x.shape, x.numel())
     print("K1 at %s grid 8: kernel %.4f ms, plain %.4f ms, bound %.4f ms"
           % (tuple(x.shape), ms, plain_ms, bound_s * 1e3))
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_s * 1e3, "stream_launches": per_call,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_S
-                         >= flops / F32_FLOP_S else "operations")}
+            "bound_by": bound_by}
 
 
 def _block_f32(x, w1, b1, w2, b2, eps=1e-5):
@@ -269,7 +316,7 @@ def _block_library(x, w1, b1, w2, b2, eps=1e-5):
     return x + F.instance_norm(conv(h, w2, b2), eps=eps)
 
 
-def _stream_launches(fn, tries=3):
+def _stream_launches(fn, tries=5):
     """Kernels the card ran for one `fn()`, by torch.profiler's CUDA events;
     a profile that records no kernel at all (the profiler drops one now and
     then) is taken again, up to `tries` times, then "not measured"."""
@@ -523,18 +570,107 @@ def check_k4(dev):
     ms = cuda_ms(lambda: kmasked.clahe_u8_masked_cuda(img, hw, 1.0, 8),
                  reps=20)
     plain_ms = cuda_ms(lambda: clahe_u8_masked_plain(img, hw, 1.0, 8), reps=5)
-    n, h, w = img.shape
-    # each input byte read once, each output byte written once, hw read
-    # once; per pixel the f32 work of the interpolation (as K1's)
-    nbytes = 2 * n * h * w + hw.numel() * 4
-    flops = 17 * n * h * w
-    bound_s = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S)
+    # the rectangles are read, the whole bucket written
+    bound_s, bound_by = _clahe_bound(
+        img.shape, sum(h * w for h, w in K4_RECTS), len(K4_RECTS))
     print("K4 at %s grid 8: kernel %.4f ms, plain %.4f ms, bound %.5f ms"
           % (tuple(img.shape), ms, plain_ms, bound_s * 1e3))
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_s * 1e3, "stream_launches": per_call,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_S
-                         >= flops / F32_FLOP_S else "operations")}
+            "bound_by": bound_by}
+
+
+def _kernels_a_call_fresh(cases):
+    """Kernels on the stream for one call of each case [(module, function,
+    args, kwargs)], counted by `_stream_launches` in a new process: in this
+    one, once the served paths have run, the profiler's short traces come
+    back empty more often than not."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="kernel_calls_") as d:
+        path = os.path.join(d, "calls.pt")
+        torch.save([(m, f, [a.cpu() if torch.is_tensor(a) else a
+                            for a in args], kwargs)
+                    for m, f, args, kwargs in cases], path)
+        code = ("import json, sys; sys.path.insert(0, %r); "
+                "import chip_smoke; "
+                "print(json.dumps(chip_smoke._count_saved_calls(%r)))"
+                % (str(ROOT), path))
+        out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                             capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError("counting kernels a call failed: %s"
+                           % out.stderr[-3000:])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _count_saved_calls(path):
+    """The child of `_kernels_a_call_fresh`."""
+    import importlib
+    sys.path.insert(0, str(ROOT))
+    counts = []
+    for module, name, args, kwargs in torch.load(path):
+        fn = getattr(importlib.import_module(module), name)
+        args = [a.cuda() if torch.is_tensor(a) else a for a in args]
+        counts.append(_stream_launches(lambda: fn(*args, **kwargs)))
+    return counts
+
+
+def _recording_calls(module, name, calls):
+    """Replace `module.<name>` by a wrapper that appends each call's
+    (args, kwargs) to `calls` (the tensors by reference: no copy, no
+    synchronisation) and calls it; returns a function that puts it back."""
+    original = getattr(module, name)
+
+    def recording(*args, **kwargs):
+        calls.append((args, kwargs))
+        return original(*args, **kwargs)
+
+    setattr(module, name, recording)
+    return lambda: setattr(module, name, original)
+
+
+def check_clahe_at_eval(calls):
+    """K4 and K1 on the inputs the counted eval runs gave them (`calls`:
+    {"K4": [(args, kwargs)], "K1": [...]}): each distinct bucket shape and
+    set of rectangles (K4) or exact shape (K1) once, bit-equal to the plain
+    version with one kernel a call, timed against its bound. Returns
+    {"K4": [case], "K1": [case]}, each case with the calls it stands for."""
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.ops.clahe import (clahe_u8_masked_plain,
+                                            clahe_u8_plain)
+    wrappers = {"K4": kmasked.clahe_u8_masked_cuda,
+                "K1": kclahe.clahe_u8_cuda}
+    plains = {"K4": clahe_u8_masked_plain, "K1": clahe_u8_plain}
+    distinct = {}
+    for k in ("K4", "K1"):
+        cases = {}
+        for args, kwargs in calls[k]:
+            rects = (tuple(map(tuple, args[1].tolist())) if k == "K4"
+                     else ((args[0].shape[-2], args[0].shape[-1]),)
+                     * (args[0].shape[0] if args[0].dim() == 3 else 1))
+            key = (tuple(args[0].shape), rects) + tuple(args[2:]) \
+                + tuple(sorted(kwargs.items()))
+            cases.setdefault(key, [args, kwargs, 0])[2] += 1
+        distinct[k] = sorted(cases.items(), key=lambda kv: str(kv[0]))
+    per_call = iter(_kernels_a_call_fresh(
+        [(wrappers[k].__module__, wrappers[k].__name__, args, kwargs)
+         for k in distinct for _, (args, kwargs, _) in distinct[k]]))
+    out = {}
+    for k in distinct:
+        out[k] = []
+        for key, (args, kwargs, n) in distinct[k]:
+            shape, rects = key[:2]
+            case = _clahe_case(
+                "%s eval %s, rectangles %s, %s" % (k, list(shape),
+                                                   list(rects), key[2:]),
+                lambda: wrappers[k](*args, **kwargs),
+                lambda: plains[k](*args, **kwargs), shape,
+                sum(h * w for h, w in rects), len(rects) if k == "K4" else 0,
+                next(per_call))
+            case.update(rects=[list(r) for r in rects], calls=n)
+            out[k].append(case)
+    return out
 
 
 def _post_npy(url, img):
@@ -824,6 +960,27 @@ FINETUNE = {
 }
 FT_T, FT_S = 5, 7              # tuples per step, images per tuple
 FT_WARMUP, FT_STEPS = 2, 5
+# parameters/eval.yml as shipped (tests/test_torch_eval.py holds it to the
+# YAML): its `whitening: null` cannot run, so the eval phase points it at a
+# seeded Lw pickle and `dir_main` at the synthetic set
+EVAL = {
+    "network": {
+        "type": "SingleNetwork", "path": None,
+        "model": {"architecture": "cirnet", "cir_architecture": "vgg16",
+                  "pooling": "gem", "local_whitening": False,
+                  "whitening": False, "regional": False},
+        "runtime": {"wrappers": {"eval": {
+            "0_cirwhiten": {"whitening": None, "dimensions": None},
+            "1_cirmultiscale": {"scales": True}}}},
+    },
+    "data": {
+        "image_size": 1024, "shape_bucket": 64,
+        "transforms": "pil2np | apply_clahe:1.0 | totensor | normalize",
+        "mean_std": MEANSTD_IMNET,
+    },
+    "validation": {"dir_main": "data/test",
+                   "datasets": ["roxford5k", "rparis6k", "247tokyo1k"]},
+}
 FT_LABELS = [-1, 1, 0, 0, 0, 0, 0]
 FT_PASS = (0, 2, 4)            # tuples whose anchor takes the generator
 
@@ -1110,6 +1267,403 @@ def finetune_parity(dev):
             "f32_desc_max": d32}
 
 
+# ---- the retrieval eval of eval.yml
+
+EVAL_SHAPES = [(768, 1024), (1024, 768), (683, 1024), (1024, 683),
+               (576, 1024), (600, 800), (960, 1280)]   # (h, w) photos
+EVAL_DB, EVAL_Q = 48, 6
+
+
+def make_eval_set(root, seed=0):
+    """A seeded synthetic roxford5k-style set under root/roxford5k: EVAL_Q
+    scenes, each seen by one query (cropped to a bbx) and by EVAL_DB //
+    EVAL_Q database photos at other offsets, with noise; sizes cycle through
+    EVAL_SHAPES (1280x960 is downsized by LANCZOS, 800x600 kept). Each
+    query's gnd lists 4 easy, 3 hard and 1 junk photo of its scene. Returns
+    the database paths."""
+    import pickle
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    jpg = os.path.join(root, "roxford5k", "jpg")
+    os.makedirs(jpg)
+    # a scene: a hue of its own and 4 plane waves, in units of the photo's
+    # longest side (so a downsized photo shows the same scene)
+    hues = np.linspace(0, 1, EVAL_Q, endpoint=False)
+    scenes = [((rng.uniform(2, 14, (4, 2)) * rng.choice([-1, 1], (4, 2))
+                * 2 * np.pi).astype(np.float32),
+               rng.uniform(0, 2 * np.pi, (4, 3)).astype(np.float32),
+               (0.5 + 0.25 * np.cos(2 * np.pi * (hues[k] + np.array(
+                   [0, 1 / 3, 2 / 3])))).astype(np.float32))
+              for k in range(EVAL_Q)]
+
+    def photo(scene, h, w, path):
+        freq, phase, base = scenes[scene]
+        side = float(max(h, w))
+        dy, dx = rng.uniform(0, 0.3, 2).astype(np.float32)
+        yy = np.arange(h, dtype=np.float32)[:, None, None] / side + dy
+        xx = np.arange(w, dtype=np.float32)[None, :, None] / side + dx
+        img = np.broadcast_to(base, (h, w, 3)).copy()
+        for k in range(len(freq)):
+            img += np.float32(0.08) * np.sin(freq[k, 0] * yy
+                                             + freq[k, 1] * xx + phase[k])
+        img += rng.rand(h, w, 3).astype(np.float32) * 0.15
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+            path, quality=90)
+
+    per = EVAL_DB // EVAL_Q
+    imlist, db_paths = [], []
+    for i in range(EVAL_DB):
+        name = "db%02d" % i
+        db_paths.append(os.path.join(jpg, name + ".jpg"))
+        photo(i // per, *EVAL_SHAPES[i % len(EVAL_SHAPES)], db_paths[-1])
+        imlist.append(name)
+    qimlist, gnd = [], []
+    for q in range(EVAL_Q):
+        h, w = EVAL_SHAPES[(q + 3) % len(EVAL_SHAPES)]
+        photo(q, h, w, os.path.join(jpg, "q%d.jpg" % q))
+        qimlist.append("q%d" % q)
+        own = list(range(q * per, (q + 1) * per))
+        gnd.append({"easy": np.asarray(own[:4]), "hard": np.asarray(own[4:7]),
+                    "junk": np.asarray(own[7:]),
+                    "bbx": [w // 10, h // 8, w - w // 10, h - h // 8]})
+    with open(os.path.join(root, "roxford5k", "gnd_roxford5k.pkl"),
+              "wb") as f:
+        pickle.dump({"imlist": imlist, "qimlist": qimlist, "gnd": gnd}, f)
+    return db_paths
+
+
+def eval_params(root, lw_path, shape_bucket):
+    """EVAL with the seeded Lw, the synthetic set and `shape_bucket`."""
+    import copy
+    params = copy.deepcopy(EVAL)
+    params["network"]["runtime"]["wrappers"]["eval"]["0_cirwhiten"][
+        "whitening"] = lw_path
+    params["data"]["shape_bucket"] = shape_bucket
+    params["validation"] = {"dir_main": root, "datasets": ["roxford5k"]}
+    return params
+
+
+def _recorded(stage, run):
+    """run() while `stage.evaluate_dataset` records what it returns:
+    (run's result, [(metrics, aps, vecs, qvecs)])."""
+    records, original = [], stage.evaluate_dataset
+
+    def recording(*args, **kwargs):
+        records.append(original(*args, **kwargs))
+        return records[-1]
+
+    stage.evaluate_dataset = recording
+    try:
+        return run(), records
+    finally:
+        stage.evaluate_dataset = original
+
+
+def eval_breakdown(params, paths, want):
+    """Per image, through the validate stage's own set-up: the host's load
+    (decode, LANCZOS; one thread); the host's enqueue, the time the
+    extractor call that validate makes (pad, upload, the whole chain) takes
+    to return with the card idle before it (nothing inside synchronises);
+    and the device's parts by CUDA events, on a copy of that chain with an
+    event between the parts (upload; preprocess with K4; each scale's
+    resize + VGG16 + GeM; aggregation + Lw; the gaps the host leaves are
+    inside them). Both chains' descriptors must equal `want` (D, N), the
+    validate run's."""
+    from gandtr_tpu_torch.eval import retrieval as R
+    from gandtr_tpu_torch.ops.maskprop import MaskState, mask_from_sizes
+    from gandtr_tpu_torch.ops.resize import masked_scale_resize
+    from gandtr_tpu_torch.scenarios import validate_stage
+    setup = validate_stage.build_eval(params, torch.device("cuda"))
+    ex, model = setup["extractor"], setup["model"]
+    lw, ms = model.wrappers_eval          # sorted: 0_cirwhiten, 1_...
+    size = params["data"]["image_size"]
+    t0 = time.perf_counter()
+    loaded = [R._load_preprocessed(p, size, setup["transform"])
+              for p in paths]
+    host_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    enqueue, direct = [], []
+    for rep in range(2):                  # the first pass warms up
+        for img in loaded:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = ex(img)
+            t1 = time.perf_counter()
+            if rep:
+                enqueue.append(t1 - t0)
+                direct.append(v)
+    torch.cuda.synchronize()
+    host = [ex._pad_and_mask(img) for img in loaded]
+    names = (["upload", "preprocess"]
+             + ["scale_%.4g" % s for s in ms.scales] + ["aggregate_lw"])
+    marks, got = [], []
+    with torch.inference_mode():
+        for rep in range(2):              # the first pass warms up
+            marks = []
+            for padded, hw in host:
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(len(names) + 1)]
+                ev[0].record()
+                x = ex._upload(padded[None])
+                sizes = ex._upload(np.asarray([hw], np.int64))
+                mask = mask_from_sizes((sizes[:, 0], sizes[:, 1]),
+                                       x.shape[1], x.shape[2])
+                ev[1].record()
+                y = setup["pre"](x, mask)
+                ev[2].record()
+                st = MaskState.maybe(mask, [hw])
+                descs = []
+                for k, s in enumerate(ms.scales):
+                    xs, sts = (y, st) if s == 1 else \
+                        masked_scale_resize(y, st, s)
+                    descs.append(model.module(
+                        xs, mask=sts.mask(xs.shape[1], xs.shape[2])))
+                    ev[3 + k].record()
+                v = lw.post(ms.post(descs, setup["ctx"], None),
+                            setup["ctx"], None)
+                ev[-1].record()
+                marks.append(ev)
+                if rep:
+                    got.append(v[0])
+        torch.cuda.synchronize()
+    parts = {n: float(np.mean([ev[i].elapsed_time(ev[i + 1])
+                               for ev in marks]))
+             for i, n in enumerate(names)}
+    d = max(float(np.abs(torch.stack(g, 1).cpu().numpy() - want).max())
+            for g in (got, direct))
+    return {"host_load_ms_per_image": host_ms,
+            "host_enqueue_ms_per_image": 1e3 * float(np.mean(enqueue)),
+            "device_ms_per_image": sum(parts.values()),
+            "device_parts_ms_per_image": parts, "vs_validate_max": d}
+
+
+def eval_busy_share(params):
+    """The device's busy share over the evaluation of the dataset in one
+    bucketed validate run (`evaluate_dataset`: loading, extraction, ranking
+    and mAP; the stage's set-up before it is left out): the kernels' and
+    copies' time on the card (torch.profiler, CUDA activity only) over that
+    window's wall time; and the host's time inside the extractor calls
+    there (pad, upload, the chain's launches), with the loader threads
+    running beside them."""
+    from torch.profiler import ProfilerActivity, profile
+    from gandtr_tpu_torch.eval.retrieval import ShapeCachedExtractor
+    from gandtr_tpu_torch.scenarios import validate_stage
+    window, in_calls = {}, []
+    original = validate_stage.evaluate_dataset
+    call = ShapeCachedExtractor.__call__
+
+    def timed_call(self, img):
+        t0 = time.perf_counter()
+        out = call(self, img)
+        in_calls.append(time.perf_counter() - t0)
+        return out
+
+    def profiled(*args, **kwargs):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = original(*args, **kwargs)
+            torch.cuda.synchronize()
+            window["wall"] = time.perf_counter() - t0
+        window["prof"] = prof
+        return res
+
+    validate_stage.evaluate_dataset = profiled
+    ShapeCachedExtractor.__call__ = timed_call
+    try:
+        validate_stage.validate(params, None)
+    finally:
+        validate_stage.evaluate_dataset = original
+        ShapeCachedExtractor.__call__ = call
+    wall = window["wall"]
+    busy_us = sum(e.time_range.elapsed_us() for e in window["prof"].events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    share = busy_us / 1e6 / wall
+    call_ms = 1e3 * float(np.mean(in_calls))
+    print("eval bucketed, the dataset's evaluation under the profiler (set-"
+          "up left out): %.3f s wall, the card busy %.3f s (%.1f%%), idle "
+          "%.1f%%; the host %.2f ms a photo in the extractor's call (%d "
+          "calls)" % (wall, busy_us / 1e6, 100 * share, 100 - 100 * share,
+                      call_ms, len(in_calls)))
+    return {"wall_s": wall, "busy_s": busy_us / 1e6, "busy_share": share,
+            "host_ms_in_extractor_call": call_ms}
+
+
+def check_ranking(vecs, qvecs):
+    """rank_descriptors on the card against numpy's stable argsort of the
+    float64 scores: equal wherever a rank's score is more than 1e-6 from
+    its neighbours'. Returns (positions compared, positions excluded, rank
+    ms)."""
+    from gandtr_tpu_torch.ops.ranking import (compute_map_protocols,
+                                              rank_descriptors)
+    V = torch.from_numpy(vecs).cuda()
+    Q = torch.from_numpy(qvecs).cuda()
+    ranks = rank_descriptors(V, Q).cpu().numpy()
+    s64 = vecs.T.astype(np.float64) @ qvecs.astype(np.float64)
+    want = np.argsort(-s64, axis=0, kind="stable")
+    srt = np.take_along_axis(s64, want, axis=0)
+    gap = np.abs(np.diff(srt, axis=0)) > 1e-6
+    clear = np.ones(srt.shape, bool)
+    clear[1:] &= gap
+    clear[:-1] &= gap
+    wrong = int(((ranks != want) & clear).sum())
+    print("ranking on the card vs float64 numpy: %d of %d positions "
+          "compared, %d excluded (a neighbour within 1e-6), %d differ"
+          % (int(clear.sum()), clear.size, int((~clear).sum()), wrong))
+    if wrong:
+        raise AssertionError("rank_descriptors differs from numpy")
+    rank_ms = cuda_ms(lambda: rank_descriptors(V, Q), reps=20)
+    return int(clear.sum()), int((~clear).sum()), rank_ms
+
+
+def run_eval(dev):
+    """The validate stage of eval.yml on the card, bucketed (K4) and exact
+    (K1): each mode runs once to warm up, then once with every launch count
+    set to 0 just before it. Checks the descriptors, the launches, the mAPs,
+    the ranking, and two images against the port on the CPU."""
+    import pickle
+    import shutil
+    import tempfile
+    from gandtr_tpu_torch.eval import retrieval as R
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.ops.ranking import compute_map_protocols
+    from gandtr_tpu_torch.scenarios import validate_stage
+    calls = {"K4": [], "K1": []}
+    root = tempfile.mkdtemp(prefix="eval_set_")
+    try:
+        t0 = time.perf_counter()
+        db_paths = make_eval_set(root)
+        lw_path = os.path.join(root, "lw.pkl")
+        with open(lw_path, "wb") as f:
+            pickle.dump(seeded_lw(), f)
+        print("eval set: %d database photos, %d queries, written in %.1f s"
+              % (EVAL_DB, EVAL_Q, time.perf_counter() - t0))
+        n_img = EVAL_DB + EVAL_Q
+        out = {}
+        for bucket in (64, None):
+            mode = "bucketed" if bucket else "exact"
+            params = eval_params(root, lw_path, bucket)
+            t0 = time.perf_counter()
+            validate_stage.validate(params, None)
+            cold = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            kernel, other = ("K4", "K1") if bucket else ("K1", "K4")
+            restore = (_recording_calls(kmasked, "clahe_u8_masked_cuda",
+                                        calls["K4"]) if bucket else
+                       _recording_calls(kclahe, "clahe_u8_cuda", calls["K1"]))
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                (res,), rec = _recorded(validate_stage, lambda: validate_stage
+                                        .validate(params, None))
+                wall = time.perf_counter() - t0
+                counts = launches()
+            finally:
+                restore()
+            # the stage's set-up alone (the net with its seeded weights
+            # drawn on the host, the Lw): the rest of the wall is the
+            # extraction, ranking and mAP
+            t0 = time.perf_counter()
+            validate_stage.build_eval(params, dev)
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t0
+            metrics, aps, vecs, qvecs = rec[0]
+            out[mode] = {"wall_s": wall, "first_wall_s": cold,
+                         "setup_s": setup, "images_per_s": n_img / wall,
+                         "images_per_s_after_setup": n_img / (wall - setup),
+                         "launches": counts,
+                         "metadata": res["metadata"]["validation"],
+                         "aps": aps, "vecs": vecs, "qvecs": qvecs}
+            print("eval %s (shape_bucket %s): %.3f s for %d images, %.2f "
+                  "images/s (first run %.3f s); set-up %.3f s, after it "
+                  "%.2f images/s; launches %s; mAP %s"
+                  % (mode, bucket, wall, n_img, n_img / wall, cold, setup,
+                     n_img / (wall - setup), counts,
+                     json.dumps({k: v for k, v in metrics.items()})))
+            for name, v in (("vecs", vecs), ("qvecs", qvecs)):
+                norms = np.linalg.norm(v, axis=0)
+                if not np.isfinite(v).all() or v.shape[0] != 512 \
+                        or np.abs(norms - 1).max() > 1e-5:
+                    raise AssertionError("%s %s: bad %s %s" % (
+                        mode, name, v.shape, norms))
+            # eval.yml has no loader section: batch size 1, one batch an
+            # image
+            if counts[kernel] != n_img or counts[other] != 0:
+                raise AssertionError("%s eval launched %s for %d batches"
+                                     % (mode, counts, n_img))
+        geo = check_clahe_at_eval(calls)
+        busy = eval_busy_share(eval_params(root, lw_path, 64))
+        b, e = out["bucketed"], out["exact"]
+        d_be = float(max(np.abs(b["vecs"] - e["vecs"]).max(),
+                         np.abs(b["qvecs"] - e["qvecs"]).max()))
+        # the two modes' ranks, and the per-query APs where they agree
+        from gandtr_tpu_torch.ops.ranking import rank_descriptors
+        rb, re_ = (rank_descriptors(o["vecs"], o["qvecs"]).cpu().numpy()
+                   for o in (b, e))
+        same_q = [q for q in range(EVAL_Q)
+                  if np.array_equal(rb[:, q], re_[:, q])]
+        ap_diff = max([abs(b["aps"][k][q] - e["aps"][k][q])
+                       for k in b["aps"] for q in same_q] or [0.0])
+        print("eval bucketed vs exact: descriptors max |diff| %.3g; ranks "
+              "equal for %d of %d queries, their APs max |diff| %.3g; "
+              "metadata %s vs %s" % (d_be, len(same_q), EVAL_Q, ap_diff,
+                                     json.dumps(b["metadata"]),
+                                     json.dumps(e["metadata"])))
+        if d_be > 1e-4 or ap_diff:
+            raise AssertionError("bucketed and exact eval disagree")
+        if len(same_q) == EVAL_Q and any(
+                b["metadata"][k] != e["metadata"][k]
+                for k in b["metadata"] if "score_avg" in k):
+            raise AssertionError("equal ranks, different mAPs")
+        compared, excluded, rank_ms = check_ranking(
+            b["vecs"], np.concatenate([b["qvecs"], b["vecs"]], axis=1))
+        ranks = rank_descriptors(b["vecs"], b["qvecs"]).cpu().numpy()
+        cfg = R.configdataset("roxford5k", root)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            compute_map_protocols("roxford5k", ranks, cfg["gnd"])
+        map_ms = 1e3 * (time.perf_counter() - t0) / 20
+
+        # two database images through the port on the CPU
+        torch.set_num_threads(os.cpu_count() or 1)
+        cpu = validate_stage.build_eval(eval_params(root, lw_path, 64),
+                                        torch.device("cpu"))
+        t0 = time.perf_counter()
+        cpu_vecs = R.extract_vectors(cpu["extractor"], db_paths[:2], 1024,
+                                     cpu["transform"])
+        cpu_s = time.perf_counter() - t0
+        d_cpu = float(np.abs(cpu_vecs - b["vecs"][:, :2]).max())
+        print("eval card vs CPU port on 2 database images: max |diff| %.3g "
+              "(CPU took %.1f s)" % (d_cpu, cpu_s))
+        if d_cpu > 1e-4:
+            raise AssertionError("eval card vs CPU port: %g" % d_cpu)
+
+        bd = eval_breakdown(eval_params(root, lw_path, 64), db_paths,
+                            b["vecs"])
+        print("eval breakdown (bucketed, per database image): host load "
+              "%.2f ms, host enqueue %.2f ms, against device %.2f ms: %s; "
+              "ranking %.4f ms (%d x %d), mAP %.3f ms (host)"
+              % (bd["host_load_ms_per_image"],
+                 bd["host_enqueue_ms_per_image"], bd["device_ms_per_image"],
+                 json.dumps(bd["device_parts_ms_per_image"]), rank_ms,
+                 EVAL_DB, EVAL_Q + EVAL_DB, map_ms))
+        if bd["vs_validate_max"] > 1e-5:
+            raise AssertionError("the breakdown's chain differs from "
+                                 "validate's: %g" % bd["vs_validate_max"])
+        return {"launches": {m: out[m]["launches"] for m in out},
+                "images_per_s": {m: out[m]["images_per_s"] for m in out},
+                "images_per_s_after_setup": {
+                    m: out[m]["images_per_s_after_setup"] for m in out},
+                "setup_s": {m: out[m]["setup_s"] for m in out},
+                "bucketed_device_busy": busy,
+                "bucketed_vs_exact": d_be, "card_vs_cpu": d_cpu,
+                "ranks_compared": compared, "ranks_excluded": excluded,
+                "rank_ms": rank_ms, "map_ms": map_ms, "breakdown": bd,
+                "at_eval_geometry": geo}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1251,19 +1805,32 @@ def main():
     torch.cuda.empty_cache()
     ft["parity"] = finetune_parity(dev)
 
+    # ---- the retrieval eval of eval.yml
+    torch.cuda.empty_cache()
+    ev = run_eval(dev)
+    print("eval summary: %s" % json.dumps(
+        {k: v for k, v in ev.items()
+         if k not in ("breakdown", "at_eval_geometry")}))
+    by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
+                   "finetune": ft["launches"][k],
+                   "eval": sum(c[k] for c in ev["launches"].values())}
+               for k in ("K1", "K4")}
+
     print(json.dumps({"kernels": [{
         "name": "clahe_u8 (K1: static CLAHE, LUTs + interpolation in one "
                 "kernel)",
         "route": "cuda",
         "source": "gandtr_tpu_torch/csrc/clahe.cu",
         "replaces": "gandtr_tpu/ops/clahe_pallas.py:62",
-        "launches": desc_launches["K1"],
+        "launches": sum(by_path["K1"].values()),
+        "launches_by_path": by_path["K1"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": None,
+        "at_eval_geometry": ev["at_eval_geometry"]["K1"],
     }, {
         "name": "fused_resblock (K3: conv3x3 + IN + ReLU + conv3x3 + IN + x)",
         "route": "cuda",
@@ -1295,13 +1862,15 @@ def main():
         "route": "cuda",
         "source": "gandtr_tpu_torch/csrc/clahe.cu",
         "replaces": "gandtr_tpu/ops/clahe_pallas.py:289",
-        "launches": ft["launches"]["K4"],
+        "launches": sum(by_path["K4"].values()),
+        "launches_by_path": by_path["K4"],
         "max_abs_err": k4["max_abs_err"],
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": None,
+        "at_eval_geometry": ev["at_eval_geometry"]["K4"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

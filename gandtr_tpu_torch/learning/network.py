@@ -84,7 +84,7 @@ class WrappedNet:
         return module
 
     def apply(self, x, ctx=None, train=False, model_positions=None,
-              mask=None):
+              mask=None, host_hw=None):
         """The forward inside the train or eval wrapper chain. x: (N, H, W,
         3) (or a (T, S, H, W, 3) tuple batch for `cirfaketuplebatch`).
 
@@ -93,7 +93,11 @@ class WrappedNet:
         whole batch. `mask` (N, H, W) is the padded-bucket mode: the module
         gets it, mask-aware wrappers follow the valid rectangle through
         `ctx["mask_state"]`, and a module that transforms images (returns
-        `(y, out_mask)`) makes `apply` return `(y, out_mask)` too."""
+        `(y, out_mask)`) makes `apply` return `(y, out_mask)` too.
+        `host_hw`, the rows' (h, w) on the host where the caller padded
+        them, is what a multiscale wrapper resizes each row by (it is
+        required there with a mask). Under a multiscale wrapper each scale
+        runs the module with its own mask."""
         wrappers = self.wrappers_train if train else self.wrappers_eval
         if model_positions is not None and len(model_positions) == 0 and \
                 any(isinstance(w, CirMultiscaleAggregation) for w in wrappers):
@@ -104,7 +108,8 @@ class WrappedNet:
         forward_fn = self._forward_fn(train)
         ctx = dict(ctx or {})
         if mask is not None:
-            ctx["mask_state"] = ctx["mask_state_in"] = MaskState.maybe(mask)
+            ctx["mask_state"] = ctx["mask_state_in"] = MaskState.maybe(
+                mask, host_hw)
         if self.compute_dtype is not None and x.is_floating_point():
             x = x.to(self.compute_dtype)
         through = [None]
@@ -117,8 +122,11 @@ class WrappedNet:
             return out
 
         def forward(xx):
+            row_mask = mask
+            if mask is not None and isinstance(xx, tuple):
+                xx, row_mask = xx      # a multiscale (x, mask) pair
             if model_positions is None:
-                out = run_module(xx, mask)
+                out = run_module(xx, row_mask)
             elif len(model_positions) == 0:
                 out = xx
             else:
@@ -126,8 +134,8 @@ class WrappedNet:
                 rows = [slice(p, p + 1) for p in model_positions]
                 sel = run_module(
                     torch.cat([xx[r] for r in rows]),
-                    None if mask is None else torch.cat([mask[r]
-                                                         for r in rows]))
+                    None if row_mask is None else torch.cat([row_mask[r]
+                                                             for r in rows]))
                 out = xx.clone()
                 for j, r in enumerate(rows):
                     out[r] = sel[j:j + 1].to(xx.dtype)
@@ -157,12 +165,17 @@ def build_single_net(config, device="cpu"):
     model_params.pop("pretrained", None)
     module = initialize_model(model_params).to(device)
     runtime = dict(config.get("runtime", {}) or {})
-    wrappers = initialize_wrappers(runtime.get("wrappers", ""))
+    wrappers = runtime.get("wrappers", "")
+    if isinstance(wrappers, dict):     # {"train": ..., "eval": ...}
+        train_w = initialize_wrappers(wrappers.get("train"))
+        eval_w = initialize_wrappers(wrappers.get("eval"))
+    else:
+        train_w = eval_w = initialize_wrappers(wrappers)
     dtype = runtime.get("dtype") or config.get("dtype")
     if isinstance(dtype, str):
         dtype = _DTYPES[dtype]
-    return WrappedNet(module=module, wrappers_eval=wrappers,
-                      wrappers_train=wrappers,
+    return WrappedNet(module=module, wrappers_eval=eval_w,
+                      wrappers_train=train_w,
                       frozen=bool(runtime.get("frozen", False)),
                       meta=dict(getattr(module, "meta", {}) or {}),
                       data_params=runtime.get("data", {}) or {},

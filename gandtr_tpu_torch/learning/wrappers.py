@@ -2,18 +2,20 @@
 wrapper is a pair `pre(x, ctx) -> (x, meta)` / `post(y, ctx, meta) -> y`
 composed around a model forward. NHWC batches in, (N, D) descriptors out.
 
-Ported so far: the eval chain of the descriptor hub models (multiscale
-aggregation, learned whitening) and the fine-tune chain of the augment net
-(`meanstd_post`, `clahepost`, `cir_ratio_pass_through`, `cirfaketuplebatch`),
-with the string DSL that configs write them in. The md5-name augmentation
-gate is decided on the host per image name and reaches the batch as a
-boolean `ctx["pass_mask"]` tensor; the selection is a `torch.where`.
+Ported so far: the eval chain of the descriptor nets (`cirmultiscale`,
+`cirwhiten`) and the fine-tune chain of the augment net (`meanstd_post`,
+`clahepost`, `cir_ratio_pass_through`, `cirfaketuplebatch`), in both forms
+configs write them in: the string DSL and the sorted dict. The md5-name
+augmentation gate is decided on the host per image name and reaches the
+batch as a boolean `ctx["pass_mask"]` tensor; the selection is a
+`torch.where`.
 
 In the padded-bucket mode (`ctx["mask_state"]`, ops/maskprop.py) ClahePost
 computes each image's CLAHE on its valid rectangle, the whole batch in one
 K4 launch on the card (the JAX package maps images one at a time,
-`lax.map`, a compiler choice that does not carry over), and
-CirRatioPassThrough keeps each pass-through row's input rectangle.
+`lax.map`, a compiler choice that does not carry over),
+CirRatioPassThrough keeps each pass-through row's input rectangle, and
+CirMultiscaleAggregation resizes each image's rectangle.
 """
 import hashlib
 import json
@@ -25,7 +27,7 @@ import torch
 
 from gandtr_tpu_torch.ops import clahe as clahe_ops
 from gandtr_tpu_torch.ops.maskprop import MaskState
-from gandtr_tpu_torch.ops.resize import scale_resize
+from gandtr_tpu_torch.ops.resize import masked_scale_resize, scale_resize
 
 
 class ScaleList(list):
@@ -43,15 +45,33 @@ class Wrapper:
 
 class CirMultiscaleAggregation(Wrapper):
     """Run the model at each scale, p-power-mean the descriptors,
-    renormalize. The power is ctx["msp"] (GeM p of a plain GeM net), and 1
-    for a single scale."""
+    renormalize. The power is ctx["msp"] (GeM p of a plain GeM net,
+    `multiscale_msp`), and 1 for a single scale.
+
+    In the padded-bucket mode `pre` resizes each image's valid rectangle
+    (ops/resize.py::masked_scale_resize) and emits an (x, mask) pair per
+    scale, which the model forward runs with that scale's mask."""
+
+    SCALE_SETS = {"True": True, "False": False, "ms": True, "ss": False,
+                  "sms5": [1, 1 / np.sqrt(2), np.sqrt(2), 1 / 2, 2],
+                  "sms": [1, 1 / np.sqrt(2), np.sqrt(2)]}
 
     def __init__(self, scales=True):
+        if isinstance(scales, str):
+            scales = self.SCALE_SETS[scales]
         if isinstance(scales, bool):
             scales = [1, 1 / np.sqrt(2), 1 / 2] if scales else [1]
         self.scales = list(scales)
 
     def pre(self, x, ctx):
+        st = ctx.get("mask_state")
+        if st is not None and st.active:
+            items = []
+            for s in self.scales:
+                xs, sts = (x, st) if s == 1 else masked_scale_resize(x, st, s)
+                items.append((xs, sts.mask(xs.shape[1], xs.shape[2],
+                                           torch.float32)))
+            return ScaleList(items), None
         return ScaleList([scale_resize(x, s) if s != 1 else x
                           for s in self.scales]), None
 
@@ -61,6 +81,20 @@ class CirMultiscaleAggregation(Wrapper):
         v = sum(d ** msp for d in descs) / len(self.scales)
         v = v ** (1.0 / msp)
         return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+
+def multiscale_msp(model_cfg, module):
+    """The multiscale power of the reference (wrapper.py:249-252): the GeM p
+    of a plain GeM net (pooling gem, no whitening head in the model, not
+    regional), else 1. An eval-time Lw wrapper does not change it."""
+    model_cfg = dict(model_cfg or {})
+    p = getattr(getattr(module, "pool", None), "p", None)
+    if (model_cfg.get("pooling", "gem") == "gem"
+            and not model_cfg.get("whitening")
+            and not model_cfg.get("regional")
+            and p is not None):
+        return float(p.detach().cpu()[0])
+    return 1.0
 
 
 class CirtorchWhiten(Wrapper):
@@ -202,6 +236,8 @@ WRAPPERS_LABELS = {
     "cirfaketuplebatch": CirFakeTupleBatch,
     "cir_ratio_pass_through": CirRatioPassThrough,
     "meanstd_post": MeanStdPost,
+    "cirmultiscale": CirMultiscaleAggregation,
+    "cirwhiten": CirtorchWhiten,
     "clahepost": ClahePost,
 }
 
@@ -232,16 +268,25 @@ def _split_args(wrap):
     return _split(wrap, ":")
 
 
+def _wrapper_class(wname):
+    if wname not in WRAPPERS_LABELS:
+        raise NotImplementedError("wrapper %r is not ported yet" % wname)
+    return WRAPPERS_LABELS[wname]
+
+
 def initialize_wrappers(net_wrappers):
-    """A wrapper string (`name:arg:arg,name2:...`) -> a list of wrappers
+    """A wrapper string (`name:arg:arg,name2:...`) or a dict of keyword
+    arguments keyed `<order>_<name>` (run in sorted key order, as configs
+    write `0_cirwhiten`, `1_cirmultiscale`) -> a list of wrappers
     (wrapper.py:384-396)."""
+    if isinstance(net_wrappers, dict):
+        return [_wrapper_class(k.split("_", 1)[1])(**(net_wrappers[k] or {}))
+                for k in sorted(net_wrappers)]
     wraps = []
     for wrap in [x.strip() for x in split_wrapper_string(net_wrappers or "")
                  if x.strip()]:
         wname, *args = _split_args(wrap)
-        if wname not in WRAPPERS_LABELS:
-            raise NotImplementedError("wrapper %r is not ported yet" % wname)
-        wraps.append(WRAPPERS_LABELS[wname](*args))
+        wraps.append(_wrapper_class(wname)(*args))
     return wraps
 
 

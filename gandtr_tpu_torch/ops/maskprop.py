@@ -12,7 +12,9 @@ max-pool window across the border) have masked forms here.
 A `MaskState` holds the rectangle sizes as two (N,) int64 tensors on the
 device (never read on the host, so nothing synchronises) and materialises
 an (N, H, W) {0, 1} mask only where a multiply needs one. Sizes follow
-torch's floor rule `(in + 2p - k) // s + 1`.
+torch's floor rule `(in + 2p - k) // s + 1`. Where the caller padded the
+batch on the host, the state also keeps the sizes there (`host_hw`), for
+the ops that must slice each image (ops/resize.py::masked_scale_resize).
 """
 import torch
 import torch.nn.functional as F
@@ -37,14 +39,25 @@ class MaskState:
     """The valid rectangle of each image through a forward. Inactive (every
     method a no-op) when built from no mask."""
 
-    def __init__(self, hw=None):
+    def __init__(self, hw=None, host_hw=None):
         self.hw = hw
+        self._host_hw = None if host_hw is None else \
+            [(int(h), int(w)) for h, w in host_hw]
         self._cache = {}
 
     @classmethod
-    def maybe(cls, mask):
-        """From an (N, H, W) mask tensor, or None."""
-        return cls(None if mask is None else sizes_from_mask(mask))
+    def maybe(cls, mask, host_hw=None):
+        """From an (N, H, W) mask tensor, or None; `host_hw`, the same sizes
+        as N (h, w) pairs on the host, where the caller has them."""
+        return cls(None if mask is None else sizes_from_mask(mask), host_hw)
+
+    def host_hw(self):
+        """The sizes as a list of (h, w) ints, as the caller gave them."""
+        if self._host_hw is None:
+            raise ValueError(
+                "this op slices each image and needs the rectangle sizes "
+                "on the host: pass `host_hw` with the mask")
+        return self._host_hw
 
     @property
     def active(self):

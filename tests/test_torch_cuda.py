@@ -198,13 +198,18 @@ def test_k2_backward_under_the_kernels_mask(cuda):
     (64, [(41, 57), (64, 64), (29, 35)]),
     (364, [(362, 241), (272, 362), (362, 362), (41, 57)]),
     # the pad larger than the rectangle; h divides the grid and w does not
-    (61, [(3, 5), (32, 37), (40, 56), (61, 61), (1, 1)])])
+    (61, [(3, 5), (32, 37), (40, 56), (61, 61), (1, 1)]),
+    # the eval's geometry (shape_bucket 64): photos of longest side 1024
+    # and one kept at 800x600, and a query's bbx crop, each in its bucket
+    ((768, 1024), [(768, 1024)]), ((1024, 704), [(1024, 683)]),
+    ((640, 832), [(600, 800)]), ((768, 576), [(768, 547)])])
 @pytest.mark.parametrize("clip,grid", [(1.0, 8), (4.0, 4)])
 def test_k4_bit_equal_to_plain(cuda, bucket, rects, clip, grid):
     from gandtr_tpu_torch.kernels import clahe_masked as kmasked
     from gandtr_tpu_torch.ops.clahe import clahe_u8_masked_plain
-    rng = np.random.RandomState(bucket)
-    img = np.zeros((len(rects), bucket, bucket), np.uint8)
+    Hb, Wb = bucket if isinstance(bucket, tuple) else (bucket, bucket)
+    rng = np.random.RandomState(Hb)
+    img = np.zeros((len(rects), Hb, Wb), np.uint8)
     for i, (h, w) in enumerate(rects):
         img[i, :h, :w] = rng.randint(0, 256, (h, w))
     x = torch.from_numpy(img).to(cuda)
@@ -260,3 +265,25 @@ def test_finetune_step_launches_k2_and_k4(cuda):
     _, m = exp["step"](exp["state"], imgs, hws, labels, pmask)
     assert np.isfinite(float(m["total"]))
     assert (kvgg.LAUNCHES - k2, kmasked.LAUNCHES - k4) == (2 * T, T)
+
+
+def test_bucketed_extractor_matches_exact(cuda, tmp_path):
+    """The eval's extractor (eval.yml's network and data sections, seeded
+    weights and Lw) with shape_bucket 64 against exact shapes, on two
+    photos: within 1e-4."""
+    import pickle
+    import chip_smoke
+    from gandtr_tpu_torch.scenarios.validate_stage import build_eval
+    lw = tmp_path / "lw.pkl"
+    with open(lw, "wb") as f:
+        pickle.dump(chip_smoke.seeded_lw(), f)
+    rng = np.random.RandomState(0)
+    imgs = [rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in ((683, 1024), (1024, 768))]
+    out = {}
+    for bucket in (64, None):
+        params = chip_smoke.eval_params(str(tmp_path), str(lw), bucket)
+        ex = build_eval(params, cuda)["extractor"]
+        out[bucket] = torch.stack([ex(im) for im in imgs]).cpu()
+    assert out[64].shape == (2, 512)
+    assert float((out[64] - out[None]).abs().max()) <= 1e-4

@@ -18,7 +18,9 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "ops.losses", "kernels.vggconv", "kernels.clahe_masked",
           "learning.criteria", "learning.optimizers", "learning.schedules",
           "learning.supervised", "data.cir_datasets",
-          "scenarios.finetune_build")
+          "scenarios.finetune_build", "utils.io", "data.datasets",
+          "ops.ranking", "ops.resize", "eval.retrieval",
+          "scenarios.infer_stage", "scenarios.validate_stage")
 
 torch.set_num_threads(1)
 
@@ -58,12 +60,13 @@ def test_no_source_file_names_jax():
 
 
 @pytest.mark.parametrize("entry", ["hub", "serve_http", "cyclegan",
-                                   "hedngan", "finetune"])
+                                   "hedngan", "finetune", "validate"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from gandtr_tpu_torch import hub
     from gandtr_tpu_torch.scenarios.finetune_build import \
         build_finetune_experiment
+    from gandtr_tpu_torch.scenarios.validate_stage import validate
     from gandtr_tpu_torch.serving.service import serve_http
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "hub":
@@ -72,6 +75,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
             serve_http({}, block=False)
         elif entry == "finetune":
             build_finetune_experiment({"network": {}, "learning": {}})
+        elif entry == "validate":
+            validate({"network": {}, "validation": {}}, None)
         else:
             getattr(hub, entry)(pretrained=False)
 
