@@ -75,10 +75,31 @@
    Then the ranking on the card against numpy's float64 argsort, two
    database images against the port on the CPU (within 1e-4), and the
    host / device split per image.
-9. Stage breakdowns of one batch of each served path, the `{"kernels":
-   [...]}` line (K1 and K4 with their launches by path and their times at
-   the eval's geometry), the card's line again, and last `{"ok": true,
-   "device": {...}}`.
+9. The fine-tune loop of finetune.yml (`finetune_loop_config`: its
+   network, learning, data and output sections, seeded weights, the embed
+   in bf16; cut to 2 epochs, query_size 20, qpool_size 40, pool_size 150,
+   checkpoint_every 1, store_every 2) through `build_finetune_experiment`
+   and `training.run` on `cuda`, on a seeded synthetic tuple set in a temp
+   dir (180 JPEGs in 60 clusters of 3, longest side 362, the reference's
+   pkl form), every launch count set to 0 just before the run: finite
+   losses, every embed parameter moved, the generator untouched, every
+   mined negative outside its query's cluster and the others' clusters,
+   K4 once and K2 twice for each mining extraction batch and each tuple.
+   A fresh experiment on a copy of the directory as it was after epoch 1
+   resumes at epoch 2 with the parameters and Adam moments bit-equal and
+   trains it to finite losses; `embed_best.ckpt` loads strict into a fresh
+   GeM-VGG16 whose descriptors equal the trained net's; the gate-
+   partitioned extraction of 16 images within 5e-3 of one mixed batch.
+   Printed: each epoch's mining, steps, checkpoint and events seconds, ms
+   a step in the loop against the bare step of 7, the card's busy share
+   over epoch 2's steps (torch.profiler), the loader threads' host ms a
+   step, the extraction rate of each partition, the host seconds of one
+   published epoch's mining on seeded random descriptors, and a labelled
+   projection of a published epoch.
+10. Stage breakdowns of one batch of each served path, the `{"kernels":
+   [...]}` line (each kernel with its launches by path, K1 and K4 with
+   their times at the eval's geometry), the card's line again, and last
+   `{"ok": true, "device": {...}}`.
 
 Times are CUDA events around a window of back-to-back calls (`cuda_ms`).
 Exits nonzero, printing no result, without CUDA or without the package.
@@ -1267,6 +1288,472 @@ def finetune_parity(dev):
             "f32_desc_max": d32}
 
 
+# ---- the fine-tune loop of finetune.yml
+
+# finetune.yml's data.train and output sections as published
+# (tests/test_torch_finetune_loop.py holds finetune_loop_config to the YAML)
+FINETUNE_DATA_TRAIN = {
+    "dataset": {"name": "CirDiverseAnchors", "dataset": "retrieval-SfM-120k",
+                "dataset_pkl": ("data/train/retrieval-SfM-120k/"
+                                "retrieval-SfM-120k.pkl"),
+                "image_dir": "data/train/retrieval-SfM-120k/ims",
+                "image_size": 362, "neg_num": 5, "pool_size": 22000,
+                "qpool_size": 10000, "query_size": 2000,
+                "similar_exclude": 0.2, "similar_include": 0.8,
+                "split": "train"},
+    "loader": {"batch_size": 5}}
+FINETUNE_OUTPUT = {"learning": {"progress": {"print_each": 100}}}
+# the loop phase's cuts of scale (PERF.md §4); every other value published
+LOOP_EPOCHS = 2
+LOOP_CUTS = {"query_size": 20, "qpool_size": 40, "pool_size": 150}
+LOOP_CHECKPOINTS = {"checkpoint_every": 1, "store_every": 2}
+# the synthetic tuple set: 60 clusters of 3 photos, (h, w) with a longest
+# side of 362, so imresize(., 362) keeps them
+LOOP_CLUSTERS, LOOP_PER = 60, 3
+LOOP_SHAPES = [(272, 362), (362, 272), (362, 362), (362, 204)]
+# a published epoch: 2000 tuples / 5 a step, qpool 10,000 anchors (a
+# quarter through the generator) and a pool of 22,000
+PUB_STEPS, PUB_QPOOL, PUB_POOL, PUB_QUERIES = 400, 10000, 22000, 2000
+
+
+def finetune_loop_config(dataset_pkl, image_dir):
+    """finetune.yml with the seeded weights and bf16 embed of
+    `finetune_config`, its data and output sections, and the loop's cuts."""
+    import copy
+    cfg = finetune_config()
+    cfg["learning"]["training"]["epochs"] = LOOP_EPOCHS
+    cfg["learning"]["checkpoints"].update(LOOP_CHECKPOINTS)
+    cfg["data"] = {"train": copy.deepcopy(FINETUNE_DATA_TRAIN)}
+    cfg["data"]["train"]["dataset"].update(
+        LOOP_CUTS, dataset_pkl=dataset_pkl, image_dir=image_dir)
+    cfg["output"] = copy.deepcopy(FINETUNE_OUTPUT)
+    return cfg
+
+
+def make_tuple_set(root, seed=0):
+    """A seeded retrieval-SfM-style tuple set under root: LOOP_CLUSTERS
+    clusters of LOOP_PER JPEGs (a scene of its own: a hue and 3 plane waves,
+    each photo at another offset, with noise), shapes cycling through
+    LOOP_SHAPES; root/db.pkl in the reference's form {"train": {"ids",
+    "cluster", "qidxs", "pidxs"}}, each cluster's first photo a query and
+    its second the positive. Returns the pkl's path."""
+    import pickle
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    ims = os.path.join(root, "ims")
+    os.makedirs(ims)
+    ids, cluster = [], []
+    for c in range(LOOP_CLUSTERS):
+        freq = rng.uniform(4, 30, (3, 2)) * rng.choice([-1, 1], (3, 2))
+        phase = rng.uniform(0, 2 * np.pi, (3, 3))
+        base = 0.5 + 0.25 * np.cos(2 * np.pi * (c / LOOP_CLUSTERS
+                                                + np.array([0, 1, 2]) / 3))
+        for k in range(LOOP_PER):
+            h, w = LOOP_SHAPES[(c * LOOP_PER + k) % len(LOOP_SHAPES)]
+            dy, dx = rng.uniform(0, 0.2, 2)
+            yy = np.arange(h)[:, None, None] / 362.0 + dy
+            xx = np.arange(w)[None, :, None] / 362.0 + dx
+            img = np.broadcast_to(base, (h, w, 3)).copy()
+            for j in range(3):
+                img += 0.1 * np.sin(freq[j, 0] * yy + freq[j, 1] * xx
+                                    + phase[j])
+            img += rng.rand(h, w, 3) * 0.15
+            name = "c%02d_%d.jpg" % (c, k)
+            Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+                os.path.join(ims, name), quality=90)
+            ids.append(name)
+            cluster.append(c)
+    db = {"ids": ids, "cluster": cluster,
+          "qidxs": [LOOP_PER * c for c in range(LOOP_CLUSTERS)],
+          "pidxs": [LOOP_PER * c + 1 for c in range(LOOP_CLUSTERS)]}
+    path = os.path.join(root, "db.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"train": db}, f)
+    return path
+
+
+def _extraction_batches(calls, images, ratio, label_re, batch):
+    """The mining extraction batches of `calls` ([(idxs, label)]): each
+    call's gated images and its others in batches of `batch` apart."""
+    import re
+    from gandtr_tpu_torch.learning.wrappers import (cir_hash_passthrough,
+                                                    metadata_name)
+    n = 0
+    for idxs, label in calls:
+        gate = re.match(label_re, label) is not None
+        aug = sum(gate and cir_hash_passthrough(metadata_name(images[i]),
+                                                ratio) for i in idxs)
+        n += -(-aug // batch) + -(-(len(idxs) - aug) // batch)
+    return n
+
+
+def _instrument_loop(exp, rec):
+    """Wrap the loop's parts on their instances to time them and record
+    what the checks read: per epoch the mining, the steps (the epoch's run
+    less its mining), the checkpoint save and the events, each ending on
+    the host's wait; each loss; the extraction calls; the tuples; the host
+    time the loader threads spend building tuples; torch.profiler over
+    epoch 2's steps; and the state after epoch 1 with a copy of its
+    directory."""
+    import copy
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    training, dataset = exp["training"], exp["dataset"]
+    loop = training.loop
+    orig = {"prepare": dataset.prepare_epoch, "run": loop.run_epoch,
+            "save": exp["checkpoints"].save_epoch,
+            "norms": training._log_weight_norms,
+            "close": exp["events"].close_epoch, "step": loop.step_fn,
+            "extract": dataset.extract_fn, "hook": training.state_hook,
+            "load": dataset._load_tuple_u8, "args": loop.batch_to_args}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            rec["epochs"][-1][key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def prepare():
+        t0 = time.perf_counter()
+        out = orig["prepare"]()
+        torch.cuda.synchronize()
+        rec["epochs"][-1]["mining_s"] += time.perf_counter() - t0
+        rec["tuples"].append(list(dataset.tuples))
+        rec["marks"].append([("mined", time.perf_counter())])
+        if len(rec["epochs"]) == 2:
+            rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            rec["prof"].__enter__()
+            rec["prof_t0"] = time.perf_counter()
+        return out
+
+    def run_epoch(state, epoch):
+        rec["epochs"].append(dict.fromkeys(
+            ("mining_s", "run_s", "checkpoint_s", "events_s"), 0.0))
+        t0 = time.perf_counter()
+        state = orig["run"](state, epoch)
+        rec["epochs"][-1]["run_s"] = time.perf_counter() - t0
+        if epoch == 2:
+            torch.cuda.synchronize()
+            rec["prof_wall"] = time.perf_counter() - rec["prof_t0"]
+            rec["prof"].__exit__(None, None, None)
+        return state
+
+    def step_fn(state, *args):
+        state, m = orig["step"](state, *args)
+        rec["losses"].append(m["total"])
+        rec["marks"][-1].append(("stepped", time.perf_counter()))
+        return state, m
+
+    def batch_to_args(batch):
+        rec["marks"][-1].append(("batch", time.perf_counter()))
+        return orig["args"](batch)
+
+    def extract(idxs, label="anc-mine"):
+        rec["extract_calls"].append((list(idxs), label))
+        return orig["extract"](idxs, label=label)
+
+    def load(idxs):
+        t0 = time.perf_counter()
+        out = orig["load"](idxs)
+        rec["loader_s"].append(time.perf_counter() - t0)
+        return out
+
+    def hook(state, epoch):
+        if epoch == 1:
+            embed = state.models["embed"].module
+            rec["after1"] = {
+                "params": {k: p.detach().clone()
+                           for k, p in embed.named_parameters()},
+                "optimizer": copy.deepcopy(state.optimizer.state_dict()),
+                "step": state.step}
+            shutil.copytree(exp["checkpoints"].directory, rec["copy_dir"],
+                            symlinks=True)
+        return orig["hook"](state, epoch)
+
+    dataset.prepare_epoch = prepare
+    dataset.extract_fn = extract
+    extract.holder = orig["extract"].holder
+    dataset._load_tuple_u8 = load
+    loop.run_epoch = run_epoch
+    loop.step_fn = step_fn
+    loop.batch_to_args = batch_to_args
+    exp["checkpoints"].save_epoch = timed("checkpoint_s", orig["save"])
+    training._log_weight_norms = timed("events_s", orig["norms"])
+    exp["events"].close_epoch = timed("events_s", orig["close"])
+    training.state_hook = hook
+
+
+def _partition_check(exp, images, dev):
+    """The gate-partitioned extraction of 16 images (8 through the
+    generator, 8 not) against one mixed batch of them through the same
+    chain: max |diff| (the bf16 bound of the step, 5e-3)."""
+    from gandtr_tpu_torch.data.cir_datasets import load_u8_padded
+    from gandtr_tpu_torch.learning.wrappers import (cir_hash_passthrough,
+                                                    metadata_name)
+    flags = [cir_hash_passthrough(metadata_name(p), 0.25) for p in images]
+    gated = [i for i, f in enumerate(flags) if f][:8]
+    plain = [i for i, f in enumerate(flags) if not f][:8]
+    idxs = [i for pair in zip(gated, plain) for i in pair]
+    got = exp["dataset"].extract_fn(idxs, label="anc-mine")
+    ds = exp["dataset"]
+    arrs, hws = zip(*(load_u8_padded(images[i], ds.image_size, ds.pad_size)
+                      for i in idxs))
+    models = exp["models"]
+    with torch.inference_mode():
+        x, m = exp["stage"](
+            torch.from_numpy(np.stack(arrs))[None].to(dev),
+            torch.from_numpy(np.asarray(hws, np.int32))[None].to(dev))
+        y, m = models["augment"].apply(
+            x[0], ctx={"pass_mask": torch.tensor([flags[i] for i in idxs],
+                                                 device=dev)},
+            train=True, mask=m[0])
+        want = models["embed"].apply(y, train=False, mask=m).float()
+    return float(np.abs(got - want.cpu().numpy().T).max())
+
+
+def _extraction_rates(exp, images):
+    """Images a second of the mining extraction, for the generator
+    partition (the gated images, label anc-mine) and the pass-through one
+    (the others, label neg-pool-mine), each a warm call ending in the
+    host's copy of the descriptors."""
+    from gandtr_tpu_torch.learning.wrappers import (cir_hash_passthrough,
+                                                    metadata_name)
+    flags = [cir_hash_passthrough(metadata_name(p), 0.25) for p in images]
+    out = {}
+    for name, idxs, label in (
+            ("generator", [i for i, f in enumerate(flags) if f], "anc-mine"),
+            ("pass_through", [i for i, f in enumerate(flags) if not f][:128],
+             "neg-pool-mine")):
+        exp["dataset"].extract_fn(idxs[:8], label=label)
+        t0 = time.perf_counter()
+        exp["dataset"].extract_fn(idxs, label=label)
+        out[name] = {"images": len(idxs),
+                     "images_per_s": len(idxs) / (time.perf_counter() - t0)}
+    return out
+
+
+def protocol_mining(dev, seed=0):
+    """Host seconds of one published epoch's mining on seeded random unit
+    descriptors: rank_descriptors of (512, 22,000) pool against (512,
+    2,000) queries on the card plus search_hard_negatives with nnum 5, and
+    select_diverse_queries picking 2,000 of a 10,000 pool."""
+    from gandtr_tpu_torch.data import mining
+    rng = np.random.RandomState(seed)
+
+    def unit(n):
+        v = rng.randn(512, n).astype(np.float32)
+        return v / np.linalg.norm(v, axis=0)
+
+    qpool, pool = unit(PUB_QPOOL), unit(PUB_POOL)
+    clusters = list(np.arange(PUB_QPOOL + PUB_POOL) // 10)
+    t0 = time.perf_counter()
+    sel, _ = mining.select_diverse_queries(qpool, PUB_QUERIES, 0.2, 0.8,
+                                           rng=np.random.RandomState(seed))
+    select_s = time.perf_counter() - t0
+    qidxs = sel
+    idxs2images = list(range(PUB_QPOOL, PUB_QPOOL + PUB_POOL))
+    t0 = time.perf_counter()
+    nidxs, _ = mining.search_hard_negatives(
+        qpool[:, sel], pool, qidxs, idxs2images, clusters, 5, device=dev)
+    search_s = time.perf_counter() - t0
+    if len(set(sel)) != PUB_QUERIES or any(len(n) != 5 for n in nidxs):
+        raise AssertionError("protocol mining picked %d queries"
+                             % len(set(sel)))
+    return {"select_diverse_queries_s": select_s,
+            "rank_and_search_s": search_s,
+            "host_mining_s": select_s + search_s}
+
+
+def run_finetune_loop(dev, bare_step_ms):
+    """finetune.yml's loop through build_finetune_experiment on the card:
+    two epochs on a seeded synthetic tuple set (the cuts of LOOP_CUTS),
+    every launch count set to 0 just before `training.run` and read just
+    after; then the checks, the resume, the extraction rates, the mining
+    at protocol scale and the projection of a published epoch."""
+    import shutil
+    import tempfile
+    from gandtr_tpu_torch.learning.network import build_single_net
+    from gandtr_tpu_torch.scenarios.finetune_build import (
+        EXTRACT_BATCH, build_finetune_experiment)
+    tmp = tempfile.mkdtemp(prefix="ftloop_", dir=os.environ.get("TMPDIR"))
+    try:
+        t0 = time.perf_counter()
+        pkl = make_tuple_set(tmp)
+        cfg = finetune_loop_config(pkl, os.path.join(tmp, "ims"))
+        exp = build_finetune_experiment(cfg, os.path.join(tmp, "exp"),
+                                        device=dev)
+        setup_s = time.perf_counter() - t0
+        images = exp["dataset"].images
+        rec = {"epochs": [], "losses": [], "tuples": [], "extract_calls": [],
+               "loader_s": [], "marks": [],
+               "copy_dir": os.path.join(tmp, "exp_after1")}
+        _instrument_loop(exp, rec)
+        first = {k: v.detach().clone() for k, v in
+                 exp["models"]["embed"].module.named_parameters()}
+        aug0 = {k: v.clone() for k, v in
+                exp["models"]["augment"].module.state_dict().items()}
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = exp["training"].run(exp["state"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+
+        # --- what the run must show
+        losses = [float(v) for v in rec["losses"]]
+        steps = len(losses)
+        per_epoch = len(exp["loader"])
+        if steps != LOOP_EPOCHS * per_epoch or not np.all(np.isfinite(losses)):
+            raise AssertionError("loop losses %s" % losses)
+        embed = state.models["embed"].module
+        moved = sum(int(not torch.equal(p.detach(), first[k]))
+                    for k, p in embed.named_parameters())
+        aug_same = all(torch.equal(v, aug0[k]) for k, v in
+                       state.models["augment"].module.state_dict().items())
+        if moved != len(first) or not aug_same:
+            raise AssertionError("loop update: %d of %d embed parameters "
+                                 "moved, augment unchanged %s"
+                                 % (moved, len(first), aug_same))
+        clusters = exp["dataset"].db["cluster"]
+        for tuples in rec["tuples"]:
+            for q, _, negs in tuples:
+                if len(negs) != 5 or len({clusters[n] for n in negs}
+                                         | {clusters[q]}) != 6:
+                    raise AssertionError("negatives of %d: %s" % (q, negs))
+        batches = _extraction_batches(rec["extract_calls"], images, 0.25,
+                                      "anc", EXTRACT_BATCH)
+        t = cfg["data"]["train"]["loader"]["batch_size"]
+        want = {"K2": 2 * (batches + t * steps), "K4": batches + t * steps}
+        if (counts["K2"], counts["K4"]) != (want["K2"], want["K4"]):
+            raise AssertionError("loop launches %s, expected %s (%d "
+                                 "extraction batches, %d steps of %d tuples)"
+                                 % (counts, want, batches, steps, t))
+        print("fine-tune loop launches: %s = K4 once and K2 twice for each "
+              "of %d mining extraction batches and each of %d tuples in %d "
+              "steps" % (json.dumps(counts), batches, t * steps, steps))
+
+        # --- the parts of the run and the card's busy share
+        prof = rec.pop("prof")
+        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        ep2 = rec["epochs"][1]
+        steps_s = ep2["run_s"] - ep2["mining_s"]
+        loop_step_ms = 1e3 * steps_s / per_epoch
+        # epoch 2 on the host's clock: the wait for the first batch after
+        # mining, and the host's time from one step's return to the next's
+        marks = rec["marks"][1]
+        first = next(t for k, t in marks if k == "batch") - marks[0][1]
+        stepped = [t for k, t in marks if k == "stepped"]
+        out = {"setup_s": setup_s, "run_s": wall, "steps": steps,
+               "losses": losses, "launches": counts,
+               "extraction_batches": batches,
+               "epochs": [{"mining_s": e["mining_s"],
+                           "steps_s": e["run_s"] - e["mining_s"],
+                           "checkpoint_s": e["checkpoint_s"],
+                           "events_s": e["events_s"]}
+                          for e in rec["epochs"]],
+               "loop_ms_per_step_epoch2": loop_step_ms,
+               "bare_step_ms": bare_step_ms,
+               "epoch2_first_batch_wait_ms": 1e3 * first,
+               "epoch2_host_ms_between_steps": 1e3 * float(
+                   np.mean(np.diff(stepped))),
+               "epoch2_steps_busy_share": busy_us / 1e6 / rec["prof_wall"],
+               "epoch2_steps_profiled_wall_s": rec["prof_wall"],
+               "loader_host_ms_per_step": 1e3 * sum(rec["loader_s"]) / steps,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+        # --- resume from the directory as it was after epoch 1
+        rexp = build_finetune_experiment(cfg, rec["copy_dir"], device=dev)
+        rstate, start = rexp["training"].resume_or_start(rexp["state"])
+        after1 = rec["after1"]
+        same_params = all(torch.equal(p.detach(), after1["params"][k]) for k, p
+                          in rstate.models["embed"].module.named_parameters())
+        got_opt = rstate.optimizer.state_dict()["state"]
+        same_moments = all(torch.equal(got_opt[i][k], v)
+                           for i, s in after1["optimizer"]["state"].items()
+                           for k, v in s.items())
+        if start != 2 or rstate.step != after1["step"] or not (
+                same_params and same_moments):
+            raise AssertionError("resume: start %d, step %d vs %d, params "
+                                 "%s, moments %s" % (start, rstate.step,
+                                                     after1["step"],
+                                                     same_params,
+                                                     same_moments))
+        rlosses = []
+        rstep = rexp["training"].loop.step_fn
+
+        def counted(s, *args):
+            s, m = rstep(s, *args)
+            rlosses.append(m["total"])
+            return s, m
+
+        rexp["training"].loop.step_fn = counted
+        rexp["training"].run(rstate, start_epoch=start)
+        rlosses = [float(v) for v in rlosses]
+        if len(rlosses) != per_epoch or not np.all(np.isfinite(rlosses)):
+            raise AssertionError("resumed epoch 2 losses %s" % rlosses)
+        out["resume"] = {"start_epoch": start, "params_bit_equal": True,
+                         "adam_moments_bit_equal": True,
+                         "epoch2_losses": rlosses}
+        del rexp, rstate
+
+        # --- embed_best.ckpt in a fresh GeM-VGG16, and mining after the
+        # steps against it (the bf16 cast copy follows the weights)
+        best = exp["checkpoints"].load_net("embed", "_best")
+        fresh = build_single_net(cfg["network"]["embed"], device="cpu")
+        fresh.module.load_state_dict(best["model_state"], strict=True)
+        fresh.module.to(dev)
+        from gandtr_tpu_torch.data.cir_datasets import load_u8_padded
+        ds = exp["dataset"]
+        arrs, hws = zip(*(load_u8_padded(images[i], ds.image_size,
+                                         ds.pad_size) for i in range(8)))
+        with torch.inference_mode():
+            x, m = exp["stage"](
+                torch.from_numpy(np.stack(arrs))[None].to(dev),
+                torch.from_numpy(np.asarray(hws, np.int32))[None].to(dev))
+            d_trained = exp["models"]["embed"].apply(x[0], train=False,
+                                                     mask=m[0])
+            d_fresh = fresh.apply(x[0], train=False, mask=m[0])
+        if not torch.equal(d_trained, d_fresh):
+            raise AssertionError("embed_best.ckpt descriptors differ by %g"
+                                 % float((d_trained.float()
+                                          - d_fresh.float()).abs().max()))
+        del fresh
+
+        out["partition_vs_one_batch_max"] = _partition_check(exp, images,
+                                                             dev)
+        if out["partition_vs_one_batch_max"] > 5e-3:
+            raise AssertionError("partitioned extraction vs one batch: %g"
+                                 % out["partition_vs_one_batch_max"])
+        out["extraction"] = _extraction_rates(exp, images)
+        out["protocol_mining"] = protocol_mining(dev)
+        del exp, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    gen_rate = out["extraction"]["generator"]["images_per_s"]
+    plain_rate = out["extraction"]["pass_through"]["images_per_s"]
+    gated = PUB_QPOOL // 4
+    proj = {"steps_s": PUB_STEPS * loop_step_ms / 1e3,
+            "extraction_generator_s": gated / gen_rate,
+            "extraction_pass_through_s": (PUB_QPOOL - gated + PUB_POOL)
+            / plain_rate,
+            "host_mining_s": out["protocol_mining"]["host_mining_s"]}
+    proj["epoch_s"] = sum(proj.values())
+    out["projection_published_epoch"] = proj
+    print("fine-tune loop (finetune.yml, 2 epochs, query_size 20, qpool_size "
+          "40, pool_size 150, bf16 embed): %s" % json.dumps(out))
+    print("PROJECTION, not a measurement: a published epoch (400 steps, "
+          "32,000 mining extractions of which 2,500 through the generator, "
+          "mining at 2,000 x 22,000) from this run's rates: %s"
+          % json.dumps(proj))
+    return out
+
+
 # ---- the retrieval eval of eval.yml
 
 EVAL_SHAPES = [(768, 1024), (1024, 768), (683, 1024), (1024, 683),
@@ -1805,6 +2292,11 @@ def main():
     torch.cuda.empty_cache()
     ft["parity"] = finetune_parity(dev)
 
+    # ---- the fine-tune loop of finetune.yml
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loop = run_finetune_loop(dev, ft["ms_per_step"])
+
     # ---- the retrieval eval of eval.yml
     torch.cuda.empty_cache()
     ev = run_eval(dev)
@@ -1813,8 +2305,9 @@ def main():
          if k not in ("breakdown", "at_eval_geometry")}))
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
+                   "finetune_loop": loop["launches"][k],
                    "eval": sum(c[k] for c in ev["launches"].values())}
-               for k in ("K1", "K4")}
+               for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{
         "name": "clahe_u8 (K1: static CLAHE, LUTs + interpolation in one "
@@ -1836,7 +2329,8 @@ def main():
         "route": "cuda",
         "source": "gandtr_tpu_torch/csrc/resblock.cu",
         "replaces": "gandtr_tpu/ops/resblock_pallas.py:109",
-        "launches": gen_launches["K3"],
+        "launches": sum(by_path["K3"].values()),
+        "launches_by_path": by_path["K3"],
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
@@ -1849,7 +2343,8 @@ def main():
         "route": "cuda",
         "source": "gandtr_tpu_torch/csrc/vggconv.cu",
         "replaces": "gandtr_tpu/ops/vggconv_pallas.py:94",
-        "launches": ft["launches"]["K2"],
+        "launches": sum(by_path["K2"].values()),
+        "launches_by_path": by_path["K2"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -17,6 +17,17 @@ from PIL import Image
 from gandtr_tpu_torch.ops import clahe as clahe_ops
 
 
+# the host transforms' random draws, reseeded each epoch (the reference's
+# per-epoch seed); the ported transforms draw nothing yet
+_RNG = np.random.RandomState(0)
+
+
+def seed_transforms(seed):
+    """Reseed the host transforms' random draws for an epoch."""
+    global _RNG
+    _RNG = np.random.RandomState(seed)
+
+
 class Compose:
     def __init__(self, transforms):
         self.transforms = transforms

@@ -11,6 +11,7 @@ may otherwise sum with atomics), so a served image is the same bit for bit
 however often it is computed. Every entry point calls `resolve_device`, so
 the policy holds before any work reaches the card.
 """
+import numpy as np
 import torch
 
 
@@ -32,3 +33,12 @@ def resolve_device(device=None):
                 "is available; pass device='cpu' to run on the CPU")
         set_float32_policy()
     return dev
+
+
+def upload(arr, device):
+    """A host array as a tensor on `device`. To the card the copy goes from
+    pinned memory, asynchronously: the host goes on while it runs."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

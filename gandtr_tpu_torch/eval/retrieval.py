@@ -21,9 +21,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-from PIL import Image
 
+from gandtr_tpu_torch.data.cir_datasets import imresize
 from gandtr_tpu_torch.data.datasets import imread
+from gandtr_tpu_torch.device import upload
 from gandtr_tpu_torch.ops.maskprop import mask_from_sizes
 from gandtr_tpu_torch.ops.ranking import (compute_map_protocols,
                                           rank_descriptors)
@@ -63,12 +64,6 @@ def qim_fname(cfg, i):
     return os.path.join(cfg["dir_images"], cfg["qimlist"][i] + cfg["qext"])
 
 
-def imresize(img, imsize):
-    """Longest-side LANCZOS thumbnail (cirtorch's datahelpers.imresize)."""
-    img.thumbnail((int(imsize), int(imsize)), Image.LANCZOS)
-    return img
-
-
 class ShapeCachedExtractor:
     """Descriptor extraction on one device.
 
@@ -103,12 +98,7 @@ class ShapeCachedExtractor:
         return np.pad(img_np, pad), (H, W)
 
     def _upload(self, arr):
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            # from pinned memory the copy is asynchronous: the host goes on
-            # to the next image while the card works
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return upload(arr, self.device)
 
     @torch.inference_mode()
     def _run(self, imgs_np):

@@ -33,6 +33,27 @@ class FinetuneState:
     optimizer: Any           # over the embed net's parameters
     step: int = 0
 
+    def state_dict(self):
+        """What a resume needs besides the networks' weights: the
+        optimizer's state (Adam's moments and step counts, on the host) and
+        the step count (the JAX package's `_AUX_FIELDS`)."""
+        return {"optimizer": _to_cpu(self.optimizer.state_dict()),
+                "step": int(self.step)}
+
+    def load_state_dict(self, state):
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
 
 def make_finetune_state(models, optimizer):
     return FinetuneState(models=models, optimizer=optimizer, step=0)

@@ -287,3 +287,50 @@ def test_bucketed_extractor_matches_exact(cuda, tmp_path):
         out[bucket] = torch.stack([ex(im) for im in imgs]).cpu()
     assert out[64].shape == (2, 512)
     assert float((out[64] - out[None]).abs().max()) <= 1e-4
+
+
+def test_finetune_loop_launches_k2_and_k4(cuda, tmp_path):
+    """One epoch of the loop on the micro set of
+    tests/test_torch_finetune_loop.py (16 seeded 48x40 JPEGs in 8 clusters,
+    image_size 32, a generator of ngf 4 and one block, the embed in bf16)
+    through the entry point on cuda: every mining extraction batch launches
+    K4 once and K2 twice, each step K4 once and K2 twice a tuple; the loss
+    is finite and the epoch's checkpoint loads."""
+    import chip_smoke
+    from PIL import Image
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.learning.wrappers import cir_hash_passthrough
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
+    rng = np.random.RandomState(0)
+    images = []
+    for i in range(16):
+        path = str(tmp_path / ("im%02d.jpg" % i))
+        Image.fromarray((rng.rand(48, 40, 3) * 255).astype(np.uint8)
+                        ).save(path)
+        images.append(path)
+    db = {"cids": ["im%02d" % i for i in range(16)],
+          "cluster": [i // 2 for i in range(16)],
+          "qidxs": [0, 2, 4, 6], "pidxs": [1, 3, 5, 7]}
+    cfg = chip_smoke.finetune_config()
+    cfg["network"]["augment"]["model"].update(ngf=4, n_blocks=1)
+    cfg["learning"]["training"]["epochs"] = 1
+    cfg["data"] = {"train": {
+        "dataset": {"image_size": 32, "neg_num": 2, "pool_size": 12,
+                    "query_size": 3, "qpool_size": 4, "similar_exclude": 0.2,
+                    "similar_include": 0.8},
+        "loader": {"batch_size": 3, "num_workers": 1}}}
+    exp = build_finetune_experiment(cfg, directory=str(tmp_path / "exp"),
+                                    db=db, images=images)
+    k2, k4 = kvgg.LAUNCHES, kmasked.LAUNCHES
+    exp["training"].run(exp["state"])
+    gated = sum(cir_hash_passthrough("im%02d" % q, 0.25) for q in db["qidxs"])
+    batches = int(gated > 0) + int(gated < 4) + 1   # anchors, then the pool
+    steps_t = 3                                       # one step of 3 tuples
+    assert (kvgg.LAUNCHES - k2, kmasked.LAUNCHES - k4) == (
+        2 * (batches + steps_t), batches + steps_t)
+    assert np.isfinite(
+        exp["events"].history[0]["metrics"]["train/learning/total"])
+    best = exp["checkpoints"].load_net("embed", "_best")
+    exp["models"]["embed"].module.load_state_dict(best["model_state"])

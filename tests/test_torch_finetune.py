@@ -441,7 +441,10 @@ def test_chip_smoke_config_is_the_published_one():
 def test_experiment_builds_finetune_yml_on_the_cpu():
     """The published finetune.yml networks (the generator cut to ngf 4 and
     one block, embed in bf16) through the uint8 entry point: a finite loss,
-    embed parameters moved, the frozen generator untouched."""
+    embed parameters moved, the frozen generator untouched. Its tuple
+    database (SfM-120k) is not in the repository, so the experiment is
+    built without `dataset_pkl`: a step and no loader (the loop is
+    tests/test_torch_finetune_loop.py's)."""
     import yaml
     with open("gandtr_tpu/scenarios/configs/iccv23/parameters/"
               "finetune.yml") as f:
@@ -449,8 +452,10 @@ def test_experiment_builds_finetune_yml_on_the_cpu():
     cfg["network"]["augment"]["path"] = None
     cfg["network"]["augment"]["model"].update(ngf=4, n_blocks=1)
     cfg["network"]["embed"]["runtime"]["dtype"] = "bfloat16"
+    del cfg["data"]["train"]["dataset"]["dataset_pkl"]
     exp = finetune_build.build_finetune_experiment(cfg, device="cpu")
     assert exp["bucket"] == 364
+    assert exp["loader"] is None and exp["training"] is None
     rng = np.random.RandomState(5)
     imgs = rng.randint(0, 256, (1, 7, B, B, 3)).astype(np.uint8)
     hws = np.asarray([[(30, 26), (26, 30)] * 3 + [(32, 32)]], np.int32)

@@ -20,7 +20,9 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "learning.supervised", "data.cir_datasets",
           "scenarios.finetune_build", "utils.io", "data.datasets",
           "ops.ranking", "ops.resize", "eval.retrieval",
-          "scenarios.infer_stage", "scenarios.validate_stage")
+          "scenarios.infer_stage", "scenarios.validate_stage",
+          "data.mining", "learning.events", "learning.checkpoints",
+          "learning.training")
 
 torch.set_num_threads(1)
 
