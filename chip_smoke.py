@@ -96,10 +96,27 @@
    step, the extraction rate of each partition, the host seconds of one
    published epoch's mining on seeded random descriptors, and a labelled
    projection of a published epoch.
-10. Stage breakdowns of one batch of each served path, the `{"kernels":
+10. The ResNet-101 chain of finetune_r101 and eval_r101 (`run_r101`), at
+   full width and depth (2048-d, a 2048x2048 Lw), seeded weights, each
+   part with every launch count set to 0 just before it: (a) the hub's
+   gem_resnet101_cyclegan served (8 concurrent 768x1024 npy requests, K1
+   once a batch): finite unit-norm descriptors equal to the direct call,
+   2 images within 1e-4 of the CPU port; (b) step 1, the loop of (9) with
+   a ResNet-101 embed and margin 0.85 (`finetune_r101_config`): finite
+   losses, every embed parameter moved (BatchNorm affine included), every
+   BatchNorm statistic bit-equal, K4 once a tuple and an extraction batch
+   and no K2, then the bare step on the step phase's batch; (c) step 2,
+   infer_and_learn_whitening by whitening.yml from (b)'s
+   epochs/embed_best.ckpt on the tuple set's photos in the reference's
+   cid tree: lw-retrieval.pkl with a 2048x2048 P, K4 once a batch, the
+   seconds of Lw learning, an existing pickle skipped; (d) step 4,
+   validate by eval.yml from the same file and pickle, bucketed and exact
+   as in (8); (e) K1 and K4 held bit for bit against their plain versions
+   on the very inputs (a) to (d) gave them, summarised a kernel.
+11. Stage breakdowns of one batch of each served path, the `{"kernels":
    [...]}` line (each kernel with its launches by path, K1 and K4 with
-   their times at the eval's geometry), the card's line again, and last
-   `{"ok": true, "device": {...}}`.
+   their times at the eval's geometry and the r101 inputs), the card's
+   line again, and last `{"ok": true, "device": {...}}`.
 
 Times are CUDA events around a window of back-to-back calls (`cuda_ms`).
 Exits nonzero, printing no result, without CUDA or without the package.
@@ -239,10 +256,11 @@ def _clahe_bound(shape, valid_px, n_sizes=0):
             "bytes" if by_bytes else "operations")
 
 
-def _clahe_case(name, kernel, plain, shape, valid_px, n_sizes, per_call):
+def _clahe_case(name, kernel, plain, shape, valid_px, n_sizes, per_call,
+                verbose=True):
     """One CLAHE call on an eval input: bit-equal to its plain version, one
     kernel on the stream (`per_call`, as counted); kernel and plain medians
-    and the bound."""
+    and the bound, printed when `verbose`."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     d = int((got.int() - want.int()).abs().max())
@@ -252,9 +270,10 @@ def _clahe_case(name, kernel, plain, shape, valid_px, n_sizes, per_call):
     ms = cuda_ms(kernel, reps=20)
     plain_ms = cuda_ms(plain, reps=3)
     bound_s, bound_by = _clahe_bound(shape, valid_px, n_sizes)
-    print("%s %s: bit-equal to plain, 1 kernel a call; kernel %.4f ms, "
-          "plain %.4f ms, bound %.5f ms (%s)"
-          % (name, tuple(shape), ms, plain_ms, bound_s * 1e3, bound_by))
+    if verbose:
+        print("%s %s: bit-equal to plain, 1 kernel a call; kernel %.4f ms, "
+              "plain %.4f ms, bound %.5f ms (%s)"
+              % (name, tuple(shape), ms, plain_ms, bound_s * 1e3, bound_by))
     return {"shape": list(shape), "max_abs_err": d, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
             "bound_by": bound_by}
@@ -650,12 +669,13 @@ def _recording_calls(module, name, calls):
     return lambda: setattr(module, name, original)
 
 
-def check_clahe_at_eval(calls):
-    """K4 and K1 on the inputs the counted eval runs gave them (`calls`:
+def check_clahe_at_eval(calls, verbose=True):
+    """K4 and K1 on the inputs the counted runs gave them (`calls`:
     {"K4": [(args, kwargs)], "K1": [...]}): each distinct bucket shape and
     set of rectangles (K4) or exact shape (K1) once, bit-equal to the plain
-    version with one kernel a call, timed against its bound. Returns
-    {"K4": [case], "K1": [case]}, each case with the calls it stands for."""
+    version with one kernel a call, timed against its bound (a line a case
+    when `verbose`). Returns {"K4": [case], "K1": [case]}, each case with
+    the calls it stands for."""
     from gandtr_tpu_torch.kernels import clahe as kclahe
     from gandtr_tpu_torch.kernels import clahe_masked as kmasked
     from gandtr_tpu_torch.ops.clahe import (clahe_u8_masked_plain,
@@ -688,7 +708,7 @@ def check_clahe_at_eval(calls):
                 lambda: wrappers[k](*args, **kwargs),
                 lambda: plains[k](*args, **kwargs), shape,
                 sum(h * w for h, w in rects), len(rects) if k == "K4" else 0,
-                next(per_call))
+                next(per_call), verbose)
             case.update(rects=[list(r) for r in rects], calls=n)
             out[k].append(case)
     return out
@@ -1330,6 +1350,56 @@ def finetune_loop_config(dataset_pkl, image_dir):
     return cfg
 
 
+# the finetune_r101 target (train/_train.yml:49-76): step 1 is the loop
+# above with a ResNet-101 embed and margin 0.85 (R101_EPOCHS epochs), step
+# 2 learns Lw by whitening.yml from its embed_best.ckpt, step 4 evaluates
+# by eval.yml from both; tests/test_torch_finetune_r101.py holds them to
+# the YAML files
+R101_EPOCHS = 2
+R101_TRAIN = {"network.embed.model.cir_architecture": "resnet101",
+              "learning.training.criterion.margin": 0.85}
+WHITENING = {
+    "whitening": {"type": "lw", "dataset_pkl": None, "directory": None},
+    "network": {
+        "type": "SingleNetwork", "path": None,
+        "model": {"architecture": "cirnet", "cir_architecture": "resnet101",
+                  "pooling": "gem", "local_whitening": False,
+                  "whitening": False, "regional": False},
+        "runtime": {"wrappers": "cirmultiscale:True"}},
+    "data": {"image_dir": None, "image_size": 1024, "shape_bucket": 64,
+             "transforms": "pil2np | apply_clahe:1.0 | totensor | normalize",
+             "mean_std": MEANSTD_IMNET},
+    "output": {"dimensions": 2048},
+}
+
+
+def _set_dotted(cfg, key, value):
+    *head, last = key.split(".")
+    for k in head:
+        cfg = cfg[k]
+    cfg[last] = value
+
+
+def finetune_r101_config(dataset_pkl, image_dir):
+    """finetune_loop_config with finetune_r101's step 1 overrides."""
+    cfg = finetune_loop_config(dataset_pkl, image_dir)
+    cfg["learning"]["training"]["epochs"] = R101_EPOCHS
+    for key, value in R101_TRAIN.items():
+        _set_dotted(cfg, key, value)
+    return cfg
+
+
+def r101_whitening_params(net_path, whiten_pkl, image_dir, directory):
+    """whitening.yml's sections with finetune_r101's step 2 overrides: the
+    step 1 network file, the whitening set and the experiment directory."""
+    import copy
+    params = copy.deepcopy(WHITENING)
+    params["whitening"].update(dataset_pkl=whiten_pkl, directory=directory)
+    params["network"]["path"] = net_path
+    params["data"]["image_dir"] = image_dir + "/*"
+    return params
+
+
 def make_tuple_set(root, seed=0):
     """A seeded retrieval-SfM-style tuple set under root: LOOP_CLUSTERS
     clusters of LOOP_PER JPEGs (a scene of its own: a hue and 3 plane waves,
@@ -1923,14 +1993,15 @@ def eval_breakdown(params, paths, want):
             "device_parts_ms_per_image": parts, "vs_validate_max": d}
 
 
-def eval_busy_share(params):
+def eval_busy_share(params, label="eval"):
     """The device's busy share over the evaluation of the dataset in one
     bucketed validate run (`evaluate_dataset`: loading, extraction, ranking
     and mAP; the stage's set-up before it is left out): the kernels' and
     copies' time on the card (torch.profiler, CUDA activity only) over that
     window's wall time; and the host's time inside the extractor calls
     there (pad, upload, the chain's launches), with the loader threads
-    running beside them."""
+    running beside them; and the kernels and copies on the card a photo
+    (what the host issues)."""
     from torch.profiler import ProfilerActivity, profile
     from gandtr_tpu_torch.eval.retrieval import ShapeCachedExtractor
     from gandtr_tpu_torch.scenarios import validate_stage
@@ -1962,17 +2033,20 @@ def eval_busy_share(params):
         validate_stage.evaluate_dataset = original
         ShapeCachedExtractor.__call__ = call
     wall = window["wall"]
-    busy_us = sum(e.time_range.elapsed_us() for e in window["prof"].events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    device = [e for e in window["prof"].events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
     share = busy_us / 1e6 / wall
     call_ms = 1e3 * float(np.mean(in_calls))
-    print("eval bucketed, the dataset's evaluation under the profiler (set-"
+    print("%s bucketed, the dataset's evaluation under the profiler (set-"
           "up left out): %.3f s wall, the card busy %.3f s (%.1f%%), idle "
           "%.1f%%; the host %.2f ms a photo in the extractor's call (%d "
-          "calls)" % (wall, busy_us / 1e6, 100 * share, 100 - 100 * share,
-                      call_ms, len(in_calls)))
+          "calls); %.0f kernels and copies on the card a photo"
+          % (label, wall, busy_us / 1e6, 100 * share, 100 - 100 * share,
+             call_ms, len(in_calls), len(device) / len(in_calls)))
     return {"wall_s": wall, "busy_s": busy_us / 1e6, "busy_share": share,
-            "host_ms_in_extractor_call": call_ms}
+            "host_ms_in_extractor_call": call_ms,
+            "device_ops_per_photo": len(device) / len(in_calls)}
 
 
 def check_ranking(vecs, qvecs):
@@ -2002,6 +2076,97 @@ def check_ranking(vecs, qvecs):
     return int(clear.sum()), int((~clear).sum()), rank_ms
 
 
+def validate_modes(dev, params_for, n_img, dim, calls, label="eval"):
+    """The validate stage on the card, bucketed (`params_for(64)`: K4) and
+    exact (`params_for(None)`: K1): each mode once to warm up, then once
+    with every launch count set to 0 just before it and its kernel's calls
+    recorded into `calls`. Checks the descriptors (finite, unit norm,
+    `dim`-d) and the launches (one of the mode's kernel a photo: no loader
+    section, batch 1). Returns {mode: {...}} with the recorded
+    (metrics, aps, vecs, qvecs)."""
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.scenarios import validate_stage
+    out = {}
+    for bucket in (64, None):
+        mode = "bucketed" if bucket else "exact"
+        params = params_for(bucket)
+        t0 = time.perf_counter()
+        validate_stage.validate(params, None)
+        cold = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        kernel, other = ("K4", "K1") if bucket else ("K1", "K4")
+        restore = (_recording_calls(kmasked, "clahe_u8_masked_cuda",
+                                    calls["K4"]) if bucket else
+                   _recording_calls(kclahe, "clahe_u8_cuda", calls["K1"]))
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            (res,), rec = _recorded(validate_stage, lambda: validate_stage
+                                    .validate(params, None))
+            wall = time.perf_counter() - t0
+            counts = launches()
+        finally:
+            restore()
+        # the stage's set-up alone (the net with its seeded weights drawn
+        # on the host or read from its file, the Lw): the rest of the wall
+        # is the extraction, ranking and mAP
+        t0 = time.perf_counter()
+        validate_stage.build_eval(params, dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        metrics, aps, vecs, qvecs = rec[0]
+        out[mode] = {"wall_s": wall, "first_wall_s": cold,
+                     "setup_s": setup, "images_per_s": n_img / wall,
+                     "images_per_s_after_setup": n_img / (wall - setup),
+                     "launches": counts,
+                     "metadata": res["metadata"]["validation"],
+                     "aps": aps, "vecs": vecs, "qvecs": qvecs}
+        print("%s %s (shape_bucket %s): %.3f s for %d images, %.2f "
+              "images/s (first run %.3f s); set-up %.3f s, after it "
+              "%.2f images/s; launches %s; mAP %s"
+              % (label, mode, bucket, wall, n_img, n_img / wall, cold, setup,
+                 n_img / (wall - setup), counts,
+                 json.dumps({k: v for k, v in metrics.items()})))
+        for name, v in (("vecs", vecs), ("qvecs", qvecs)):
+            norms = np.linalg.norm(v, axis=0)
+            if not np.isfinite(v).all() or v.shape[0] != dim \
+                    or np.abs(norms - 1).max() > 1e-5:
+                raise AssertionError("%s %s %s: bad %s %s" % (
+                    label, mode, name, v.shape, norms))
+        if counts[kernel] != n_img or counts[other] != 0:
+            raise AssertionError("%s %s launched %s for %d batches"
+                                 % (label, mode, counts, n_img))
+    return out
+
+
+def compare_modes(out, n_q, label="eval"):
+    """Bucketed against exact: descriptors within 1e-4, equal APs for the
+    queries whose ranks agree, equal mAPs where all do. Returns the
+    descriptors' largest difference."""
+    from gandtr_tpu_torch.ops.ranking import rank_descriptors
+    b, e = out["bucketed"], out["exact"]
+    d_be = float(max(np.abs(b["vecs"] - e["vecs"]).max(),
+                     np.abs(b["qvecs"] - e["qvecs"]).max()))
+    rb, re_ = (rank_descriptors(o["vecs"], o["qvecs"]).cpu().numpy()
+               for o in (b, e))
+    same_q = [q for q in range(n_q)
+              if np.array_equal(rb[:, q], re_[:, q])]
+    ap_diff = max([abs(b["aps"][k][q] - e["aps"][k][q])
+                   for k in b["aps"] for q in same_q] or [0.0])
+    print("%s bucketed vs exact: descriptors max |diff| %.3g; ranks equal "
+          "for %d of %d queries, their APs max |diff| %.3g; metadata %s vs "
+          "%s" % (label, d_be, len(same_q), n_q, ap_diff,
+                  json.dumps(b["metadata"]), json.dumps(e["metadata"])))
+    if d_be > 1e-4 or ap_diff:
+        raise AssertionError("%s: bucketed and exact disagree" % label)
+    if len(same_q) == n_q and any(
+            b["metadata"][k] != e["metadata"][k]
+            for k in b["metadata"] if "score_avg" in k):
+        raise AssertionError("%s: equal ranks, different mAPs" % label)
+    return d_be
+
+
 def run_eval(dev):
     """The validate stage of eval.yml on the card, bucketed (K4) and exact
     (K1): each mode runs once to warm up, then once with every launch count
@@ -2011,9 +2176,8 @@ def run_eval(dev):
     import shutil
     import tempfile
     from gandtr_tpu_torch.eval import retrieval as R
-    from gandtr_tpu_torch.kernels import clahe as kclahe
-    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
-    from gandtr_tpu_torch.ops.ranking import compute_map_protocols
+    from gandtr_tpu_torch.ops.ranking import (compute_map_protocols,
+                                              rank_descriptors)
     from gandtr_tpu_torch.scenarios import validate_stage
     calls = {"K4": [], "K1": []}
     root = tempfile.mkdtemp(prefix="eval_set_")
@@ -2025,83 +2189,13 @@ def run_eval(dev):
             pickle.dump(seeded_lw(), f)
         print("eval set: %d database photos, %d queries, written in %.1f s"
               % (EVAL_DB, EVAL_Q, time.perf_counter() - t0))
-        n_img = EVAL_DB + EVAL_Q
-        out = {}
-        for bucket in (64, None):
-            mode = "bucketed" if bucket else "exact"
-            params = eval_params(root, lw_path, bucket)
-            t0 = time.perf_counter()
-            validate_stage.validate(params, None)
-            cold = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            kernel, other = ("K4", "K1") if bucket else ("K1", "K4")
-            restore = (_recording_calls(kmasked, "clahe_u8_masked_cuda",
-                                        calls["K4"]) if bucket else
-                       _recording_calls(kclahe, "clahe_u8_cuda", calls["K1"]))
-            try:
-                reset_launches()
-                t0 = time.perf_counter()
-                (res,), rec = _recorded(validate_stage, lambda: validate_stage
-                                        .validate(params, None))
-                wall = time.perf_counter() - t0
-                counts = launches()
-            finally:
-                restore()
-            # the stage's set-up alone (the net with its seeded weights
-            # drawn on the host, the Lw): the rest of the wall is the
-            # extraction, ranking and mAP
-            t0 = time.perf_counter()
-            validate_stage.build_eval(params, dev)
-            torch.cuda.synchronize()
-            setup = time.perf_counter() - t0
-            metrics, aps, vecs, qvecs = rec[0]
-            out[mode] = {"wall_s": wall, "first_wall_s": cold,
-                         "setup_s": setup, "images_per_s": n_img / wall,
-                         "images_per_s_after_setup": n_img / (wall - setup),
-                         "launches": counts,
-                         "metadata": res["metadata"]["validation"],
-                         "aps": aps, "vecs": vecs, "qvecs": qvecs}
-            print("eval %s (shape_bucket %s): %.3f s for %d images, %.2f "
-                  "images/s (first run %.3f s); set-up %.3f s, after it "
-                  "%.2f images/s; launches %s; mAP %s"
-                  % (mode, bucket, wall, n_img, n_img / wall, cold, setup,
-                     n_img / (wall - setup), counts,
-                     json.dumps({k: v for k, v in metrics.items()})))
-            for name, v in (("vecs", vecs), ("qvecs", qvecs)):
-                norms = np.linalg.norm(v, axis=0)
-                if not np.isfinite(v).all() or v.shape[0] != 512 \
-                        or np.abs(norms - 1).max() > 1e-5:
-                    raise AssertionError("%s %s: bad %s %s" % (
-                        mode, name, v.shape, norms))
-            # eval.yml has no loader section: batch size 1, one batch an
-            # image
-            if counts[kernel] != n_img or counts[other] != 0:
-                raise AssertionError("%s eval launched %s for %d batches"
-                                     % (mode, counts, n_img))
+        out = validate_modes(
+            dev, lambda bucket: eval_params(root, lw_path, bucket),
+            EVAL_DB + EVAL_Q, 512, calls)
         geo = check_clahe_at_eval(calls)
         busy = eval_busy_share(eval_params(root, lw_path, 64))
-        b, e = out["bucketed"], out["exact"]
-        d_be = float(max(np.abs(b["vecs"] - e["vecs"]).max(),
-                         np.abs(b["qvecs"] - e["qvecs"]).max()))
-        # the two modes' ranks, and the per-query APs where they agree
-        from gandtr_tpu_torch.ops.ranking import rank_descriptors
-        rb, re_ = (rank_descriptors(o["vecs"], o["qvecs"]).cpu().numpy()
-                   for o in (b, e))
-        same_q = [q for q in range(EVAL_Q)
-                  if np.array_equal(rb[:, q], re_[:, q])]
-        ap_diff = max([abs(b["aps"][k][q] - e["aps"][k][q])
-                       for k in b["aps"] for q in same_q] or [0.0])
-        print("eval bucketed vs exact: descriptors max |diff| %.3g; ranks "
-              "equal for %d of %d queries, their APs max |diff| %.3g; "
-              "metadata %s vs %s" % (d_be, len(same_q), EVAL_Q, ap_diff,
-                                     json.dumps(b["metadata"]),
-                                     json.dumps(e["metadata"])))
-        if d_be > 1e-4 or ap_diff:
-            raise AssertionError("bucketed and exact eval disagree")
-        if len(same_q) == EVAL_Q and any(
-                b["metadata"][k] != e["metadata"][k]
-                for k in b["metadata"] if "score_avg" in k):
-            raise AssertionError("equal ranks, different mAPs")
+        d_be = compare_modes(out, EVAL_Q)
+        b = out["bucketed"]
         compared, excluded, rank_ms = check_ranking(
             b["vecs"], np.concatenate([b["qvecs"], b["vecs"]], axis=1))
         ranks = rank_descriptors(b["vecs"], b["qvecs"]).cpu().numpy()
@@ -2149,6 +2243,368 @@ def run_eval(dev):
                 "at_eval_geometry": geo}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- the ResNet-101 chain of finetune_r101 and eval_r101
+
+def r101_eval_params(root, ckpt, lw_path, shape_bucket):
+    """eval.yml with finetune_r101's step 4 overrides (eval_r101's, with a
+    network file and an Lw): the ResNet-101 embed from step 1's file, step
+    2's Lw, the synthetic set and `shape_bucket`."""
+    params = eval_params(root, lw_path, shape_bucket)
+    params["network"]["path"] = ckpt
+    params["network"]["model"]["cir_architecture"] = "resnet101"
+    return params
+
+
+def make_whiten_set(root, images, db):
+    """The tuple set's photos as a retrieval-SfM-style whitening set: each
+    under a cid of 40 hex characters in the reference's tree root/ims/
+    cid[-2:]/cid[-4:-2]/cid[-6:-4]/cid, and a pickle {"cids", "qidxs",
+    "pidxs"} named as the published one (so the stage writes
+    lw-retrieval.pkl), with the tuple set's query / positive pairs (one a
+    cluster). Returns the pickle's path."""
+    import hashlib
+    import pickle
+    import shutil
+    cids = []
+    for path in images:
+        cid = hashlib.sha1(os.path.basename(path).encode()).hexdigest()
+        sub = os.path.join(root, "ims", cid[-2:], cid[-4:-2], cid[-6:-4])
+        os.makedirs(sub, exist_ok=True)
+        shutil.copyfile(path, os.path.join(sub, cid))
+        cids.append(cid)
+    out = os.path.join(root, "retrieval-SfM-120k-whiten.pkl")
+    with open(out, "wb") as f:
+        pickle.dump({"cids": cids, "qidxs": list(db["qidxs"]),
+                     "pidxs": list(db["pidxs"])}, f)
+    return out
+
+
+def r101_hub(calls):
+    """(a) hub.gem_resnet101_cyclegan (seeded, a seeded 2048x2048 Lw) served
+    by serve_http: rounds of 8 concurrent 768x1024 npy requests, every
+    launch count set to 0 just before them, K1's calls recorded."""
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.serving.export import Servable
+    from gandtr_tpu_torch.serving.service import serve_http
+    lw = seeded_lw(2048)
+    model = hub.gem_resnet101_cyclegan(pretrained=False, whitening=lw)
+    images = np.random.RandomState(2).randint(
+        0, 256, (N_REQ,) + HW + (3,), dtype=np.uint8)
+    servable = Servable(model, HW)
+    server = serve_http({"gem_r101": servable}, port=0, block=False,
+                        max_wait_ms=1000.0)
+    try:
+        base = "http://127.0.0.1:%d" % server.server_address[1]
+        batches0 = server.models["gem_r101"].batcher.batches
+        restore = _recording_calls(kclahe, "clahe_u8_cuda", calls["K1"])
+        try:
+            reset_launches()
+            answers, timing = serve_rounds(base, "gem_r101", images)
+            counts = launches()
+        finally:
+            restore()
+        batches = server.models["gem_r101"].batcher.batches - batches0
+        t0 = time.perf_counter()
+        direct = servable(images)
+        timing["direct_servable_ms"] = 1e3 * (time.perf_counter() - t0)
+    finally:
+        server.close()
+    served = np.asarray([json.loads(body)["descriptor"]
+                         for _, body in answers], np.float32)
+    norms = np.linalg.norm(served, axis=1)
+    if not np.isfinite(served).all() or served.shape != (N_REQ, 2048) \
+            or np.abs(norms - 1).max() > 1e-5:
+        raise AssertionError("r101 hub: bad descriptors %s %s"
+                             % (served.shape, norms))
+    d_direct = float(np.abs(served - direct).max())
+    if d_direct > 1e-5:
+        raise AssertionError("r101 served vs direct: %g" % d_direct)
+    if counts["K1"] != batches or batches < 1 or counts["K4"]:
+        raise AssertionError("r101 hub launched %s for %d batches"
+                             % (counts, batches))
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = hub.gem_resnet101_cyclegan(pretrained=False, whitening=lw,
+                                     device="cpu")
+    t0 = time.perf_counter()
+    cpu_desc = Servable(cpu, HW)(images[:2])
+    cpu_s = time.perf_counter() - t0
+    d_cpu = float(np.abs(served[:2] - cpu_desc).max())
+    if d_cpu > 1e-4:
+        raise AssertionError("r101 hub card vs CPU port: %g" % d_cpu)
+    del model, servable, server, cpu
+    torch.cuda.empty_cache()
+    return {"launches": counts, "batches": batches, **timing,
+            "served_vs_direct": d_direct, "card_vs_cpu_2_images": d_cpu,
+            "cpu_s": cpu_s}
+
+
+def r101_finetune(dev, tmp, calls):
+    """(b) finetune_r101's step 1: the loop of finetune.yml with a
+    ResNet-101 embed and margin 0.85 (`finetune_r101_config`) through
+    build_finetune_experiment and training.run on the seeded tuple set,
+    every launch count set to 0 just before the run, K4's calls recorded;
+    then the bare step on `finetune_batch`. Returns (result, the
+    experiment's directory, the tuple set's images and db)."""
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.scenarios.finetune_build import (
+        EXTRACT_BATCH, build_finetune_experiment)
+    t0 = time.perf_counter()
+    pkl = make_tuple_set(tmp)
+    cfg = finetune_r101_config(pkl, os.path.join(tmp, "ims"))
+    directory = os.path.join(tmp, "exp")
+    exp = build_finetune_experiment(cfg, directory, device=dev)
+    setup_s = time.perf_counter() - t0
+    images = exp["dataset"].images
+    rec = {"epochs": [], "losses": [], "tuples": [], "extract_calls": [],
+           "loader_s": [], "marks": [],
+           "copy_dir": os.path.join(tmp, "exp_after1")}
+    _instrument_loop(exp, rec)
+    embed = exp["models"]["embed"].module
+    first = {k: v.detach().clone() for k, v in embed.named_parameters()}
+    stats = {k: v.clone() for k, v in embed.named_buffers()}
+    restore = _recording_calls(kmasked, "clahe_u8_masked_cuda", calls["K4"])
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = exp["training"].run(exp["state"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        restore()
+    losses = [float(v) for v in rec["losses"]]
+    per_epoch = len(exp["loader"])
+    if len(losses) != R101_EPOCHS * per_epoch or \
+            not np.all(np.isfinite(losses)):
+        raise AssertionError("r101 loop losses %s" % losses)
+    embed = state.models["embed"].module
+    still = [k for k, p in embed.named_parameters()
+             if torch.equal(p.detach(), first[k])]
+    moved_stats = [k for k, v in embed.named_buffers()
+                   if not torch.equal(v, stats[k])]
+    if still or moved_stats:
+        raise AssertionError("r101 loop: parameters that did not move %s, "
+                             "BatchNorm statistics that did %s"
+                             % (still[:5], moved_stats[:5]))
+    batches = _extraction_batches(rec["extract_calls"], images, 0.25, "anc",
+                                  EXTRACT_BATCH)
+    t = cfg["data"]["train"]["loader"]["batch_size"]
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": batches + t * len(losses)}
+    if counts != want:
+        raise AssertionError("r101 loop launches %s, expected %s (%d "
+                             "extraction batches, %d steps of %d tuples)"
+                             % (counts, want, batches, len(losses), t))
+    prof = rec.pop("prof")
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    ep2 = rec["epochs"][-1]
+    loop_step_ms = 1e3 * (ep2["run_s"] - ep2["mining_s"]) / per_epoch
+    ckpt = os.path.join(directory, "epochs", "embed_best.ckpt")
+    if not os.path.exists(ckpt):
+        raise AssertionError("r101 loop wrote no %s" % ckpt)
+
+    # the bare step on the step phase's batch, after the loop
+    batch = finetune_batch(dev)
+    for _ in range(FT_WARMUP):
+        state, m = exp["step"](state, *batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(FT_STEPS):
+        state, m = exp["step"](state, *batch)
+    torch.cuda.synchronize()
+    bare_ms = 1e3 * (time.perf_counter() - t0) / FT_STEPS
+    step_counts = launches()
+    if step_counts["K4"] != FT_T * FT_STEPS or step_counts["K2"] or \
+            not np.isfinite(float(m["total"])):
+        raise AssertionError("r101 bare step: launches %s, loss %s"
+                             % (step_counts, m["total"]))
+    out = {"setup_s": setup_s, "run_s": wall, "losses": losses,
+           "launches": counts, "extraction_batches": batches,
+           "tuples": t * len(losses),
+           "k4_per_tuple_and_extraction_batch": 1,
+           "epochs": [{"mining_s": e["mining_s"],
+                       "steps_s": e["run_s"] - e["mining_s"],
+                       "checkpoint_s": e["checkpoint_s"],
+                       "events_s": e["events_s"]} for e in rec["epochs"]],
+           "loop_ms_per_step_last_epoch": loop_step_ms,
+           "bare_step_ms": bare_ms, "bare_step_launches": step_counts,
+           "last_epoch_steps_busy_share": busy_us / 1e6 / rec["prof_wall"],
+           "loader_host_ms_per_step": 1e3 * sum(rec["loader_s"])
+           / len(losses),
+           "params_moved": len(first), "bn_statistics_bit_equal": len(stats),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    db = exp["dataset"].db
+    del exp, state, embed
+    torch.cuda.empty_cache()
+    return out, directory, images, db
+
+
+def r101_whitening(tmp, directory, images, db, calls):
+    """(c) finetune_r101's step 2: infer_and_learn_whitening by
+    whitening.yml from step 1's embed_best.ckpt on a whitening set of the
+    tuple set's photos, every launch count set to 0 just before it, K4's
+    calls recorded; then the skip of an existing pickle."""
+    import pickle
+    from gandtr_tpu_torch.eval.retrieval import ShapeCachedExtractor
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.ops import whiten as whiten_ops
+    from gandtr_tpu_torch.scenarios.multistep_stage import \
+        infer_and_learn_whitening
+    wroot = os.path.join(tmp, "whiten")
+    wpkl = make_whiten_set(wroot, images, db)
+    params = r101_whitening_params(
+        os.path.join(directory, "epochs", "embed_best.ckpt"), wpkl,
+        os.path.join(wroot, "ims"), directory)
+    run, learn = ShapeCachedExtractor._run, whiten_ops.whitenlearn_with_retry
+    n_batches, learn_s = [0], [0.0]
+
+    def counted_run(self, imgs):
+        n_batches[0] += 1
+        return run(self, imgs)
+
+    def timed_learn(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = learn(*args, **kwargs)
+        learn_s[0] += time.perf_counter() - t0
+        return out
+
+    ShapeCachedExtractor._run = counted_run
+    whiten_ops.whitenlearn_with_retry = timed_learn
+    restore = _recording_calls(kmasked, "clahe_u8_masked_cuda", calls["K4"])
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        (meta,) = infer_and_learn_whitening(params, None)
+        wall = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        restore()
+        ShapeCachedExtractor._run = run
+        whiten_ops.whitenlearn_with_retry = learn
+    path = os.path.join(directory, "whitening", "lw-retrieval.pkl")
+    with open(path, "rb") as f:
+        lw = pickle.load(f)
+    if meta["whitening_path"] != path or lw["P"].shape != (2048, 2048) \
+            or lw["m"].shape != (2048, 1) or not np.isfinite(lw["P"]).all():
+        raise AssertionError("r101 whitening: %s, P %s" % (
+            meta["whitening_path"], lw["P"].shape))
+    if counts != {"K1": 0, "K2": 0, "K3": 0, "K4": n_batches[0]}:
+        raise AssertionError("r101 whitening launched %s for %d batches"
+                             % (counts, n_batches[0]))
+    (again,) = infer_and_learn_whitening(params, None)
+    if again.get("status") != "skipped":
+        raise AssertionError("r101 whitening: an existing pickle was not "
+                             "skipped: %s" % again)
+    n = len(images)
+    return {"wall_s": wall, "lw_learning_s": learn_s[0], "images": n,
+            "extraction_images_per_s": n / (wall - learn_s[0]),
+            "batches": n_batches[0], "launches": counts,
+            "pairs": len(db["qidxs"]), "P_shape": list(lw["P"].shape)}, path
+
+
+def r101_eval(dev, tmp, ckpt, lw_path, calls):
+    """(d) finetune_r101's step 4: validate by eval.yml with a ResNet-101
+    from step 1's file and step 2's Lw, bucketed (K4) and exact (K1), on
+    the synthetic eval set; the ranking against float64 numpy and two
+    database photos against the port on the CPU."""
+    from gandtr_tpu_torch.eval import retrieval as R
+    from gandtr_tpu_torch.scenarios import validate_stage
+    root = os.path.join(tmp, "eval")
+    db_paths = make_eval_set(root)
+
+    def params_for(bucket):
+        return r101_eval_params(root, ckpt, lw_path, bucket)
+
+    out = validate_modes(dev, params_for, EVAL_DB + EVAL_Q, 2048, calls,
+                         label="eval_r101")
+    busy = eval_busy_share(params_for(64), label="eval_r101")
+    d_be = compare_modes(out, EVAL_Q, label="eval_r101")
+    b = out["bucketed"]
+    compared, excluded, rank_ms = check_ranking(
+        b["vecs"], np.concatenate([b["qvecs"], b["vecs"]], axis=1))
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = validate_stage.build_eval(params_for(64), torch.device("cpu"))
+    t0 = time.perf_counter()
+    cpu_vecs = R.extract_vectors(cpu["extractor"], db_paths[:2], 1024,
+                                 cpu["transform"])
+    cpu_s = time.perf_counter() - t0
+    d_cpu = float(np.abs(cpu_vecs - b["vecs"][:, :2]).max())
+    if d_cpu > 1e-4:
+        raise AssertionError("eval_r101 card vs CPU port: %g" % d_cpu)
+    return {"launches": {m: out[m]["launches"] for m in out},
+            "images_per_s": {m: out[m]["images_per_s"] for m in out},
+            "images_per_s_after_setup": {
+                m: out[m]["images_per_s_after_setup"] for m in out},
+            "setup_s": {m: out[m]["setup_s"] for m in out},
+            "metadata": b["metadata"], "bucketed_device_busy": busy,
+            "bucketed_vs_exact": d_be, "card_vs_cpu_2_images": d_cpu,
+            "cpu_s": cpu_s, "ranks_compared": compared,
+            "ranks_excluded": excluded, "rank_ms": rank_ms}
+
+
+def _clahe_summary(cases):
+    """One line's worth of check_clahe_at_eval's cases of a kernel."""
+    calls = sum(c["calls"] for c in cases)
+    return {"cases": len(cases), "calls": calls,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms_min": min(c["ms"] for c in cases),
+            "ms_max": max(c["ms"] for c in cases),
+            "ms_call_weighted": sum(c["ms"] * c["calls"]
+                                    for c in cases) / calls,
+            "plain_ms_call_weighted": sum(c["plain_ms"] * c["calls"]
+                                          for c in cases) / calls,
+            "bound_ms_call_weighted": sum(c["bound_ms"] * c["calls"]
+                                          for c in cases) / calls}
+
+
+def run_r101(dev):
+    """The ResNet-101 chain on the card, at full width and depth (2048-d,
+    a 2048x2048 Lw), seeded weights: (a) the hub served, (b) finetune_r101's
+    step 1, (c) its step 2 from step 1's file, (d) its step 4 (eval_r101
+    with a network file and an Lw), (e) K1 and K4 held bit for bit against
+    their plain versions on the very inputs (a) to (d) gave them. Each part
+    counts its launches from 0; their sum is the r101 path's."""
+    import shutil
+    import tempfile
+    calls = {"K4": [], "K1": []}
+    tmp = tempfile.mkdtemp(prefix="r101_", dir=os.environ.get("TMPDIR"))
+    try:
+        hub_out = r101_hub(calls)
+        print("r101 (a) hub gem_resnet101_cyclegan served (%d concurrent "
+              "%dx%d, seeded weights, 2048x2048 Lw): %s"
+              % (N_REQ, HW[0], HW[1], json.dumps(hub_out)))
+        torch.cuda.reset_peak_memory_stats()
+        ft, directory, images, db = r101_finetune(dev, tmp, calls)
+        print("r101 (b) finetune_r101 step 1 (finetune.yml loop, resnet101 "
+              "embed, margin 0.85, %d epochs, bf16 policy): %s"
+              % (R101_EPOCHS, json.dumps(ft)))
+        wh, lw_path = r101_whitening(tmp, directory, images, db, calls)
+        print("r101 (c) finetune_r101 step 2 (infer_and_learn_whitening by "
+              "whitening.yml from embed_best.ckpt): %s" % json.dumps(wh))
+        ev = r101_eval(dev, tmp, os.path.join(directory, "epochs",
+                                              "embed_best.ckpt"),
+                       lw_path, calls)
+        print("r101 (d) finetune_r101 step 4 (validate by eval.yml, "
+              "resnet101 from embed_best.ckpt, the step 2 Lw): %s"
+              % json.dumps(ev))
+        geo = check_clahe_at_eval(calls, verbose=False)
+        summary = {k: _clahe_summary(geo[k]) for k in geo}
+        print("r101 (e) K1 and K4 on the inputs (a) to (d) gave them: all "
+              "bit-equal to their plain versions, one kernel a call: %s"
+              % json.dumps(summary))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    parts = [hub_out["launches"], ft["launches"], wh["launches"]] + list(
+        ev["launches"].values())
+    launches_r101 = {k: sum(p[k] for p in parts)
+                     for k in ("K1", "K2", "K3", "K4")}
+    return {"launches": launches_r101, "hub": hub_out, "finetune": ft,
+            "whitening": wh, "eval": ev, "at_r101_inputs": summary}
 
 
 def main():
@@ -2303,10 +2759,15 @@ def main():
     print("eval summary: %s" % json.dumps(
         {k: v for k, v in ev.items()
          if k not in ("breakdown", "at_eval_geometry")}))
+
+    # ---- the ResNet-101 chain of finetune_r101 and eval_r101
+    torch.cuda.empty_cache()
+    r101 = run_r101(dev)
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
                    "finetune_loop": loop["launches"][k],
-                   "eval": sum(c[k] for c in ev["launches"].values())}
+                   "eval": sum(c[k] for c in ev["launches"].values()),
+                   "r101": r101["launches"][k]}
                for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{
@@ -2324,6 +2785,7 @@ def main():
         "bound_by": k1["bound_by"],
         "library_ms": None,
         "at_eval_geometry": ev["at_eval_geometry"]["K1"],
+        "at_r101_inputs": r101["at_r101_inputs"]["K1"],
     }, {
         "name": "fused_resblock (K3: conv3x3 + IN + ReLU + conv3x3 + IN + x)",
         "route": "cuda",
@@ -2366,6 +2828,7 @@ def main():
         "bound_by": k4["bound_by"],
         "library_ms": None,
         "at_eval_geometry": ev["at_eval_geometry"]["K4"],
+        "at_r101_inputs": r101["at_r101_inputs"]["K4"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

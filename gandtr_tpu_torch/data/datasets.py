@@ -1,11 +1,12 @@
 """Image loading and the batch loader (counterpart of
-gandtr_tpu/data/datasets.py::imread and ::Loader).
+gandtr_tpu/data/datasets.py::imread, ::path_join and ::Loader).
 
 PIL decodes; the JAX package's native libjpeg decoder and its `store.h5#key`
 form are not ported yet. The two decoders give equal arrays on the same
 JPEGs (tests/test_torch_eval.py holds it), so descriptors do not depend on
 which one ran.
 """
+import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -22,6 +23,29 @@ def imread(path, mode="RGB"):
                                   % path)
     with open(path, "rb") as f:
         return Image.open(f).convert(mode)
+
+
+def path_join(directory, name, default_extension=".jpg"):
+    """The reference's path_join (daan ml/tools.py:26-48): an absolute name
+    passes through; a '*' in the directory splits off an extension
+    candidate; 'ext!' replaces the name's extension (a plain 'ext' applies
+    only to a name without one); an extension-less name under a '*'-free
+    directory gets `default_extension`. None directory = ''."""
+    directory = directory or ""
+    if name and name[0] == "/":
+        return name
+    ext = default_extension
+    path = directory
+    if "*" in path:
+        path, ext = path.rsplit("*", 1)
+    if "/" not in ext:
+        if ext and ext[-1] == "!":
+            ext = ext[:-1]
+            if ext:
+                name = name.rsplit(".", 1)[0]
+        elif "." in name.rsplit("/", 1)[-1] and name.rsplit(".", 1)[-1]:
+            ext = ""
+    return os.path.join(path, name + ext)
 
 
 class Loader:

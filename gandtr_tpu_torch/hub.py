@@ -1,5 +1,6 @@
-"""Public model API (counterpart of gandtr_tpu/hub.py): the GeM VGG16
-descriptor nets `gem_vgg16_cyclegan` and `gem_vgg16_hedngan`, and the
+"""Public model API (counterpart of gandtr_tpu/hub.py): the GeM descriptor
+nets `gem_vgg16_cyclegan`, `gem_vgg16_hedngan` (512-d),
+`gem_resnet101_cyclegan` and `gem_resnet101_hedngan` (2048-d), and the
 day-to-night ResNet generators `cyclegan` and `hedngan`.
 
 `pretrained=False` gives seeded random weights (made on the CPU from a
@@ -63,8 +64,9 @@ class HubModel:
 
 
 def _init_random(module, seed=0):
-    """Seeded He-normal convolution/linear weights, zero biases: the same
-    numbers on every device, since they are drawn on the CPU."""
+    """Seeded He-normal convolution/linear weights, zero biases (BatchNorm
+    keeps its identity init): the same numbers on every device, since they
+    are drawn on the CPU."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for m in module.modules():
@@ -73,7 +75,8 @@ def _init_random(module, seed=0):
                 w = torch.empty(m.weight.shape).normal_(
                     0.0, math.sqrt(2.0 / fan_in), generator=g)
                 m.weight.copy_(w)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
     return module
 
 
@@ -170,6 +173,22 @@ def gem_vgg16_hedngan(pretrained=False, device=None, checkpoint=None,
     """GeM VGG16 descriptor net fine-tuned with HED^N-GAN augmentation +
     CLAHE (published as hedngan_embed_vgg16.pth and its _lw.pkl)."""
     return _embedding("vgg16", checkpoint, whitening, pretrained,
+                      device=device)
+
+
+def gem_resnet101_cyclegan(pretrained=False, device=None, checkpoint=None,
+                           whitening=None):
+    """GeM ResNet-101 descriptor net fine-tuned with CycleGAN augmentation
+    (published as cyclegan_embed_resnet101.pth and its _lw.pkl)."""
+    return _embedding("resnet101", checkpoint, whitening, pretrained,
+                      device=device)
+
+
+def gem_resnet101_hedngan(pretrained=False, device=None, checkpoint=None,
+                          whitening=None):
+    """GeM ResNet-101 descriptor net fine-tuned with HED^N-GAN augmentation
+    (published as hedngan_embed_resnet101.pth and its _lw.pkl)."""
+    return _embedding("resnet101", checkpoint, whitening, pretrained,
                       device=device)
 
 

@@ -1,6 +1,6 @@
 """Model registry (counterpart of gandtr_tpu/models/__init__.py). Ported so
-far: the descriptor net `cirnet` (GeM VGG16) and the ResNet generator
-`official_resnet_generator`."""
+far: the descriptor net `cirnet` (GeM VGG16 and ResNet) and the ResNet
+generator `official_resnet_generator`."""
 from gandtr_tpu_torch.models.generators import ResnetGenerator
 from gandtr_tpu_torch.models.retrieval import GemRetrievalNet
 

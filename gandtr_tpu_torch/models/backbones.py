@@ -20,16 +20,33 @@ rectangles and the valid region is carried layer by layer
 before a pool (the masked max pool masks the band itself), so the valid
 features equal the exact-shape forward. The call then returns `(features,
 feat_mask)` with the pooled valid rectangle as an (N, h, w) mask.
+
+`ResNetFeatures` is torchvision's resnet50/101/152 without avgpool and fc,
+as init_network slices it: `features.0` conv1, `.1` bn1, `.2` relu, `.3`
+maxpool, `.4`-`.7` layer1-4 of `Bottleneck`s (conv1..3, bn1..3,
+downsample.0/.1, the stride on conv2), so a cirtorch ResNet `.pth` loads as
+it is. Its BatchNorms are frozen (`FrozenBatchNorm`): the reference keeps
+the descriptor net's BN in eval mode while fine-tuning (cirnet.py:36-45),
+the affine weight and bias train. Under a bf16 compute dtype the float32
+running statistics promote the output of `bn1` to float32, and every later
+conv computes in float32 (`layers.Conv`), as in the JAX package.
+In the masked mode it re-zeroes the band where the JAX net does: after the
+first ReLU, before each block's 3x3 conv (not after the residual: 1x1
+convs do not mix positions) and once at the end.
 """
 import torch
 from torch import nn
 
+from gandtr_tpu_torch.models.layers import Conv, FrozenBatchNorm
 from gandtr_tpu_torch.ops import maskprop, vggconv
 
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512)  # last maxpool dropped
 
-OUTPUT_DIM = {"vgg16": 512}
+OUTPUT_DIM = {"vgg16": 512, "resnet50": 2048, "resnet101": 2048,
+              "resnet152": 2048}
+RESNET_LAYERS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
+                 "resnet152": (3, 8, 36, 3)}
 
 
 class VGG16Features(nn.Sequential):
@@ -80,8 +97,81 @@ class VGG16Features(nn.Sequential):
         return out, ms.mask(h.shape[1], h.shape[2], h.dtype)
 
 
+class Bottleneck(nn.Module):
+    """torchvision's Bottleneck: 1x1 reduce, 3x3 (stride), 1x1 expand, the
+    identity or a strided 1x1 + BN downsample. NHWC in and out."""
+
+    def __init__(self, inplanes, planes, stride=1, downsample=False):
+        super().__init__()
+        self.conv1 = Conv(inplanes, planes, 1, use_bias=False)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = Conv(planes, planes, 3, stride=stride, padding=1,
+                          use_bias=False)
+        self.bn2 = FrozenBatchNorm(planes)
+        self.conv3 = Conv(planes, planes * 4, 1, use_bias=False)
+        self.bn3 = FrozenBatchNorm(planes * 4)
+        self.downsample = nn.Sequential(
+            Conv(inplanes, planes * 4, 1, stride=stride, use_bias=False),
+            FrozenBatchNorm(planes * 4)) if downsample else None
+        self.stride = stride
+
+    def forward(self, x, ms):
+        """(out, the valid rectangle after the block)."""
+        h = torch.relu(self.bn1(self.conv1(x)))
+        # the BN shift made the band nonzero: re-zero before the 3x3 conv
+        h = self.conv2(ms.apply(h))
+        h = torch.relu(self.bn2(h))
+        h = self.bn3(self.conv3(h))
+        identity = x if self.downsample is None else self.downsample(x)
+        return torch.relu(h + identity), ms.downsample(3, self.stride, 1)
+
+
+class ResNetFeatures(nn.Sequential):
+    """conv1 -> bn1 -> relu -> maxpool -> layer1..4. (N, 3, H, W) ->
+    (N, 2048, H/32, W/32)."""
+
+    def __init__(self, arch="resnet101"):
+        layers, inplanes = [], 64
+        for li, (planes, n) in enumerate(zip((64, 128, 256, 512),
+                                             RESNET_LAYERS[arch])):
+            blocks = []
+            for bi in range(n):
+                blocks.append(Bottleneck(
+                    inplanes, planes, stride=2 if (li and not bi) else 1,
+                    downsample=bi == 0))
+                inplanes = planes * 4
+            layers.append(nn.Sequential(*blocks))
+        super().__init__(Conv(3, 64, 7, stride=2, padding=3, use_bias=False),
+                         FrozenBatchNorm(64), nn.ReLU(inplace=True),
+                         nn.MaxPool2d(kernel_size=3, stride=2, padding=1),
+                         *layers)
+        self.arch = arch
+
+    def forward(self, x, mask=None):
+        """x: (N, 3, H, W) (an NHWC tensor seen as NCHW). Returns the
+        features, and with `mask` also their valid mask (N, h, w)."""
+        ms = maskprop.MaskState.maybe(mask)
+        h = ms.apply(x.permute(0, 2, 3, 1))
+        h = self[1](self[0](h))
+        ms = ms.downsample(7, 2, 3)
+        h = ms.apply(torch.relu(h))
+        h, ms = maskprop.masked_max_pool(h, ms, 3, 2, 1)
+        for layer in list(self)[4:]:
+            for block in layer:
+                h, ms = block(h, ms)
+        if mask is None:
+            return h.permute(0, 3, 1, 2)
+        # the blocks leave finite values in the band; re-zero it once
+        h = ms.apply(h)
+        return h.permute(0, 3, 1, 2), ms.mask(h.shape[1], h.shape[2],
+                                              h.dtype)
+
+
 def make_features(architecture):
-    """(features module, output channels) for a backbone name."""
-    if architecture == "vgg16":
+    """(features module, output channels) for a backbone name: the
+    `vgg16*` and `resnet*` prefixes, as the JAX package matches them."""
+    if architecture.startswith("vgg16"):
         return VGG16Features(), OUTPUT_DIM["vgg16"]
-    raise NotImplementedError("backbone %r is not ported yet" % architecture)
+    if architecture.startswith("resnet"):
+        return ResNetFeatures(architecture), OUTPUT_DIM[architecture]
+    raise ValueError("Unsupported architecture: %s" % architecture)

@@ -103,18 +103,29 @@ class InstanceNorm(nn.Module):
         return instance_norm(x, eps=self.epsilon)
 
 
-class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d in its frozen eval form only, over the last axis. Its
-    running statistics are buffers, so a bf16 copy of the net keeps them
-    float32 (and promotes its output to float32, as in the JAX package).
-    The training form comes with GAN training."""
+class FrozenBatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d over the last axis that always normalizes by its running
+    statistics, in `.train()` mode too, and never updates them: the
+    descriptor net's BN while fine-tuning (the JAX package's
+    `use_running_average=True`). The affine weight and bias are parameters
+    and take gradients. The statistics are buffers, so a bf16 copy of the
+    net keeps them float32 (and promotes the output to float32, as in the
+    JAX package)."""
+
+    def forward(self, x):
+        return batch_norm_inference(x, self.running_mean, self.running_var,
+                                    self.weight, self.bias, self.eps)
+
+
+class BatchNorm(FrozenBatchNorm):
+    """The generators' BatchNorm2d, in its frozen eval form only. The
+    training form comes with GAN training."""
 
     def forward(self, x):
         if self.training:
             raise NotImplementedError(
                 "BatchNorm runs in eval mode only (call .eval())")
-        return batch_norm_inference(x, self.running_mean, self.running_var,
-                                    self.weight, self.bias, self.eps)
+        return super().forward(x)
 
 
 def make_norm(norm_type):

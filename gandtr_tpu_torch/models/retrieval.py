@@ -3,6 +3,8 @@
 features -> (local whiten) -> pool -> L2N -> (whiten -> L2N), as cirtorch's
 ImageRetrievalNet. Module names follow that net (`features.<i>`, `pool.p`,
 `lwhiten`, `whiten`), so a reference `.pth` loads with `load_state_dict`.
+Backbones VGG16 (512-d) and ResNet-50/101/152 (2048-d); poolings gem,
+gemmp (a p for each channel), mac and spoc, each over a mask too.
 Input (N, H, W, 3) normalized images, output (N, D) descriptors.
 """
 import torch
@@ -14,17 +16,40 @@ from gandtr_tpu_torch.ops.norm import l2n
 
 
 class GeM(nn.Module):
-    """Generalized-mean pooling with a learnable `p` of shape (1,)."""
+    """Generalized-mean pooling with a learnable `p` of shape (1,), or
+    (dim,) for GeMmp (one p a channel)."""
 
-    def __init__(self, p=3.0, eps=1e-6):
+    def __init__(self, p=3.0, eps=1e-6, dim=1):
         super().__init__()
-        self.p = nn.Parameter(torch.full((1,), float(p)))
+        self.p = nn.Parameter(torch.full((dim,), float(p)))
         self.eps = eps
 
     def forward(self, x, mask=None):
         """x: (N, H, W, C) -> (N, C); `mask` (N, H, W) restricts the mean
         to the valid positions."""
         return pool_ops.gem(x, p=self.p, eps=self.eps, mask=mask)
+
+
+class ParameterFreePool(nn.Module):
+    """MAC or SPoC: no parameters."""
+
+    def __init__(self, name):
+        super().__init__()
+        self.name = name
+
+    def forward(self, x, mask=None):
+        return pool_ops.POOLINGS[self.name](x, mask=mask)
+
+
+def make_pool(pooling, dim, gem_p_init=3.0):
+    """The pooling module of a GeM net: gem, gemmp, mac or spoc."""
+    if pooling == "gem":
+        return GeM(gem_p_init)
+    if pooling == "gemmp":
+        return GeM(gem_p_init, dim=dim)
+    if pooling in ("mac", "spoc"):
+        return ParameterFreePool(pooling)
+    raise NotImplementedError("pooling %r is not ported yet" % pooling)
 
 
 class GemRetrievalNet(nn.Module):
@@ -37,9 +62,7 @@ class GemRetrievalNet(nn.Module):
         self.features, dim = make_features(architecture)
         self.dim = dim
         self.lwhiten = nn.Linear(dim, dim) if local_whitening else None
-        if pooling != "gem":
-            raise NotImplementedError("pooling %r is not ported yet" % pooling)
-        self.pool = GeM(gem_p_init)
+        self.pool = make_pool(pooling, dim, gem_p_init)
         self.whiten = nn.Linear(dim, dim) if whitening else None
 
     def forward(self, x, mask=None):

@@ -90,13 +90,23 @@ def build_eval(params, device):
     a ShapeCachedExtractor on `device`, "transform": the host transform its
     images take, "model": the WrappedNet with its eval wrappers, "pre": the
     device preprocessing (uint8 or float batch, mask) -> normalized batch,
-    "ctx": the forward's context}."""
+    "ctx": the forward's context}. The infer stage's embedding output
+    extracts through the same set-up."""
     net_cfg = dict(params["network"])
     data_cfg = dict(params.get("data") or {})
-    runtime = net_cfg.pop("runtime", None) or {}
-    model = _load_network(net_cfg, device)
-    model.wrappers_eval, msp = _eval_wrappers(runtime.get("wrappers"), model,
-                                              net_cfg, device)
+    wrappers_cfg = (net_cfg.get("runtime") or {}).get("wrappers")
+    if isinstance(wrappers_cfg, dict):
+        # eval.yml's {"eval": {"<i>_<name>": {...}}} form, built here
+        net_cfg.pop("runtime")
+        model = _load_network(net_cfg, device)
+        model.wrappers_eval, msp = _eval_wrappers(wrappers_cfg, model,
+                                                  net_cfg, device)
+    else:
+        # a wrapper string (whitening.yml's "cirmultiscale:True"), built
+        # with the net
+        model = _load_network(net_cfg, device)
+        msp = multiscale_msp(model.loaded_model_cfg or net_cfg.get("model"),
+                             model.module)
 
     # transform defaults: the network's own data params (a checkpoint's),
     # else the published eval pipeline

@@ -9,9 +9,18 @@ GeM nets (models/retrieval.py):
 
     backbone/features_<i>/conv/kernel (3, 3, I, O) -> features.<i>.weight (O, I, 3, 3)
     backbone/features_<i>/conv/bias                 -> features.<i>.bias
-    gem_p (1,)                                      -> pool.p
+    gem_p (1,), or (dim,) for gemmp                 -> pool.p
     whiten|lwhiten/kernel (in, out)                 -> whiten|lwhiten.weight (out, in)
     whiten|lwhiten/bias                             -> whiten|lwhiten.bias
+
+and the ResNet backbones, torchvision's layout (`features.0` conv1,
+`features.1` bn1, `features.<3+l>` layer<l>), with BatchNorm as below:
+
+    backbone/conv1/conv/kernel                      -> features.0.weight
+    backbone/bn1/scale, bias; batch_stats mean, var -> features.1.weight, bias, running_mean, running_var
+    backbone/layer<l>_<b>/conv<i>/conv/kernel       -> features.<3+l>.<b>.conv<i>.weight
+    backbone/layer<l>_<b>/bn<i>/...                 -> features.<3+l>.<b>.bn<i>....
+    backbone/layer<l>_<b>/downsample_<j>/...        -> features.<3+l>.<b>.downsample.<j>....
 
 Generators (models/generators.py), `<name>_<i>` -> `<name>.<i>`, the `conv`
 wrapper level dropped:
@@ -49,8 +58,26 @@ def _retrieval_key(path):
     head = path[1] if path[0] == "backbone" else path[0]
     if head.startswith("features_"):
         return "features.%s.%s" % (head.split("_")[1], _LEAF[path[-1]])
+    if path[0] == "backbone":
+        return _resnet_key(path[1:])
     if head in ("whiten", "lwhiten"):
         return "%s.%s" % (head, _LEAF[path[-1]])
+    return None
+
+
+def _resnet_key(path):
+    leaf = _LEAF[path[-1]]
+    head = path[0]
+    if head == "conv1":
+        return "features.0.%s" % leaf
+    if head == "bn1":
+        return "features.1.%s" % leaf
+    if head.startswith("layer"):
+        layer, block = head[len("layer"):].split("_")
+        inner = path[1]
+        if inner.startswith("downsample_"):
+            inner = "downsample." + inner.split("_")[1]
+        return "features.%d.%s.%s.%s" % (3 + int(layer), block, inner, leaf)
     return None
 
 

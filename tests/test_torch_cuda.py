@@ -334,3 +334,79 @@ def test_finetune_loop_launches_k2_and_k4(cuda, tmp_path):
         exp["events"].history[0]["metrics"]["train/learning/total"])
     best = exp["checkpoints"].load_net("embed", "_best")
     exp["models"]["embed"].module.load_state_dict(best["model_state"])
+
+
+def test_r101_path_launches_k4_and_k1(cuda, tmp_path):
+    """The finetune_r101 chain at full depth on the loop's micro set (16
+    seeded 48x40 JPEGs, image_size 32): step 1 launches K4 once for each
+    mining extraction batch and each tuple and never K2 (ResNet-101 takes
+    no VGG conv); step 2 from its embed_best.ckpt launches K4 once a batch,
+    and K4 at those inputs equals its plain version; step 4, exact, launches
+    K1 once a photo, with 2048-d descriptors."""
+    import pickle
+    import chip_smoke
+    from PIL import Image
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.learning.wrappers import cir_hash_passthrough
+    from gandtr_tpu_torch.ops.clahe import clahe_u8_masked_plain
+    from gandtr_tpu_torch.scenarios import validate_stage
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
+    from gandtr_tpu_torch.scenarios.multistep_stage import \
+        infer_and_learn_whitening
+    rng = np.random.RandomState(0)
+    images = []
+    for i in range(16):
+        path = str(tmp_path / ("im%02d.jpg" % i))
+        Image.fromarray((rng.rand(48, 40, 3) * 255).astype(np.uint8)
+                        ).save(path)
+        images.append(path)
+    db = {"cids": ["im%02d" % i for i in range(16)],
+          "cluster": [i // 2 for i in range(16)],
+          "qidxs": [0, 2, 4, 6], "pidxs": [1, 3, 5, 7]}
+    cfg = chip_smoke.finetune_r101_config("unused.pkl", "unused")
+    cfg["network"]["augment"]["model"].update(ngf=4, n_blocks=1)
+    cfg["learning"]["training"]["epochs"] = 1
+    cfg["data"] = {"train": {
+        "dataset": {"image_size": 32, "neg_num": 2, "pool_size": 12,
+                    "query_size": 3, "qpool_size": 4, "similar_exclude": 0.2,
+                    "similar_include": 0.8},
+        "loader": {"batch_size": 3, "num_workers": 1}}}
+    directory = str(tmp_path / "exp")
+    exp = build_finetune_experiment(cfg, directory=directory, db=db,
+                                    images=images)
+    k2, k4 = kvgg.LAUNCHES, kmasked.LAUNCHES
+    exp["training"].run(exp["state"])
+    gated = sum(cir_hash_passthrough("im%02d" % q, 0.25) for q in db["qidxs"])
+    batches = int(gated > 0) + int(gated < 4) + 1   # anchors, then the pool
+    assert (kvgg.LAUNCHES - k2, kmasked.LAUNCHES - k4) == (0, batches + 3)
+
+    ckpt = str(tmp_path / "exp" / "epochs" / "embed_best.ckpt")
+    wpkl = chip_smoke.make_whiten_set(str(tmp_path / "whiten"), images, db)
+    calls = []
+    restore = chip_smoke._recording_calls(kmasked, "clahe_u8_masked_cuda",
+                                          calls)
+    try:
+        k1, k4 = kclahe.LAUNCHES, kmasked.LAUNCHES
+        (meta,) = infer_and_learn_whitening(chip_smoke.r101_whitening_params(
+            ckpt, wpkl, str(tmp_path / "whiten" / "ims"), directory), None)
+    finally:
+        restore()
+    assert kclahe.LAUNCHES == k1 and kmasked.LAUNCHES - k4 == len(calls) > 0
+    for args, kwargs in calls:
+        assert torch.equal(kmasked.clahe_u8_masked_cuda(*args, **kwargs),
+                           clahe_u8_masked_plain(*args, **kwargs))
+    with open(meta["whitening_path"], "rb") as f:
+        assert pickle.load(f)["P"].shape == (2048, 2048)
+
+    root = str(tmp_path / "eval")
+    chip_smoke.make_eval_set(root)
+    k1 = kclahe.LAUNCHES
+    _, rec = chip_smoke._recorded(validate_stage, lambda: validate_stage
+                                  .validate(chip_smoke.r101_eval_params(
+                                      root, ckpt, meta["whitening_path"],
+                                      None), None))
+    assert kclahe.LAUNCHES - k1 == chip_smoke.EVAL_DB + chip_smoke.EVAL_Q
+    assert rec[0][2].shape == (2048, chip_smoke.EVAL_DB)

@@ -13,6 +13,7 @@ tests run it."""
 import copy
 import os
 import pickle
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +35,9 @@ from gandtr_tpu.scenarios import validate_stage as jvalidate
 from gandtr_tpu.utils import io as jio
 from gandtr_tpu_torch.data.datasets import imread
 from gandtr_tpu_torch.eval import retrieval as R
+from gandtr_tpu_torch.hub import _init_random
+from gandtr_tpu_torch.learning.checkpoints import Checkpoints
+from gandtr_tpu_torch.learning.training import Training
 from gandtr_tpu_torch.learning import wrappers as tw
 from gandtr_tpu_torch.learning.network import build_single_net
 from gandtr_tpu_torch.ops.maskprop import MaskState, mask_from_sizes
@@ -384,10 +388,40 @@ def test_path_only_network_adopts_the_checkpoint(dataset):
         assert torch.equal(v, want[k]), k
 
 
-def test_other_checkpoint_formats_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _load_network({"path": str(tmp_path / "net_epoch_01.ckpt")},
-                      torch.device("cpu"))
+def test_port_network_file_loads(dataset, tmp_path):
+    """`epochs/embed_best.ckpt` as the port's Checkpoints writes it (the
+    fine-tune's network file, which steps 2 and 4 of the finetune targets
+    load): a path-only section takes its model, every key of its state
+    loads, none is left over, and the descriptors equal the saved net's."""
+    saved = build_single_net({"model": MODEL})
+    _init_random(saved.module, 5)
+    training = Training(step_fn=None, loader=None, epochs=1,
+                        net_params={"embed": {"model": MODEL, "runtime": {
+                            "wrappers": "cirfaketuplebatch"}}})
+    ckpts = Checkpoints(str(tmp_path))
+    ckpts.save_epoch(1, {"embed": training._net_file(
+        SimpleNamespace(models={"embed": saved}), "embed")},
+        is_best=True, is_last=True)
+    path = tmp_path / "epochs" / "embed_best.ckpt"
+    assert path.is_symlink()
+    net = _load_network({"type": "SingleNetwork", "path": str(path)},
+                        torch.device("cpu"))
+    assert net.loaded_model_cfg == MODEL
+    got, want = net.module.state_dict(), saved.module.state_dict()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    x = torch.from_numpy(np.random.RandomState(4).randn(2, 40, 56, 3)
+                         .astype(np.float32))
+    with torch.inference_mode():
+        assert torch.equal(net.apply(x), saved.module.eval()(x))
+
+
+@pytest.mark.parametrize("url", ["http://host/embed_best.ckpt",
+                                 "https://host/net.pth"])
+def test_url_network_path_is_refused(url):
+    with pytest.raises(NotImplementedError, match="downloads nothing"):
+        _load_network({"path": url}, torch.device("cpu"))
 
 
 def test_validation_forms():

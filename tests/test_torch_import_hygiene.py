@@ -22,7 +22,8 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "ops.ranking", "ops.resize", "eval.retrieval",
           "scenarios.infer_stage", "scenarios.validate_stage",
           "data.mining", "learning.events", "learning.checkpoints",
-          "learning.training")
+          "learning.training", "models.backbones", "ops.pooling",
+          "ops.whiten", "scenarios.multistep_stage")
 
 torch.set_num_threads(1)
 
@@ -62,7 +63,10 @@ def test_no_source_file_names_jax():
 
 
 @pytest.mark.parametrize("entry", ["hub", "serve_http", "cyclegan",
-                                   "hedngan", "finetune", "validate"])
+                                   "hedngan", "finetune", "validate",
+                                   "gem_resnet101_cyclegan",
+                                   "gem_resnet101_hedngan", "infer",
+                                   "infer_and_learn_whitening"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from gandtr_tpu_torch import hub
@@ -79,6 +83,15 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
             build_finetune_experiment({"network": {}, "learning": {}})
         elif entry == "validate":
             validate({"network": {}, "validation": {}}, None)
+        elif entry == "infer":
+            from gandtr_tpu_torch.scenarios.infer_stage import infer
+            infer({"network": {}, "output": {"type": "embedding"}}, ([],))
+        elif entry == "infer_and_learn_whitening":
+            from gandtr_tpu_torch.scenarios.multistep_stage import \
+                infer_and_learn_whitening
+            infer_and_learn_whitening({"whitening": {
+                "type": "lw", "dataset_pkl": "w.pkl", "directory": None},
+                "network": {}}, None)
         else:
             getattr(hub, entry)(pretrained=False)
 
