@@ -113,7 +113,33 @@
    validate by eval.yml from the same file and pickle, bucketed and exact
    as in (8); (e) K1 and K4 held bit for bit against their plain versions
    on the very inputs (a) to (d) gave them, summarised a kernel.
-11. Stage breakdowns of one batch of each served path, the `{"kernels":
+11. HED^N-GAN training of parameters/train_hedngan.yml (`run_gan_train`:
+   GAN_TRAIN, the file as shipped, at full width: the batch-norm 9-block
+   generator at ngf 64, the 3-layer discriminator at ndf 64, the HED
+   student and its frozen teacher at width 1.0 with seeded weights; cut by
+   GAN_CUTS to 40 pairs (4 steps of 10 an epoch), 2 epochs with the lr
+   decay in the second, checkpoint_every 1, store_every 2, the visual
+   validation every epoch) through `build_gan_experiment` and
+   `training.run` on `cuda`, on a seeded domain set in a temp dir (30
+   JPEGs a domain, longest side 362; 4 validation photos), every launch
+   count set to 0 just before the run (the path reaches no kernel of the
+   port: cuDNN float32, so every count reads 0): the student equal to its
+   teacher bit for bit before the first step and E_real exactly 0 at step
+   1; after 2 epochs every parameter of G, D and the student moved, the
+   teacher bit-equal, G's and D's BatchNorm statistics moved; no metric
+   NaN; the epoch files, blobs and the HTML report written; a copy of the
+   directory as it was after epoch 1 resumed to epoch 2 bit for bit
+   (networks, statistics, the three optimizers' moments);
+   generator_X_last.ckpt strict into hub.hedngan, serving one 768x1024
+   photo; one step at batch 2 and 128x128 against the port on the CPU
+   (losses within 1e-3 relative, fake_Y within 1e-4; D's, the student's
+   and the generator's two terms' gradients each no further from a
+   float64 CPU reference than twice the CPU float32's distance; the
+   updated generator within 2 lr, a sanity check). Printed: ms a step
+   bare and in the loop, images/s, the card's busy share over epoch 2's
+   steps (torch.profiler), CUDA-event spans of a step's parts, peak
+   memory and the epoch split.
+12. Stage breakdowns of one batch of each served path, the `{"kernels":
    [...]}` line (each kernel with its launches by path, K1 and K4 with
    their times at the eval's geometry and the r101 inputs), the card's
    line again, and last `{"ok": true, "device": {...}}`.
@@ -2607,6 +2633,656 @@ def run_r101(dev):
             "whitening": wh, "eval": ev, "at_r101_inputs": summary}
 
 
+# ---- HED^N-GAN training: train_hedngan.yml through the train stage
+
+MEANSTD_HED = [[0.40787054, 0.45752458, 0.48109378], [1.0, 1.0, 1.0]]
+HED_WRAPPERS = ("rgb2bgr_pre,meanstd_pre:[[0.5,0.5,0.5],[0.5,0.5,0.5]]:"
+                "[[0.40787054,0.45752458,0.48109378],[1.0,1.0,1.0]]")
+HED_URL = ("http://ptak.felk.cvut.cz/personal/jenicto2/download/iccv23_gan/"
+           "hed_sniklaus_github.pth")
+GEN_DATA = {"transforms": "pil2np | totensor | normalize",
+            "mean_std": MEANSTD_GEN}
+
+
+def _hed_member(frozen):
+    runtime = {"wrappers": HED_WRAPPERS, "data": dict(GEN_DATA)}
+    if frozen:
+        runtime = {"frozen": True, **runtime}
+    return {"type": "SingleNetwork",
+            "model": {"architecture": "hed_interpolation",
+                      "pretrained": HED_URL},
+            "initialize": False, "runtime": runtime}
+
+
+def _adam(lr, beta1, weight_decay):
+    return {"algorithm": "adam", "lr": lr, "beta1": beta1, "beta2": 0.999,
+            "weight_decay": weight_decay}
+
+
+# parameters/train_hedngan.yml as shipped, its validation template
+# (_gan_eval.yml) expanded (tests/test_torch_gan_train.py holds it equal)
+GAN_TRAIN = {
+    "network": {
+        "type": "NetworkSet",
+        "generator_X": {
+            "type": "SingleNetwork",
+            "model": {"architecture": "official_resnet_generator",
+                      "no_antialias": True, "no_antialias_up": True,
+                      "input_nc": 3, "output_nc": 3, "n_blocks": 9,
+                      "norm_layer": "batch"},
+            "initialize": {"weights": "kaiming_p2p", "seed": 0},
+            "runtime": {"wrappers": "", "data": dict(GEN_DATA)}},
+        "detector": _hed_member(False),
+        "detector_frozen": _hed_member(True),
+        "discriminator_Y": {
+            "type": "SingleNetwork",
+            "model": {"architecture": "official_p2p_discriminator",
+                      "no_antialias": True, "input_nc": 3,
+                      "norm_layer": "batch"},
+            "initialize": {"weights": "kaiming_p2p", "seed": 0},
+            "runtime": {"wrappers": "", "data": {}}}},
+    "learning": {
+        "type": "TrainValLearning",
+        "checkpoints": {"directory": "experiments/gan/${SCENARIO_NAME}",
+                        "store_every": 10, "checkpoint_every": 2,
+                        "directory_epoch_regex": None},
+        "training": {
+            "type": "EpochTraining", "epochs": 50, "seed": 0,
+            "dispatch_chunk": 8, "deterministic": False,
+            "criterion": {
+                "loss": "multihead_loss",
+                "weights": {"adversarial": 1, "edge": 5, "hed": 1},
+                "normalize_weights": False,
+                "adversarial": {"loss": "discriminator_loss",
+                                "criterion": {"loss": "mse"}},
+                "edge": {"loss": "l1"}, "hed": {"loss": "l1"}},
+            "optimizer": {"generator_X": _adam(2e-4, 0.5, 0),
+                          "discriminator_Y": _adam(2e-4, 0.5, 0),
+                          "detector": _adam(1e-6, 0.9, 0.0002)},
+            "scheduler": {name: {"algorithm": "lambda_p2p",
+                                 "n_epochs_decay": 25}
+                          for name in ("generator_X", "discriminator_Y",
+                                       "detector")},
+            "epoch_iteration": {"type": "SupervisedHEDNGANEpoch",
+                                "data": "train", "criterion": "default"}},
+        "validation": {
+            "type": "MultiCriterialValidation",
+            "decisive_criterion": "epoch",
+            "visual": {
+                "type": "SingleValidation", "frequency": 5,
+                "network_overlay": None, "data": None,
+                "criterion": {"type": "visual", "data": {
+                    "dataset": {"name": "InferImageList",
+                                "image_dir": "data/val/day_night"},
+                    "transforms": "pil2np | downscale:362 | totensor | "
+                                  "normalize",
+                    "mean_std": MEANSTD_GEN}}}}},
+    "output": {"learning": {"progress": {"print_each": 100,
+                                         "print_each_val": 1000},
+                            "htmlreport": {}}},
+    "data": {"train": {
+        "dataset": {"name": "RandomDomainsPair",
+                    "dataset_X": "data/train/retrieval-SfM-120k/dataset/"
+                                 "train_day.txt",
+                    "dataset_Y": "data/train/retrieval-SfM-120k/dataset/"
+                                 "train_night.txt",
+                    "image_dir": "data/train/retrieval-SfM-120k/ims/*",
+                    "size": 10000},
+        "loader": {"batch_size": 10},
+        "transforms": "pil2np | scalecrop:256_256:0.8_1 | totensor | "
+                      "normalize",
+        "mean_std": MEANSTD_GEN}},
+}
+# the cuts of scale (PERF.md §4 "GAN training")
+GAN_CUTS = {"size": 40, "epochs": 2, "n_epochs_decay": 1,
+            "checkpoint_every": 1, "store_every": 2, "frequency": 1}
+GAN_DOMAIN = 30          # seeded JPEGs a domain, longest side 362
+GAN_SHAPES = [(272, 362), (362, 272), (362, 362), (300, 362), (362, 300),
+              (256, 362)]
+GAN_VAL_SHAPES = [(480, 640), (640, 480), (600, 800), (362, 362)]
+
+
+def make_domain_set(root, seed=0):
+    """GAN_DOMAIN seeded JPEGs a domain (smooth noise, so the edge maps
+    are not flat) in <root>/ims with their list files, and 4 validation
+    photos in <root>/val. Returns the two list paths."""
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    ims, val = os.path.join(root, "ims"), os.path.join(root, "val")
+    os.makedirs(ims)
+    os.makedirs(val)
+
+    def photo(h, w, dark):
+        small = rs.randint(0, 256, (h // 8 + 1, w // 8 + 1, 3), np.uint8)
+        img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+        arr = np.asarray(img).astype(np.float32)
+        arr += rs.randint(-20, 21, arr.shape)
+        if dark:
+            arr *= 0.35
+        return Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+
+    lists = []
+    for d, dark in (("day", False), ("night", True)):
+        names = []
+        for i in range(GAN_DOMAIN):
+            h, w = GAN_SHAPES[i % len(GAN_SHAPES)]
+            names.append("%s_%02d.jpg" % (d, i))
+            photo(h, w, dark).save(os.path.join(ims, names[-1]), quality=90)
+        lists.append(os.path.join(root, "train_%s.txt" % d))
+        with open(lists[-1], "w") as f:
+            f.write("\n".join(names) + "\n")
+    for i, (h, w) in enumerate(GAN_VAL_SHAPES):
+        photo(h, w, False).save(os.path.join(val, "val_%d.jpg" % i))
+    return lists
+
+
+def gan_train_config(root, lists):
+    """GAN_TRAIN with the cuts of GAN_CUTS on the set of make_domain_set,
+    the HED files `pretrained: null` (seeded weights) and the experiment
+    under <root>/exp."""
+    import copy
+    cfg = copy.deepcopy(GAN_TRAIN)
+    for k in ("detector", "detector_frozen"):
+        cfg["network"][k]["model"]["pretrained"] = None
+    lt = cfg["learning"]["training"]
+    lt["epochs"] = GAN_CUTS["epochs"]
+    for sched in lt["scheduler"].values():
+        sched["n_epochs_decay"] = GAN_CUTS["n_epochs_decay"]
+    cfg["learning"]["checkpoints"].update(
+        directory=os.path.join(root, "exp"),
+        checkpoint_every=GAN_CUTS["checkpoint_every"],
+        store_every=GAN_CUTS["store_every"])
+    vis = cfg["learning"]["validation"]["visual"]
+    vis["frequency"] = GAN_CUTS["frequency"]
+    vis["criterion"]["data"]["dataset"]["image_dir"] = os.path.join(root,
+                                                                    "val")
+    cfg["data"]["train"]["dataset"].update(
+        dataset_X=lists[0], dataset_Y=lists[1],
+        image_dir=os.path.join(root, "ims") + "/*", size=GAN_CUTS["size"])
+    return cfg
+
+
+def _instrument_gan(exp, rec):
+    """Time the loop's parts on their instances (per epoch: the steps, the
+    checkpoint save, the events and report, the validation), record every
+    step's metrics, profile epoch 2's steps with torch.profiler, and copy
+    the directory after epoch 1."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    training, loop = exp["training"], exp["training"].loop
+    orig = {"run": loop.run_epoch, "save": exp["checkpoints"].save_epoch,
+            "norms": training._log_weight_norms,
+            "sample": training._log_traindata_sample,
+            "close": exp["events"].close_epoch, "step": loop.step_fn}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec["epochs"][-1][key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def run_epoch(state, epoch):
+        rec["epochs"].append(dict.fromkeys(
+            ("steps_s", "checkpoint_s", "events_s", "validation_s"), 0.0))
+        if epoch == 2:
+            rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            rec["prof"].__enter__()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = orig["run"](state, epoch)
+        torch.cuda.synchronize()
+        rec["epochs"][-1]["steps_s"] = time.perf_counter() - t0
+        if epoch == 2:
+            rec["prof_wall"] = rec["epochs"][-1]["steps_s"]
+            rec["prof"].__exit__(None, None, None)
+        return state
+
+    def step_fn(state, *args):
+        out = orig["step"](state, *args)
+        rec["metrics"].append(out[1])
+        return out
+
+    def hook(state, epoch):
+        if epoch == 1:
+            shutil.copytree(exp["checkpoints"].directory, rec["copy_dir"],
+                            symlinks=True)
+
+    loop.run_epoch = run_epoch
+    loop.step_fn = step_fn
+    exp["checkpoints"].save_epoch = timed("checkpoint_s", orig["save"])
+    training._log_weight_norms = timed("events_s", orig["norms"])
+    training._log_traindata_sample = timed("events_s", orig["sample"])
+    exp["events"].close_epoch = timed("events_s", orig["close"])
+    training.validations = [timed("validation_s", v)
+                            for v in training.validations]
+    training.state_hook = hook
+
+
+def gan_step_breakdown(exp, X, Y, reps=3):
+    """CUDA-event spans of the real step's parts, marked where it calls
+    them: the generator forward (its first `apply`), the D step (forwards,
+    loss, backward), D's Adam, the E step (teacher, student forwards,
+    backward), the student's Adam, the G step (D and student forwards on
+    fake_Y, loss, backward through them and G), G's Adam, and the rest
+    (the student on one image for the blobs). Medians over `reps` steps."""
+    G = exp["models"]["generator_X"]
+    opts = exp["optimizers"]
+    names = ["g_forward", "d_step", "d_adam", "e_step", "e_adam", "g_step",
+             "g_adam", "rest"]
+    marks = []
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append(e)
+
+    g_apply = G.apply
+
+    def apply(*a, **k):
+        out = g_apply(*a, **k)
+        if len(marks) == 1:
+            mark()
+        return out
+    saved = {name: opt.step for name, opt in opts.items()}
+
+    def wrap(fn):
+        def step(*a, **k):
+            mark()
+            out = fn(*a, **k)
+            mark()
+            return out
+        return step
+    spans = []
+    try:
+        G.apply = apply
+        for name in ("discriminator_Y", "detector", "generator_X"):
+            opts[name].step = wrap(saved[name])
+        for _ in range(reps + 1):
+            marks.clear()
+            mark()
+            exp["step"](exp["state"], X, Y)
+            mark()
+            torch.cuda.synchronize()
+            spans.append([a.elapsed_time(b)
+                          for a, b in zip(marks[:-1], marks[1:])])
+    finally:
+        del G.apply
+        for name, fn in saved.items():
+            del opts[name].step
+    med = np.median(np.asarray(spans[1:]), axis=0)
+    out = dict(zip(names, (float(v) for v in med)))
+    out["total"] = float(sum(med))
+    return out
+
+
+def _g_grad_terms(exp, x):
+    """The generator's gradient of each G-step term apart, on the starting
+    weights, before the step: the adversarial mse through D (train mode)
+    and the edge L1 through the student against sigmoid(teacher); and the
+    L1's sign map. G's and D's statistics are put back after."""
+    from gandtr_tpu_torch.ops import losses as L
+    G, D = exp["models"]["generator_X"], exp["models"]["discriminator_Y"]
+    H_s, H_t = exp["models"]["detector"], exp["models"]["detector_frozen"]
+    saved = [(net, {k: v.clone() for k, v in net.module.state_dict().items()})
+             for net in (G, D)]
+    params = list(G.module.parameters())
+    fake = G.apply(x, train=True)
+    with torch.no_grad():
+        real_E = torch.sigmoid(H_t.apply(x, no_sigmoid=True))
+    adv = L.discriminator_loss(D.apply(fake, train=True), True, L.mse_loss)[0]
+    fake_E = H_s.apply(fake)
+    edge = 5 * L.l1_loss(fake_E, real_E)
+    flat = [torch.cat([g.flatten() for g in torch.autograd.grad(
+        loss, params, retain_graph=True)]).cpu() for loss in (adv, edge)]
+    for net, state in saved:
+        net.module.load_state_dict(state)
+    return flat[0], flat[1], torch.sign(fake_E - real_E).detach().cpu()
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+GAN_OPTIMIZED = ("generator_X", "discriminator_Y", "detector")
+
+
+def _grab_grads(exp, names):
+    """Wrap each named network's optimizer step so that it first copies the
+    network's gradients to the host. Returns {name: {parameter: grad}},
+    filled by the next step."""
+    grads = {}
+    for name in names:
+        opt, module = exp["optimizers"][name], exp["models"][name].module
+        grads[name] = {}
+
+        def step(*a, _adam=opt.step, _module=module, _into=grads[name],
+                 **k):
+            _into.update({n: p.grad.detach().cpu().clone()
+                          for n, p in _module.named_parameters()})
+            return _adam(*a, **k)
+        opt.step = step
+    return grads
+
+
+def _flat(grads):
+    return torch.cat([grads[k].flatten() for k in sorted(grads)])
+
+
+def _gan_parity(dev, lists, root):
+    """One step at batch 2 and 128x128, full width, from the same seeded
+    weights on the card and in the port on the CPU: the losses within
+    1e-3 relative and fake_Y within 1e-4. The gradients against the same
+    ones in float64 on the CPU, the card's within twice the CPU float32's
+    distance from them: D's and the student's, each taken just before its
+    Adam update in the step (they depend on the starting weights only),
+    and the generator's two G-step terms apart, on the starting weights
+    (the step's own G gradient goes through the updated D and student).
+    The L1 terms are ill-conditioned: float32 itself lands about 3e-3 of
+    their norm away. As a sanity check only, every updated generator
+    parameter within 2 lr of the CPU's (Adam's first step is lr times
+    g/(|g| + eps), below lr for any g). Printed beside them: the step's
+    whole G gradient card vs CPU, the count of its elements of the other
+    sign, and the updated generator's output difference on the batch's
+    statistics and in eval mode."""
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    cfg = gan_train_config(root, lists)
+    rs = np.random.RandomState(7)
+    X, Y = (rs.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)
+            for _ in range(2))
+    torch.set_num_threads(os.cpu_count() or 1)
+    ref = build_gan_experiment(cfg, device="cpu")
+    for net in ref["models"].values():
+        net.module.double()
+    x64, y64 = torch.from_numpy(X).double(), torch.from_numpy(Y).double()
+    terms = _g_grad_terms(ref, x64)
+    grads = _grab_grads(ref, GAN_OPTIMIZED[1:])
+    ref["step"](ref["state"], x64, y64)
+    ref = {"G_adv": terms[0], "G_edge": terms[1],
+           "D": _flat(grads["discriminator_Y"]).double(),
+           "E": _flat(grads["detector"]).double()}
+    del grads, terms
+    out = {}
+    for where in ("cpu", dev):
+        exp = build_gan_experiment(cfg, device=where)
+        x, y = torch.from_numpy(X).to(where), torch.from_numpy(Y).to(where)
+        terms = _g_grad_terms(exp, x)
+        G = exp["models"]["generator_X"].module
+        grads = _grab_grads(exp, GAN_OPTIMIZED)
+        t0 = time.perf_counter()
+        _, m, dbg = exp["step"](exp["state"], x, y)
+        s = time.perf_counter() - t0
+        with torch.no_grad():
+            g_eval = G.eval()(x).cpu()
+            g = G.train()(x).cpu()
+        out[str(where)] = {"metrics": {k: float(v) for k, v in m.items()},
+                           "fake_Y": dbg["fake_Y"].cpu(), "G": g,
+                           "G_eval": g_eval, "s": s,
+                           "params": {k: v.detach().cpu() for k, v in
+                                      G.named_parameters()},
+                           "grads": grads["generator_X"],
+                           "vs64": {"G_adv": terms[0], "G_edge": terms[1],
+                                    "D": _flat(grads["discriminator_Y"]),
+                                    "E": _flat(grads["detector"])},
+                           "signs": terms[2]}
+        out[str(where)]["vs64"] = {k: _rel(v.double(), ref[k]) for k, v
+                                   in out[str(where)]["vs64"].items()}
+        del exp
+    cpu, card = out["cpu"], out[str(dev)]
+    rel = {k: abs(card["metrics"][k] - v) / max(abs(v), 1e-12)
+           for k, v in cpu["metrics"].items()}
+    d_fake = float((card["fake_Y"] - cpu["fake_Y"]).abs().max())
+    gc, gg = _flat(cpu["grads"]), _flat(card["grads"])
+    d_params = max(float((card["params"][k] - v).abs().max())
+                   for k, v in cpu["params"].items())
+    lr = cfg["learning"]["training"]["optimizer"]["generator_X"]["lr"]
+    res = {"loss_rel_max": max(rel.values()), "loss_rel": rel,
+           "fake_Y_max": d_fake,
+           "grad_rel_to_float64_cpu": cpu["vs64"],
+           "grad_rel_to_float64_card": card["vs64"],
+           "edge_l1_signs_differing": int(
+               (card["signs"] != cpu["signs"]).sum()),
+           "G_grad_rel": _rel(gg, gc),
+           "G_grad_sign_flips": int(((gg > 0) != (gc > 0)).sum()),
+           "G_grad_elements": int(gc.numel()),
+           "updated_G_params_max": d_params,
+           "updated_G_max": float((card["G"] - cpu["G"]).abs().max()),
+           "updated_G_eval_mode_max": float(
+               (card["G_eval"] - cpu["G_eval"]).abs().max()),
+           "cpu_step_s": cpu["s"], "E_real_cpu": cpu["metrics"]["E_real"],
+           "E_real_card": card["metrics"]["E_real"]}
+    if max(rel.values()) > 1e-3 or d_fake > 1e-4 \
+            or d_params > 2 * lr * (1 + 1e-6) \
+            or any(v > 2 * cpu["vs64"][k] for k, v in card["vs64"].items()):
+        raise AssertionError("GAN step card vs CPU: %s" % json.dumps(res))
+    return res
+
+
+def _gan_tie(exp, X):
+    """The student on real images equals its teacher bit for bit before
+    the first step (pre-sigmoid, through the same wrappers)."""
+    H_s, H_t = exp["models"]["detector"], exp["models"]["detector_frozen"]
+    with torch.no_grad():
+        target = H_t.apply(X, no_sigmoid=True)
+    real_M = H_s.apply(X, no_sigmoid=True)
+    if not torch.equal(real_M.detach(), target):
+        raise AssertionError("student vs teacher at start: %g" % float(
+            (real_M.detach() - target).abs().max()))
+    return True
+
+
+def _max_adam_steps(exp, name, epochs):
+    """{parameter name: the largest lr its group had over the run}:
+    base_lr x the group's lr_mult x the schedule's largest factor over the
+    epochs. Adam's first step of each element is lr times the gradient's
+    sign, and the later ones are of that size."""
+    opt = exp["optimizers"].get(name)
+    if opt is None:
+        return {}
+    sched = exp["schedules"].get(name)
+    factor = max(sched(e) for e in range(epochs)) if sched else 1.0
+    base = exp["base_lr"][name]
+    by_id = {id(p): k for k, p in exp["models"][name].module
+             .named_parameters()}
+    return {by_id[id(p)]: base * g.get("lr_mult", 1.0) * factor
+            for g in opt.param_groups for p in g["params"]}
+
+
+def _below_half_ulp(p, step):
+    v = p.detach().abs().cpu().numpy().astype(np.float32)
+    return bool((np.spacing(v) / 2 > step).all())
+
+
+def _bn_stats(module):
+    return {k: v.clone() for k, v in module.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def run_gan_train(dev):
+    """train_hedngan.yml (GAN_TRAIN, full width, seeded weights, cut by
+    GAN_CUTS) through the port's train stage set-up on the card: two
+    epochs of 4 steps at batch 10 on 256x256 crops of a seeded domain set,
+    every launch count set to 0 just before `training.run` and read just
+    after; then the checks, the resume, the hub, the CPU parity and the
+    timings."""
+    import shutil
+    import tempfile
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    tmp = tempfile.mkdtemp(prefix="gan_", dir=os.environ.get("TMPDIR"))
+    try:
+        t0 = time.perf_counter()
+        lists = make_domain_set(tmp)
+        cfg = gan_train_config(tmp, lists)
+        directory = cfg["learning"]["checkpoints"]["directory"]
+        exp = build_gan_experiment(cfg, directory=directory, device=dev)
+        setup_s = time.perf_counter() - t0
+        models = exp["models"]
+        start = {name: {k: p.detach().clone() for k, p in
+                        net.module.named_parameters()}
+                 for name, net in models.items()}
+        stats0 = {name: _bn_stats(models[name].module)
+                  for name in ("generator_X", "discriminator_Y")}
+        probe = torch.from_numpy(
+            np.random.RandomState(3).uniform(-1, 1, (10, 256, 256, 3))
+            .astype(np.float32)).to(dev)
+        tie = _gan_tie(exp, probe)
+        rec = {"epochs": [], "metrics": [],
+               "copy_dir": os.path.join(tmp, "exp_after1")}
+        _instrument_gan(exp, rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = exp["training"].run(exp["state"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+
+        # --- what the run must show
+        per_epoch = len(exp["loader"])
+        metrics = [{k: float(v) for k, v in m.items()}
+                   for m in rec["metrics"]]
+        if len(metrics) != GAN_CUTS["epochs"] * per_epoch or per_epoch != 4:
+            raise AssertionError("%d steps of %d an epoch"
+                                 % (len(metrics), per_epoch))
+        if not all(np.isfinite(v) for m in metrics for v in m.values()):
+            raise AssertionError("non-finite metrics %s" % metrics)
+        if metrics[0]["E_real"] != 0.0:
+            raise AssertionError("step 1 E_real %r, not the exact tie"
+                                 % metrics[0]["E_real"])
+        moved, unmovable = {}, []
+        for name, net in models.items():
+            lrs = _max_adam_steps(exp, name, GAN_CUTS["epochs"])
+            moved[name] = 0
+            for k, p in net.module.named_parameters():
+                if not torch.equal(p.detach(), start[name][k]):
+                    moved[name] += 1
+                elif k in lrs and _below_half_ulp(start[name][k],
+                                                     lrs[k]):
+                    # float32 cannot hold this update: a step of the lr is
+                    # below half an ulp of every element (the published
+                    # rates give HED's fusion 1e-6 x 0.001)
+                    unmovable.append("%s.%s" % (name, k))
+                    moved[name] += 1
+        for name in ("generator_X", "discriminator_Y", "detector"):
+            if moved[name] != len(start[name]):
+                raise AssertionError("%s: %d of %d parameters moved; "
+                                     "still: %s" % (name, moved[name],
+                                                    len(start[name]), [
+                    k for k, p in models[name].module.named_parameters()
+                    if torch.equal(p.detach(), start[name][k])]))
+        if moved["detector_frozen"]:
+            raise AssertionError("the teacher moved")
+        for name, st in stats0.items():
+            now = _bn_stats(models[name].module)
+            if any(torch.equal(v, now[k]) for k, v in st.items()):
+                raise AssertionError("%s: a BatchNorm statistic unchanged"
+                                     % name)
+        files = set(os.listdir(os.path.join(directory, "epochs")))
+        blobs = set(os.listdir(os.path.join(directory, "epochs", "blobs")))
+        want_files = {"%s_%s.ckpt" % (n, s) for n in models
+                      for s in ("epoch_02", "last", "best")} \
+            | {"training_epoch_02.pkl", "events.json", "htmlreport",
+               "detector_frozen_frozen.ckpt"}
+        want_blobs = {"data_real_X_image0.rgb_epoch_01.jpg",
+                      "data_fake_Y_image0.rgb_epoch_01.jpg",
+                      "data_real_E_check_image0.chan1_epoch_01.jpg"} \
+            | {"val_visual_val_%d_epoch_%02d.jpg" % (i, e)
+               for i in range(4) for e in (1, 2)}
+        report = os.path.join(directory, "epochs", "htmlreport",
+                              "index.html")
+        if not (want_files <= files and want_blobs <= blobs
+                and os.path.getsize(report) > 0):
+            raise AssertionError("files missing: %s %s" % (
+                sorted(want_files - files), sorted(want_blobs - blobs)))
+        print("GAN train launches: %s (HED^N-GAN reaches no kernel of the "
+              "port: cuDNN float32)" % json.dumps(counts))
+
+        # --- the parts of the run and the card's busy share
+        prof = rec.pop("prof")
+        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        batch = cfg["data"]["train"]["loader"]["batch_size"]
+        loop_ms = 1e3 * rec["epochs"][1]["steps_s"] / per_epoch
+        out = {"setup_s": setup_s, "run_s": wall, "steps": len(metrics),
+               "launches": counts, "student_equals_teacher_at_start": tie,
+               "step1_E_real": metrics[0]["E_real"],
+               "unmovable_in_float32": unmovable,
+               "epochs": rec["epochs"], "loop_ms_per_step_epoch2": loop_ms,
+               "loop_images_per_s": 1e3 * batch / loop_ms,
+               "epoch2_steps_busy_share": busy_us / 1e6 / rec["prof_wall"],
+               "epoch2_steps_wall_s": rec["prof_wall"],
+               "peak_mem_gb_loop": peak,
+               "last_metrics": metrics[-1]}
+
+        # --- resume a copy of the directory as it was after epoch 1
+        rcfg = gan_train_config(tmp, lists)
+        rcfg["learning"]["checkpoints"]["directory"] = rec["copy_dir"]
+        rexp = build_gan_experiment(rcfg, directory=rec["copy_dir"],
+                                    device=dev)
+        rstate, start_epoch = rexp["training"].resume_or_start(rexp["state"])
+        if start_epoch != 2 or rstate.step != per_epoch:
+            raise AssertionError("resume at %d, step %d"
+                                 % (start_epoch, rstate.step))
+        rstate = rexp["training"].run(rstate, start_epoch=start_epoch)
+        for name, net in state.models.items():
+            got = rstate.models[name].module.state_dict()
+            for k, v in net.module.state_dict().items():
+                if not torch.equal(v, got[k]):
+                    raise AssertionError("resume: %s.%s differs by %g" % (
+                        name, k, float((v.double() - got[k].double())
+                                       .abs().max())))
+        for name, opt in state.optimizers.items():
+            want = opt.state_dict()["state"]
+            got = rstate.optimizers[name].state_dict()["state"]
+            for i, s in want.items():
+                for k, v in s.items():
+                    if not torch.equal(v, got[i][k]):
+                        raise AssertionError("resume: %s moment %s.%s"
+                                             % (name, i, k))
+        out["resume"] = {"start_epoch": start_epoch,
+                         "epoch2_bit_equal": True}
+        del rexp, rstate
+
+        # --- the trained generator in the hub, serving one photo
+        gen = hub.hedngan(pretrained=True, checkpoint=os.path.join(
+            directory, "epochs", "generator_X_last.ckpt"))
+        img = np.random.RandomState(4).randint(0, 256, HW + (3,),
+                                               dtype=np.uint8)
+        y = gen(gen.transform(img)[None])
+        if tuple(y.shape) != (1,) + HW + (3,) or not bool(
+                torch.isfinite(y).all()) or float(y.abs().max()) > 1:
+            raise AssertionError("hub generator: %s" % (tuple(y.shape),))
+        out["hub_generator"] = {"shape": list(y.shape),
+                                "ms": cuda_ms(lambda: gen(
+                                    gen.transform(img)[None]), reps=3)}
+        del gen
+
+        # --- the bare step, its parts, and the card against the CPU
+        X, Y = (torch.from_numpy(a).to(dev) for a in next(iter(
+            exp["loader"])))
+        out["bare_step_ms"] = cuda_ms(
+            lambda: exp["step"](exp["state"], X, Y), reps=3)
+        out["bare_images_per_s"] = 1e3 * batch / out["bare_step_ms"]
+        out["step_breakdown_ms"] = gan_step_breakdown(exp, X, Y)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del exp, state, models
+        torch.cuda.empty_cache()
+        print("GAN training on the card: %s" % json.dumps(out))
+        out["parity"] = _gan_parity(dev, lists, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print("GAN training (train_hedngan.yml, full width, 2 epochs of 4 steps "
+          "at batch 10, 256x256), card vs CPU: %s"
+          % json.dumps(out["parity"]))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2763,11 +3439,16 @@ def main():
     # ---- the ResNet-101 chain of finetune_r101 and eval_r101
     torch.cuda.empty_cache()
     r101 = run_r101(dev)
+
+    # ---- HED^N-GAN training of train_hedngan.yml
+    torch.cuda.empty_cache()
+    gan = run_gan_train(dev)
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
                    "finetune_loop": loop["launches"][k],
                    "eval": sum(c[k] for c in ev["launches"].values()),
-                   "r101": r101["launches"][k]}
+                   "r101": r101["launches"][k],
+                   "gan_train": gan["launches"][k]}
                for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{

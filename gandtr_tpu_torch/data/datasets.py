@@ -1,5 +1,6 @@
-"""Image loading and the batch loader (counterpart of
-gandtr_tpu/data/datasets.py::imread, ::path_join and ::Loader).
+"""Image loading, the GAN datasets and the batch loader (counterpart of
+gandtr_tpu/data/datasets.py::imread, ::path_join, ::InferImageListDataset,
+::RandomDomainsPairDataset and ::Loader).
 
 PIL decodes; the JAX package's native libjpeg decoder and its `store.h5#key`
 form are not ported yet. The two decoders give equal arrays on the same
@@ -48,6 +49,132 @@ def path_join(directory, name, default_extension=".jpg"):
     return os.path.join(path, name + ext)
 
 
+class InferImageListDataset:
+    """Named images from parallel name lists (tuple_datasets.py:19-60):
+    `data` holds one list of names per position; item i is ((names),
+    images), the images decoded and transformed together (one image for
+    one list, as the JAX package's variadic Compose returns it)."""
+
+    loader_params = {}
+
+    def __init__(self, data, transform, image_dir, mode=None):
+        if len({len(x) for x in data}) != 1:
+            raise ValueError("name lists of different lengths")
+        self.data = [list(x) for x in zip(*data)]
+        self.image_list = [[path_join(image_dir, x) for x in y]
+                           for y in self.data]
+        self.transform = transform
+        self.mode = mode
+
+    def __len__(self):
+        return len(self.image_list)
+
+    def __getitem__(self, idx):
+        images = tuple(imread(x, self.mode or "RGB")
+                       for x in self.image_list[idx])
+        if self.transform:
+            images = self.transform(*images)
+        return tuple(self.data[idx]), images
+
+
+class RandomDomainsPairDataset:
+    """Unpaired domain pairs (domain_datasets.py:10-58): each epoch
+    (`prepare_epoch`) draws `size` images of domain X and `size` of domain
+    Y from numpy's global RNG, as the reference does; item i is the pair
+    (X_i, Y_i), transformed together (a scalecrop cuts both alike).
+
+    `plan(i)` makes item i's transform draws from the images' sizes (their
+    headers) before it is decoded; the loader calls it in order, so a pool
+    of threads gives every item the draws of the sequential loop."""
+
+    loader_params = {}
+
+    def __init__(self, data, transform, dataset_X, dataset_Y, image_dir,
+                 size, image_dir_Y=None, rng=None):
+        if data:
+            raise ValueError("RandomDomainsPair takes no data")
+        image_dir_Y = image_dir if image_dir_Y is None else image_dir_Y
+        self.images_X = [path_join(image_dir, x)
+                         for x in self._read_list(dataset_X)]
+        self.images_Y = [path_join(image_dir_Y, y)
+                         for y in self._read_list(dataset_Y)]
+        self.transform = transform
+        self.size = int(size) if size is not None else min(
+            len(self.images_X), len(self.images_Y))
+        self._rng = rng or np.random
+        self.idxs_X = self.idxs_Y = None
+        self._draws = {}
+
+    @staticmethod
+    def _read_list(path_or_list):
+        if isinstance(path_or_list, (list, tuple)):
+            return list(path_or_list)
+        with open(path_or_list) as f:
+            return [x.strip() for x in f.readlines()]
+
+    def prepare_epoch(self):
+        self.idxs_X = list(self._rng.randint(len(self.images_X),
+                                             size=self.size))
+        self.idxs_Y = list(self._rng.randint(len(self.images_Y),
+                                             size=self.size))
+        self._draws = {}
+
+    def __len__(self):
+        return self.size
+
+    def _paths(self, idx):
+        return (self.images_X[self.idxs_X[idx]],
+                self.images_Y[self.idxs_Y[idx]])
+
+    def plan(self, idx):
+        if self.transform is not None and hasattr(self.transform, "draw"):
+            sizes = []
+            for path in self._paths(idx):
+                with Image.open(path) as im:
+                    sizes.append((im.size[1], im.size[0]))
+            self._draws[idx] = self.transform.draw(sizes)
+
+    def __getitem__(self, idx):
+        images = [imread(p) for p in self._paths(idx)]
+        if self.transform:
+            draws = self._draws.pop(idx, None)
+            images = self.transform(*images, draws=draws)
+        return tuple(np.asarray(im) for im in images)
+
+
+DATASET_LABELS = {
+    "InferImageList": InferImageListDataset,
+    "RandomDomainsPair": RandomDomainsPairDataset,
+}
+
+
+def initialize_dataset_loader(data, params, loader_defaults=None):
+    """A dataset and its Loader from a reference-style config ({dataset:
+    {name, ...}, loader: {...}, transforms, mean_std}), as
+    dataset/__init__.py:8-41: the loader's settings are the defaults, then
+    the dataset's, then the config's. Paths are `resolve_path`ed."""
+    from gandtr_tpu_torch.data.transforms import initialize_transforms
+    from gandtr_tpu_torch.utils.io import resolve_path
+    params = dict(params)
+    dparams = dict(params.pop("dataset"))
+    user_loader = dict(params.pop("loader", None) or {})
+    transforms = None
+    if "transforms" in params:
+        transforms = initialize_transforms(params.pop("transforms"),
+                                           params.pop("mean_std"))
+    name = dparams.pop("name")
+    if name not in DATASET_LABELS:
+        raise NotImplementedError("dataset %r is not ported yet" % name)
+    for key in ("dataset_X", "dataset_Y", "image_dir", "image_dir_Y"):
+        if isinstance(dparams.get(key), str):
+            dparams[key] = resolve_path(dparams[key])
+    dataset = DATASET_LABELS[name](data, transforms, **dparams)
+    lparams = {"num_workers": 6, **(loader_defaults or {}),
+               **dataset.loader_params, **user_loader}
+    lparams.pop("pin_memory", None)
+    return Loader(dataset, **lparams)
+
+
 class Loader:
     """Thread-pool prefetch batch loader (counterpart of the JAX package's
     `Loader`, which stands in for torch's DataLoader workers).
@@ -55,8 +182,10 @@ class Loader:
     Each epoch's order is a permutation drawn from the loader's own
     `numpy.random.RandomState(seed)` when `shuffle`; `drop_last` drops a
     short last batch. `num_workers` threads build up to `prefetch + 1`
-    batches ahead of the consumer. A batch stacks each position of its
-    items; it stays numpy, and the caller uploads it."""
+    batches ahead of the consumer; a dataset with `plan(i)` has it called
+    for each item, in order, before the item is handed to a thread. A
+    batch stacks each position of its items; it stays numpy, and the
+    caller uploads it."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, drop_last=False,
                  num_workers=6, seed=0, prefetch=2):
@@ -91,12 +220,20 @@ class Loader:
             for b in batches:
                 yield self._batch(b)
             return
+        plan = getattr(self.dataset, "plan", None)
+
+        def submit(ex, b):
+            if plan is not None:
+                for i in b:
+                    plan(int(i))
+            return ex.submit(self._batch, b)
+
         with ThreadPoolExecutor(self.num_workers) as ex:
-            futures = deque(ex.submit(self._batch, b)
+            futures = deque(submit(ex, b)
                             for b in batches[:self.prefetch + 1])
             for b in batches[self.prefetch + 1:]:
                 done = futures.popleft()
-                futures.append(ex.submit(self._batch, b))
+                futures.append(submit(ex, b))
                 yield done.result()
             while futures:
                 yield futures.popleft().result()
@@ -104,5 +241,7 @@ class Loader:
 
 def stack_collate(items):
     """Stack each position of the items: [(a1, b1), (a2, b2)] ->
-    (stack(a), stack(b))."""
-    return tuple(np.stack(col) for col in zip(*items))
+    (stack(a), stack(b)); a position that is not an array (the names of
+    InferImageList) stays a list."""
+    return tuple(np.stack(col) if isinstance(col[0], np.ndarray)
+                 else list(col) for col in zip(*items))

@@ -1,6 +1,18 @@
 """Preprocessing with the reference's transform DSL (counterpart of
 gandtr_tpu/data/transforms.py), for the descriptor pipeline
-`pil2np | apply_clahe:<clip>[:<grid>[:<space>]] | totensor | normalize`.
+`pil2np | apply_clahe:<clip>[:<grid>[:<space>]] | totensor | normalize`
+and the GAN pipelines `pil2np | scalecrop:<w>_<h>:<lo>_<hi> | totensor |
+normalize` (training pairs) and `pil2np | downscale:<side> | totensor |
+normalize` (visual validation).
+
+A Compose takes one image or several (`compose(x, y)` -> [x', y']): a
+random transform draws once for all of them, as the reference's variadic
+transforms do, so the two images of a domain pair are cut alike. Its draws
+come from the module's RNG, reseeded each epoch (`seed_transforms`), in the
+JAX package's order. `Compose.draw(sizes)` makes an item's draws ahead of
+its decoding: the loader calls it for its items in order on one thread, so
+a thread pool decodes them in any order and each item still gets the draws
+the sequential loop would give it.
 
 The host transforms work on one image at a time: PIL image or uint8 array
 in, (H, W, 3) float32 CPU tensor out (NHWC like the JAX package; CLAHE runs
@@ -10,6 +22,8 @@ one launch of the K1 kernel for the whole batch. The generators'
 pipeline `pil2np | totensor | normalize` splits the same way (no CLAHE),
 and `device_quantize_rgb` turns a generator's output back into uint8 RGB.
 """
+import threading
+
 import numpy as np
 import torch
 from PIL import Image
@@ -18,8 +32,9 @@ from gandtr_tpu_torch.ops import clahe as clahe_ops
 
 
 # the host transforms' random draws, reseeded each epoch (the reference's
-# per-epoch seed); the ported transforms draw nothing yet
+# per-epoch seed)
 _RNG = np.random.RandomState(0)
+_RNG_LOCK = threading.Lock()
 
 
 def seed_transforms(seed):
@@ -32,10 +47,32 @@ class Compose:
     def __init__(self, transforms):
         self.transforms = transforms
 
-    def __call__(self, pic):
+    def __call__(self, *pics, draws=None):
+        """One image -> one; several -> a list. `draws` (from `draw`)
+        replaces the random transforms' own draws."""
+        out = list(pics)
+        for i, t in enumerate(self.transforms):
+            if hasattr(t, "joint"):
+                out = t.joint(out, None if draws is None else draws[i])
+            else:
+                out = [t(p) for p in out]
+        return out[0] if len(pics) == 1 else out
+
+    def draw(self, sizes):
+        """The random draws of this chain for images of `sizes` [(h, w),
+        ...]: a list with an entry per transform (None where it draws
+        nothing)."""
+        out, resized = [], False
         for t in self.transforms:
-            pic = t(pic)
-        return pic
+            if hasattr(t, "draw"):
+                if resized:
+                    raise NotImplementedError(
+                        "a random transform after a resizing one")
+                out.append(t.draw(sizes))
+            else:
+                out.append(None)
+                resized = resized or isinstance(t, Downscale)
+        return out
 
 
 class Pil2Numpy:
@@ -78,11 +115,127 @@ class ApplyClahe:
                                      self.colorspace)
 
 
+def _as_array(pic):
+    return pic.numpy() if isinstance(pic, torch.Tensor) else np.asarray(pic)
+
+
+def _linear_coeffs(dst, src):
+    """cv2.resize INTER_LINEAR's taps and weights along one axis (its
+    float path): the source coordinate (d + 0.5) * scale - 0.5 and its
+    fraction in double precision, the fraction rounded to float32 and its
+    complement taken there; the taps clamped to the edge pixel."""
+    scale = 1.0 / (dst / src)
+    f = (np.arange(dst) + 0.5) * scale - 0.5
+    s0 = np.floor(f).astype(np.int64)
+    f = (f - s0).astype(np.float32)
+    out = (s0 < 0) | (s0 >= src - 1)
+    f[out] = 0.0
+    s0 = np.clip(s0, 0, src - 1)
+    s1 = np.minimum(s0 + 1, src - 1)
+    return s0, s1, (np.float32(1.0) - f).astype(np.float32), f
+
+
+def resize_linear(img, out_w, out_h):
+    """`cv2.resize(img, (out_w, out_h))` of a float32 (H, W[, C]) array,
+    the JAX package's scalecrop resize, in numpy: the same taps and
+    weights, the horizontal pass first; each product and sum rounds to
+    float32 on its own (cv2's vector code may fuse a multiply-add: within
+    an ulp)."""
+    img = np.asarray(img, np.float32)
+    x0, x1, a0, a1 = _linear_coeffs(out_w, img.shape[1])
+    y0, y1, b0, b1 = _linear_coeffs(out_h, img.shape[0])
+    col = (1, -1) + (1,) * (img.ndim - 2)
+    row = (-1,) + (1,) * (img.ndim - 1)
+    a0, a1 = a0.reshape(col), a1.reshape(col)
+    rows = np.unique(np.concatenate([y0, y1]))
+    band = img[rows]
+    h = np.empty((img.shape[0], out_w) + img.shape[2:], np.float32)
+    h[rows] = band[:, x0] * a0 + band[:, x1] * a1
+    return h[y0] * b0.reshape(row) + h[y1] * b1.reshape(row)
+
+
+class RandomScaleCrop:
+    """`scalecrop:<w>_<h>:<lo>_<hi>` (augmentation_transforms.py:100-144):
+    one random scale in [max(lo, size / min side), hi] and one random
+    offset for all the images, a crop of ceil(size / scale), resized to
+    (w, h) as cv2 does. Images already at (h, w) pass unchanged. The size
+    is compared with the images' (h, w) in (w, h) order, as in the
+    reference."""
+
+    def __init__(self, size, scale=(0.5, 0.8)):
+        self.size = np.array(_parse_tuple(size, int))
+        self.scale = _parse_tuple(scale, float)
+
+    def _min_size(self, sizes):
+        if len(sizes) == 1 or sizes[0] == sizes[1]:
+            if (np.asarray(sizes[0]) == self.size[::-1]).all():
+                return None
+        return np.min(np.asarray(sizes), axis=0)
+
+    def draw(self, sizes):
+        """(offset, cropped size) for images of `sizes`, or None."""
+        mn = self._min_size([tuple(s) for s in sizes])
+        if mn is None:
+            return None
+        if not (self.size <= mn).all():
+            raise ValueError("scalecrop %s does not fit images of %s"
+                             % (self.size, mn))
+        lowest = max(float(np.max(self.size / mn)), self.scale[0])
+        with _RNG_LOCK:
+            scale = _RNG.rand() * (self.scale[1] - lowest) + lowest
+            cropped = np.ceil(self.size[::-1] / scale).astype(int)
+            if not (mn >= cropped).all():
+                raise ValueError("scalecrop: crop %s of %s" % (cropped, mn))
+            offset = [_RNG.randint(0, x + 1) for x in mn - cropped]
+        return offset, cropped
+
+    def joint(self, pics, draws=None):
+        pics = [_as_array(p) for p in pics]
+        if draws is None:
+            draws = self.draw([p.shape[:2] for p in pics])
+        if draws is None:
+            return [torch.from_numpy(np.ascontiguousarray(p)) for p in pics]
+        (y, x), (ch, cw) = draws
+        w, h = self.size
+        return [torch.from_numpy(resize_linear(p[y:y + ch, x:x + cw], w, h))
+                for p in pics]
+
+
+class Downscale:
+    """`downscale:<side>`: fit the longest side into `side`, keeping the
+    aspect ratio (PIL's LANCZOS thumbnail, as the reference). A float image
+    goes through uint8 by truncation, as in the JAX package."""
+
+    def __init__(self, size):
+        self.size = int(size)
+
+    def __call__(self, pic):
+        if isinstance(pic, Image.Image):
+            if max(pic.size) > self.size:
+                pic = pic.copy()
+                pic.thumbnail((self.size, self.size), Image.LANCZOS)
+            return pic
+        arr = _as_array(pic)
+        if max(arr.shape[:2]) <= self.size:
+            return pic
+        img = Image.fromarray((arr * 255).astype(np.uint8))
+        img.thumbnail((self.size, self.size), Image.LANCZOS)
+        return torch.from_numpy(np.array(img, dtype=np.float32) / 255.0)
+
+
+def _parse_tuple(tpl, dtype):
+    if isinstance(tpl, str):
+        return tuple(dtype(x) for x in tpl.split("_"))
+    return tuple(dtype(x) for x in tpl)
+
+
 TRANSFORMS = {
     "pil2np": Pil2Numpy,
     "apply_clahe": ApplyClahe,
     "totensor": ToTensor,
     "normalize": Normalize,
+    "scalecrop": RandomScaleCrop,
+    "downscale": Downscale,
 }
 
 

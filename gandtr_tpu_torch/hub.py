@@ -195,16 +195,26 @@ def gem_resnet101_hedngan(pretrained=False, device=None, checkpoint=None,
 def _generator(norm_layer="instance", checkpoint=None, pretrained=True,
                init_weights="normal_p2p", seed=0, device=None):
     """The 9-block ResNet generator of the reference hub (no_antialias,
-    reflect padding), with seeded `init_weights` or a local checkpoint."""
+    reflect padding), with seeded `init_weights` or a local checkpoint. A
+    checkpoint whose `network_params.model` is a ResNet generator's config
+    (the reference's files, and the port's own epoch files, e.g. HED^N-GAN
+    training's batch-norm generator_X) builds that config."""
     dev = resolve_device(device)
-    module = initialize_model({
-        "architecture": "official_resnet_generator",
-        "no_antialias": True, "no_antialias_up": True,
-        "input_nc": 3, "output_nc": 3, "n_blocks": 9,
-        "norm_layer": norm_layer})
+    config = {"architecture": "official_resnet_generator",
+              "no_antialias": True, "no_antialias_up": True,
+              "input_nc": 3, "output_nc": 3, "n_blocks": 9,
+              "norm_layer": norm_layer}
+    state = None
     if pretrained:
         state = torch.load(_local(checkpoint, "checkpoint"),
                            map_location="cpu", weights_only=False)
+        model = dict((_checkpoint_net_state(state).get("network_params")
+                      or {}).get("model") or {})
+        if model.get("architecture") == config["architecture"]:
+            model.pop("pretrained", None)
+            config = model
+    module = initialize_model(config)
+    if pretrained:
         module.load_state_dict(_checkpoint_model_state(state), strict=True)
     else:
         initialize_weights(module, init_weights, seed=seed)
@@ -224,7 +234,9 @@ def cyclegan(pretrained=False, device=None, checkpoint=None):
 
 def hedngan(pretrained=False, device=None, checkpoint=None):
     """ResNet HED^N-GAN day-to-night generator (published as
-    hedngan_generator_X.pth, instance norm); not pretrained it is the
-    reference's batch-norm default with kaiming_p2p init."""
+    hedngan_generator_X.pth, instance norm; a checkpoint of the port's
+    HED^N-GAN training, e.g. epochs/generator_X_last.ckpt, is batch norm,
+    which its network_params say); not pretrained it is the reference's
+    batch-norm default with kaiming_p2p init."""
     return _generator("instance" if pretrained else "batch", checkpoint,
                       pretrained, init_weights="kaiming_p2p", device=device)

@@ -10,8 +10,11 @@ the broker aggregates scalars per epoch, reduces `weight/*` arrays to
 the MetadataKeeper picks the best epoch by a decisive criterion.
 
 dtypes: "scalar/loss", "scalar/score", "scalar/time", "weight/param",
-"weight/grad"; the JAX package's "blob" and "heatmap" (sample images of
-the GAN paths) are not ported yet. Host numpy only: the caller reads
+"weight/grad", "blob" (an image in [0, 1] or uint8, saved as
+`<key>_epoch_<ee>.jpg`, or text as `.txt`) and "heatmap" (maps in [0, 1]
+saved as colormapped PNGs). Sinks get each closed epoch's history: the
+`htmlreport` processor (learning/html_report.py) writes
+`<dir>/epochs/htmlreport/index.html`. Host numpy only: the caller reads
 values off the device.
 """
 import json
@@ -142,6 +145,23 @@ def compute_histogram(value, bins=HISTOGRAM_BINS):
     return (edges[:-1] + edges[1:]) / 2, counts
 
 
+def _colormap(arr, cmap):
+    """Reds or coolwarm (uint8 RGB) of values clipped to [0, 1] (the
+    reference plots them with vmin 0 and vmax 1)."""
+    v = np.clip(np.asarray(arr, np.float64), 0.0, 1.0)
+    if cmap == "reds":
+        anchors = np.array([[255, 245, 240], [252, 146, 114], [103, 0, 13]],
+                           np.float64)
+    else:
+        anchors = np.array([[59, 76, 192], [221, 221, 221], [180, 4, 38]],
+                           np.float64)
+    pos = v * (len(anchors) - 1)
+    lo = np.clip(pos.astype(int), 0, len(anchors) - 2)
+    frac = (pos - lo)[..., None]
+    rgb = anchors[lo] * (1 - frac) + anchors[lo + 1] * frac
+    return rgb.astype(np.uint8)
+
+
 def _svg_histogram(hists, width=420, height=120):
     """{subkey: (centers, counts)} -> a standalone SVG, one bar panel per
     subkey."""
@@ -167,6 +187,62 @@ def _svg_histogram(hists, width=420, height=120):
             + "</svg>")
 
 
+#: the reference's plots.py:29: percentile levels of the distribution fan
+FAN_PERCENTILES = (0, 0.07, 0.16, 0.31, 0.5, 0.69, 0.84, 0.93, 1)
+
+
+def _hist_percentiles(centers, counts, qs=FAN_PERCENTILES):
+    counts = np.asarray(counts, np.float64)
+    total = counts.sum()
+    if total == 0 or not len(counts):
+        return [0.0] * len(qs)
+    idx = np.searchsorted(np.cumsum(counts), np.asarray(qs) * total)
+    return [float(centers[min(i, len(counts) - 1)]) for i in idx]
+
+
+def _svg_percentile_fan(epochs_hists, width=420, height=120):
+    """{epoch: {subkey: (centers, counts)}} -> an SVG percentile fan over
+    the epochs per subkey: nested bands between symmetric percentiles and
+    the median line (the reference's plot_distribution, plots.py:28-68)."""
+    eps = sorted(epochs_hists)
+    subkeys = sorted({k for e in eps for k in epochs_hists[e]})
+    panels, y0 = [], 0
+    for subkey in subkeys:
+        series = [_hist_percentiles(*epochs_hists[e][subkey])
+                  if subkey in epochs_hists[e] else None for e in eps]
+        pts = [(i, p) for i, p in enumerate(series) if p is not None]
+        if not pts:
+            continue
+        flat = [v for _, p in pts for v in p]
+        lo, hi = min(flat), max(flat)
+        span = (hi - lo) or 1.0
+        nx = max(len(eps) - 1, 1)
+
+        def xy(i, v, y0=y0, lo=lo, span=span, nx=nx):
+            return "%.1f,%.1f" % (10 + i * (width - 20) / nx,
+                                  y0 + height - 14
+                                  - (v - lo) * (height - 30) / span)
+
+        nq = len(FAN_PERCENTILES)
+        shapes = []
+        for b in range(nq // 2):
+            top = " ".join(xy(i, p[nq - 1 - b]) for i, p in pts)
+            bot = " ".join(xy(i, p[b]) for i, p in reversed(pts))
+            shapes.append('<polygon points="%s %s" fill="rgb(255,165,115)" '
+                          'fill-opacity="0.25" stroke="none"/>' % (top, bot))
+        median = " ".join(xy(i, p[nq // 2]) for i, p in pts)
+        shapes.append('<polyline points="%s" fill="none" '
+                      'stroke="rgb(226,115,70)" stroke-width="1.5"/>'
+                      % median)
+        panels.append('<g>%s<text x="12" y="%d" font-size="10">%s  '
+                      '[%.3g, %.3g]</text></g>'
+                      % ("".join(shapes), y0 + 12, subkey, lo, hi))
+        y0 += height
+    return ('<svg xmlns="http://www.w3.org/2000/svg" width="%d" height="%d" '
+            'style="background:#fafafa">%s</svg>'
+            % (width, y0, "".join(panels)))
+
+
 class EventBroker:
     """Fans each event out to the streamers, aggregates per epoch and keeps
     the history (eventprocessor.py's broker). Arrays of weight/* events are
@@ -175,9 +251,11 @@ class EventBroker:
     AGGREGATIONS = {"scalar/loss": "avg", "scalar/score": "avg",
                     "scalar/time": "sum"}
 
-    def __init__(self, directory=None, streamers=(), metadata=None):
+    def __init__(self, directory=None, streamers=(), metadata=None,
+                 sinks=()):
         self.directory = directory
         self.streamers = list(streamers)
+        self.sinks = list(sinks)
         self.metadata = metadata or MetadataKeeper()
         self.iter_keys = set()  # scalar keys logged with an iteration index
         self._epoch_acc = defaultdict(list)
@@ -209,10 +287,51 @@ class EventBroker:
             self._epoch_hists[key] = {
                 sk: v if (isinstance(v, tuple) and len(v) == 2)
                 else compute_histogram(v) for sk, v in data.items()}
+        elif dtype == "heatmap":
+            self._save_heatmap(epoch, key, value)
+        elif dtype == "blob":
+            if self.directory is not None:
+                self._save_blob(epoch, key, value)
         else:
-            # blobs and heatmaps: the GAN paths' sample images, not ported
             raise NotImplementedError("event dtype %r is not ported yet"
                                       % dtype)
+
+    @staticmethod
+    def _epoch_tag(epoch):
+        """'%02d' of a training epoch; a validate stage's `None` is 'val'."""
+        if isinstance(epoch, (int, np.integer)):
+            return "%02d" % epoch
+        return "val" if epoch is None else str(epoch)
+
+    def _save_blob(self, epoch, key, value):
+        from PIL import Image
+        base = os.path.join(self.directory, "epochs", "blobs",
+                            "%s_epoch_%s" % (key.replace("/", "_"),
+                                             self._epoch_tag(epoch)))
+        if isinstance(value, str):
+            with open(base + ".txt", "w") as f:
+                f.write(value)
+            return
+        arr = np.asarray(value)
+        if arr.dtype != np.uint8:
+            arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+        Image.fromarray(arr).save(base + ".jpg")
+
+    def _save_heatmap(self, epoch, key, value):
+        """2-D maps in [0, 1] as colormapped PNGs: Reds for a loss key,
+        coolwarm otherwise (eventprocessor.py:228-244)."""
+        if self.directory is None:
+            return
+        from PIL import Image
+        data = value if isinstance(value, dict) else {"": value}
+        for subkey, arr in data.items():
+            cmap = "reds" if ("loss" in key or "loss" in subkey) \
+                else "coolwarm"
+            name = "_".join(x for x in (key.replace("/", "_"),
+                                        subkey.replace("/", "_")) if x)
+            Image.fromarray(_colormap(arr, cmap)).save(os.path.join(
+                self.directory, "epochs", "blobs", "%s_epoch_%s.png"
+                % (name, self._epoch_tag(epoch))))
 
     def close_epoch(self, epoch):
         aggregated = {}
@@ -245,6 +364,10 @@ class EventBroker:
             with open(os.path.join(self.directory, "epochs", "events.json"),
                       "w") as f:
                 json.dump(self.history, f, indent=1)
+        for sink in self.sinks:
+            sink.close_epoch(epoch, history=self.history,
+                             metadata=self.metadata,
+                             histograms=self.histograms)
         return aggregated
 
     def state_dict(self):
@@ -272,8 +395,10 @@ class EventBroker:
 
 def initialize_processor(params, directory=None, decisive_criterion=None):
     """An EventBroker from a reference-style output config ({progress:
-    {print_each: ...}}). The HTML report and the TensorBoard writer are not
-    ported yet: with a directory, asking for one raises."""
+    {print_each: ...}, htmlreport: {}}). With a directory, `htmlreport`
+    adds the HTML report sink; the TensorBoard writer is not ported yet,
+    and asking for it there raises. Without a directory both are dropped,
+    as in the JAX package."""
     params = dict(params or {})
     broker_type = params.pop("type", "EventBroker")
     if broker_type != "EventBroker":
@@ -287,13 +412,17 @@ def initialize_processor(params, directory=None, decisive_criterion=None):
         # None stays None: the reference's "disabled" printer
         streamers.append(DebugPrinter(**{
             k: (int(v) if v is not None else None) for k, v in prog.items()}))
-    for name in ("htmlreport", "tensorboard"):
-        # without a directory the JAX package drops them too
-        if name in params and directory:
-            raise NotImplementedError("event processor %r is not ported yet"
-                                      % name)
-        params.pop(name, None)
+    sinks = []
+    if "htmlreport" in params and directory:
+        from gandtr_tpu_torch.learning.html_report import HtmlReport
+        sinks.append(HtmlReport(directory))
+    if "tensorboard" in params and directory:
+        raise NotImplementedError("event processor 'tensorboard' is not "
+                                  "ported yet")
+    params.pop("htmlreport", None)
+    params.pop("tensorboard", None)
     if params:  # unknown processors fail, as in the reference
         raise KeyError("Unsupported event processors: %s" % sorted(params))
     return EventBroker(directory=directory, streamers=streamers,
-                       metadata=MetadataKeeper(decisive_criterion))
+                       metadata=MetadataKeeper(decisive_criterion),
+                       sinks=sinks)

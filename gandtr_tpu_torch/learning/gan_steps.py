@@ -1,0 +1,161 @@
+"""The HED^N-GAN train step (counterpart of gandtr_tpu/learning/gan_steps.py;
+the reference's SupervisedHEDNGANEpoch, edges_epochs.py:61-121).
+
+One step on a batch (real_X day images, real_Y night images), in the
+reference's order:
+
+1. one generator forward, fake_Y = G(real_X), whose graph is kept for (4);
+2. the D step: D(real_Y) then D(fake_Y.detach()), each in train mode (its
+   BatchNorm moves the running statistics, real first), the mse against
+   the inverted targets (real -> 0, fake -> 1), averaged; one Adam step;
+3. the E step: the frozen teacher's pre-sigmoid map target_M of real_X,
+   without autograd; the student's pre-sigmoid maps of real_X and of
+   fake_Y.detach(), each L1 against target_M; one Adam step. The student
+   starts equal to the teacher, so at the first step real_M == target_M
+   bit for bit and the real branch takes no gradient (L1's tie);
+4. the G step through the updated D (train mode: a third move of its
+   statistics) and the updated student: the mse of D(fake_Y) against the
+   "real" target and the L1 of the student's edge map of fake_Y against
+   real_E = sigmoid(target_M), backpropagated through the kept graph of
+   (1); one Adam step. D and the student take no parameter gradient here.
+
+The step returns (state, metrics, debug): the metrics `total` (G + D
+losses), `D_real`, `D_fake`, `G_gan`, `G_hed`, `E_real`, `E_fake` as 0-dim
+tensors on the device, and the last sample of the batch's images and edge
+maps for the event blobs. Nothing is read back to the host.
+
+The JAX package's opt-in knobs `concat_student` and
+`cache_teacher_targets`, and the other families (CycleGAN, CUT, HED-GAN),
+are ROADMAP A.5.
+"""
+import contextlib
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+
+from gandtr_tpu_torch.learning.supervised import _to_cpu
+from gandtr_tpu_torch.ops import losses as L
+
+
+@dataclass
+class GanState:
+    models: Dict[str, Any]       # {name: WrappedNet}
+    optimizers: Dict[str, Any]   # {name: torch optimizer}
+    step: int = 0
+
+    def state_dict(self):
+        """What a resume needs besides the networks' weights and
+        statistics: every optimizer's state (Adam's moments and step
+        counts, on the host) and the step count."""
+        return {"optimizers": {name: _to_cpu(opt.state_dict())
+                               for name, opt in self.optimizers.items()},
+                "step": int(self.step)}
+
+    def load_state_dict(self, state):
+        for name, opt in self.optimizers.items():
+            opt.load_state_dict(state["optimizers"][name])
+        self.step = int(state["step"])
+
+
+def make_gan_state(models, optimizers):
+    return GanState(models=dict(models), optimizers=dict(optimizers))
+
+
+@contextlib.contextmanager
+def _no_param_grads(*nets):
+    """The nets' parameters take no gradient inside the block."""
+    params = [p for net in nets for p in net.module.parameters()
+              if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def _adversarial(pred, is_real):
+    return L.discriminator_loss(pred, is_real, L.mse_loss)[0]
+
+
+def build_hedngan_step(models, optimizers, weights):
+    """step(state, real_X, real_Y) -> (state, metrics, debug) for `models`
+    {generator_X, discriminator_Y, detector, detector_frozen} (WrappedNets)
+    and an optimizer for each of the first three. `weights` are the
+    criterion's {adversarial, edge, hed} (1, 5, 1 as published)."""
+    w_adv = float(weights.get("adversarial", 1.0))
+    w_edge = float(weights.get("edge", 5.0))
+    w_hed = float(weights.get("hed", 1.0))
+    G, D = models["generator_X"], models["discriminator_Y"]
+    H_s, H_t = models["detector"], models["detector_frozen"]
+    opt_g, opt_d = optimizers["generator_X"], optimizers["discriminator_Y"]
+    opt_e = optimizers["detector"]
+
+    def step(state, real_X, real_Y):
+        # (1) the one generator forward
+        fake_Y = G.apply(real_X, train=True)
+        fake_sg = fake_Y.detach()
+
+        # (2) D step
+        opt_d.zero_grad(set_to_none=True)
+        d_real = w_adv * _adversarial(D.apply(real_Y, train=True), True)
+        d_fake = w_adv * _adversarial(D.apply(fake_sg, train=True), False)
+        d_loss = (d_real + d_fake) * 0.5
+        d_loss.backward()
+        opt_d.step()
+
+        # (3) E step: the student distilled on the frozen teacher
+        with torch.no_grad():
+            target_M = H_t.apply(real_X, train=False, no_sigmoid=True)
+        opt_e.zero_grad(set_to_none=True)
+        real_M = H_s.apply(real_X, train=False, no_sigmoid=True)
+        fake_M = H_s.apply(fake_sg, train=False, no_sigmoid=True)
+        e_real = w_hed * L.l1_loss(real_M, target_M)
+        e_fake = w_hed * L.l1_loss(fake_M, target_M)
+        (e_real + e_fake).backward()
+        opt_e.step()
+
+        # (4) G step through the updated D and student
+        real_E = torch.sigmoid(target_M)
+        opt_g.zero_grad(set_to_none=True)
+        with _no_param_grads(D, H_s):
+            g_gan = w_adv * _adversarial(D.apply(fake_Y, train=True), True)
+            fake_E = H_s.apply(fake_Y, train=False)
+            g_hed = w_edge * L.l1_loss(fake_E, real_E)
+            g_loss = g_gan + g_hed
+            g_loss.backward()
+        opt_g.step()
+
+        with torch.no_grad():
+            # the updated student on the last real image: its drift from
+            # the teacher, for the blobs
+            real_E_check = H_s.apply(real_X[-1:], train=False)[0]
+        state.step += 1
+        metrics = {"total": (g_loss + d_loss).detach(),
+                   "D_real": d_real.detach(), "D_fake": d_fake.detach(),
+                   "G_gan": g_gan.detach(), "G_hed": g_hed.detach(),
+                   "E_real": e_real.detach(), "E_fake": e_fake.detach()}
+        debug = {"real_X": real_X[-1], "real_Y": real_Y[-1],
+                 "fake_Y": fake_sg[-1], "real_E": real_E[-1],
+                 "fake_E": fake_E.detach()[-1],
+                 "real_E_check": real_E_check}
+        return state, metrics, debug
+
+    return step
+
+
+def _not_ported(family):
+    def build(*args, **kwargs):
+        raise NotImplementedError(
+            "the %s train step is not ported yet (ROADMAP A.5)" % family)
+    return build
+
+
+GAN_STEPS = {
+    "hedngan": build_hedngan_step,
+    "hedgan": _not_ported("HED-GAN"),
+    "cut": _not_ported("CUT"),
+    "cyclegan": _not_ported("CycleGAN"),
+}

@@ -15,6 +15,10 @@ settings. Unlike the JAX container, the weights live in the `nn.Module`.
 
 Buffers (BatchNorm's running statistics) stay float32 in both, as in the
 JAX package, and a float input is cast likewise.
+
+`build_network_set` is the NetworkSet of the GAN configs (network.py:
+167-253): named WrappedNets, each with its `runtime.frozen`, and the
+`initialize` spec of each.
 """
 import copy
 from dataclasses import dataclass, field
@@ -84,7 +88,7 @@ class WrappedNet:
         return module
 
     def apply(self, x, ctx=None, train=False, model_positions=None,
-              mask=None, host_hw=None):
+              mask=None, host_hw=None, **kwargs):
         """The forward inside the train or eval wrapper chain. x: (N, H, W,
         3) (or a (T, S, H, W, 3) tuple batch for `cirfaketuplebatch`).
 
@@ -97,7 +101,8 @@ class WrappedNet:
         `host_hw`, the rows' (h, w) on the host where the caller padded
         them, is what a multiscale wrapper resizes each row by (it is
         required there with a mask). Under a multiscale wrapper each scale
-        runs the module with its own mask."""
+        runs the module with its own mask. Other keyword arguments go to
+        the module's forward (HED's `no_sigmoid`)."""
         wrappers = self.wrappers_train if train else self.wrappers_eval
         if model_positions is not None and len(model_positions) == 0 and \
                 any(isinstance(w, CirMultiscaleAggregation) for w in wrappers):
@@ -115,8 +120,8 @@ class WrappedNet:
         through = [None]
 
         def run_module(xx, row_mask):
-            out = (forward_fn(xx) if row_mask is None
-                   else forward_fn(xx, mask=row_mask))
+            out = (forward_fn(xx, **kwargs) if row_mask is None
+                   else forward_fn(xx, mask=row_mask, **kwargs))
             if row_mask is not None and isinstance(out, tuple):
                 out, through[0] = out
             return out
@@ -180,3 +185,32 @@ def build_single_net(config, device="cpu"):
                       meta=dict(getattr(module, "meta", {}) or {}),
                       data_params=runtime.get("data", {}) or {},
                       compute_dtype=dtype)
+
+
+def build_network_set(config, device="cpu"):
+    """({name: WrappedNet}, {name: initialize spec}) from a NetworkSet
+    config ({type: NetworkSet, <name>: SingleNetwork config, ...}); each
+    module on `device` with its own initial weights (the caller seeds or
+    loads them). A member set to null is left out."""
+    config = dict(config)
+    if config.pop("type", "NetworkSet") != "NetworkSet":
+        raise ValueError("not a NetworkSet config")
+    nets, init_specs = {}, {}
+    for name, sub in config.items():
+        if sub is None:
+            continue
+        sub = dict(sub)
+        kind = sub.pop("type", "SingleNetwork")
+        if kind != "SingleNetwork":
+            raise NotImplementedError("NetworkSet member %s of type %s is "
+                                      "not ported yet" % (name, kind))
+        if sub.get("path"):
+            raise NotImplementedError(
+                "NetworkSet member %s: a `path` member (warm start from a "
+                "checkpoint) is not ported yet" % name)
+        sub.pop("path", None)
+        spec = sub.pop("initialize", None)
+        nets[name] = build_single_net(sub, device=device)
+        if spec:
+            init_specs[name] = dict(spec)
+    return nets, init_specs

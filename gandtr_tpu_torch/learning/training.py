@@ -2,16 +2,22 @@
 the reference's EpochTraining and TrainValLearning).
 
 Each epoch: reseed (seed + the zero-based epoch, as the reference does),
-set the epoch's learning rate, prepare the dataset (tuple mining), run the
-step over the loader, log the weights' norms and histograms, close the
-epoch's events, write the checkpoints, and hand the state to `state_hook`.
-`resume_or_start` continues from the newest training file.
+set the epoch's learning rate of each optimizer, prepare the dataset
+(tuple mining, or the GAN's domain pairs), run the step over the loader,
+log the weights' norms and histograms and, on the first and every fifth
+epoch, the last batch's sample images, run the validations, close the
+epoch's events, write the checkpoints, and hand the state to
+`state_hook`. `resume_or_start` continues from the newest training file.
 
 The step runs on the device without a synchronisation; the loop reads the
 metrics back once per `chunk` steps (each step when `chunk` is 0 or 1).
 The JAX package's `dispatch_chunk` compiles K steps into one scan; here
 the K steps are the same K calls in the same order, and the chunk only
 sets how far the loader prefetches and how often the host waits.
+
+`VisualValidation` (the GAN configs' visual criterion, inside a
+`MultiCriterialValidation`) runs the generator in eval mode over fixed
+validation images and logs its outputs as blobs.
 """
 import numpy as np
 import torch
@@ -34,13 +40,19 @@ class EpochLoop:
         self.chunk = int(chunk or 0)
 
     def run_epoch(self, state, epoch):
+        """Run the epoch; a step that returns (state, metrics, debug) leaves
+        its last debug dict in `last_debug`."""
         logger = (self.events.logger(self.prefix, epoch, len(self.loader))
                   if self.events else (lambda *a, **k: None))
         if hasattr(self.loader.dataset, "prepare_epoch"):
             self.loader.dataset.prepare_epoch()
         pending, it = [], 0
+        self.last_debug = None
         for batch in self.loader:
-            state, metrics = self.step_fn(state, *self.batch_to_args(batch))
+            out = self.step_fn(state, *self.batch_to_args(batch))
+            state, metrics = out[:2]
+            if len(out) == 3:
+                self.last_debug = out[2]
             pending.append(metrics)
             if len(pending) >= self.chunk:
                 it = self._log(pending, it, logger)
@@ -64,16 +76,25 @@ class EpochLoop:
 
 
 class Training:
-    """Epochs with the learning-rate schedule, events, checkpoints and
-    resume. `state` is a FinetuneState (learning/supervised.py): its
-    `models` are written as the reference's network files, with
-    `net_params[name]` as each file's `network_params`."""
+    """Epochs with the learning-rate schedules, events, validations,
+    checkpoints and resume. `state` is a FinetuneState (one `optimizer`,
+    learning/supervised.py) or a GanState (`optimizers` by network,
+    learning/gan_steps.py): its `models` are written as the reference's
+    network files, with `net_params[name]` as each file's
+    `network_params`. `rng_states` ({name: numpy RandomState}) are saved
+    with each training file and restored on resume (the GAN loader's
+    shuffle), so a resumed epoch draws what the straight run drew."""
+
+    #: the reference's supervised_epoch.py:13: sample images of the last
+    #: batch on the first epoch and every fifth
+    LOG_TRAINDATA_SAMPLE_EVERY = 5
 
     def __init__(self, *, step_fn, loader, epochs, seed=0,
                  optimizers_base_lr=None, schedules=None, events=None,
                  checkpoints=None, frozen=(), batch_to_args=None,
                  state_hook=None, config_snapshot=None, chunk=0,
-                 net_params=None):
+                 net_params=None, validations=(), mean_std=None,
+                 rng_states=None):
         self.loop = EpochLoop(step_fn, loader, events,
                               batch_to_args=batch_to_args, chunk=chunk)
         self.epochs = epochs
@@ -88,11 +109,22 @@ class Training:
         # another one is refused (the reference's learning.py)
         self.config_snapshot = config_snapshot
         self.net_params = net_params or {}
+        self.validations = list(validations)
+        self.mean_std = mean_std or ([0.5] * 3, [0.5] * 3)
+        self.rng_states = dict(rng_states or {})
 
     def _apply_schedules(self, state, epoch):
         """This epoch's learning rate: base_lr x each group's multiplier x
-        the schedule's factor for the zero-based epoch."""
-        if self.schedules:
+        the schedule's factor for the zero-based epoch, for each
+        optimizer with a schedule."""
+        optimizers = getattr(state, "optimizers", None)
+        if optimizers is not None:
+            for name, sched in self.schedules.items():
+                if name in optimizers:
+                    set_learning_rate(optimizers[name],
+                                      self.base_lr.get(name, 1.0),
+                                      sched(epoch - 1))
+        elif self.schedules:
             ((name, sched),) = list(self.schedules.items())[:1]
             set_learning_rate(state.optimizer, self.base_lr.get(name, 1.0),
                               sched(epoch - 1))
@@ -112,10 +144,18 @@ class Training:
             np.random.seed(self.seed + epoch - 1)
             self._apply_schedules(state, epoch)
             state = self.loop.run_epoch(state, epoch)
+            debug = getattr(self.loop, "last_debug", None)
+
+            if self.events:
+                self._log_weight_norms(state, epoch)
+                if debug and (epoch == 1 or epoch
+                              % self.LOG_TRAINDATA_SAMPLE_EVERY == 0):
+                    self._log_traindata_sample(debug, epoch)
+            for val in self.validations:
+                val(state, epoch, self.events)
 
             is_best = True
             if self.events:
-                self._log_weight_norms(state, epoch)
                 self.events.close_epoch(epoch)
                 is_best = self.events.metadata.is_last_best()
 
@@ -132,7 +172,9 @@ class Training:
                                    else None),
                         # Adam's moments and the step: the weights alone
                         # are not a faithful resume
-                        "aux": state.state_dict()},
+                        "aux": state.state_dict(),
+                        "rngs": {k: _rng_state(rs) for k, rs in
+                                 self.rng_states.items()}},
                     frozen=self.frozen, is_best=is_best,
                     is_last=(epoch == self.epochs))
             if self.state_hook:
@@ -151,6 +193,34 @@ class Training:
                    "scalar/score")
             logger(f"{name}/params", {k: p.float().cpu().numpy()
                                       for k, p in params}, "weight/param")
+
+    def _log_traindata_sample(self, debug, epoch):
+        """The last batch's sample images as blobs (supervised_epoch.py:
+        116-156): `data/<label>/image0.rgb` for the first three channels
+        of a 3-channel image, denormalized, and `data/<label>/image0.chan1`
+        for a 1-channel map, taken raw; maps under 20 pixels are
+        skipped."""
+        logger = self.events.logger("data", epoch)
+        mean = np.asarray(self.mean_std[0], np.float32)
+        std = np.asarray(self.mean_std[1], np.float32)
+        for label, img in debug.items():
+            img = img.detach().float().cpu().numpy()
+            if img.ndim == 4:
+                img = img[0]
+            if img.ndim != 3 or min(img.shape[:2]) < 20:
+                continue
+            c = img.shape[-1]
+            if c != 1 and c != len(mean):
+                continue
+            m, s = mean, std
+            if c == 1 and len(mean) > 1:
+                m, s = np.zeros(1, np.float32), np.ones(1, np.float32)
+            if c >= 3:
+                logger("%s/image0.rgb" % label,
+                       np.clip(img[..., :3] * s[:3] + m[:3], 0, 1), "blob")
+            for k in range(3 if c >= 3 else 0, c):
+                logger("%s/image0.chan%d" % (label, k + 1),
+                       np.clip(img[..., k] * s[k] + m[k], 0, 1), "blob")
 
     def resume_or_start(self, state):
         """Resume from the newest training file: the networks' weights,
@@ -174,9 +244,22 @@ class Training:
                 strict=True)
         if train_meta and train_meta.get("aux"):
             state.load_state_dict(train_meta["aux"])
+        for name, saved in ((train_meta or {}).get("rngs") or {}).items():
+            if name in self.rng_states:
+                kind, keys, pos, has_gauss, cached = saved
+                self.rng_states[name].set_state(
+                    (kind, np.asarray(keys, np.uint32), pos, has_gauss,
+                     cached))
         if self.events and train_meta and train_meta.get("events"):
             self.events.load_state_dict(train_meta["events"])
         return state, epoch + 1
+
+
+def _rng_state(rs):
+    """A RandomState's state in plain types (the training file is read
+    back with torch's weights-only loader)."""
+    kind, keys, pos, has_gauss, cached = rs.get_state()
+    return [kind, keys.tolist(), int(pos), int(has_gauss), float(cached)]
 
 
 def should_validate(frequency, epoch):
@@ -184,3 +267,64 @@ def should_validate(frequency, epoch):
     stage outside training) always validates, a falsy frequency never
     does during training, else every `frequency`-th epoch."""
     return epoch is None or (bool(frequency) and epoch % int(frequency) == 0)
+
+
+class VisualValidation:
+    """The generator over fixed validation images, its outputs logged as
+    blobs `val/visual/<image stem>` (the reference's optim/score/visual.py
+    :12-91) every `frequency` epochs; the generator is the state's
+    `net_name` network. `images` is a list of normalized (H,
+    W, C) tensors, run one at a time (the aspect-keeping downscale gives
+    them different shapes); the generator runs in eval mode, without
+    autograd, and is put back in its mode after."""
+
+    def __init__(self, images, mean_std=((0.5,) * 3, (0.5,) * 3),
+                 net_name="generator_X", key="val/visual", frequency=1,
+                 names=None):
+        self.images = list(images)
+        self.mean = np.asarray(mean_std[0], np.float32)
+        self.std = np.asarray(mean_std[1], np.float32)
+        self.net_name = net_name
+        self.key = key
+        self.frequency = frequency
+        self.names = ([n.rsplit("/", 1)[-1].rsplit(".", 1)[0] for n in names]
+                      if names else None)
+
+    def __call__(self, state, epoch, events):
+        if events is None or not should_validate(self.frequency, epoch):
+            return
+        module = state.models[self.net_name].module
+        mode = module.training
+        module.eval()
+        try:
+            dev = next(module.parameters()).device
+            with torch.no_grad():
+                outs = [module(img[None].to(dev))[0].float().cpu().numpy()
+                        for img in self.images]
+        finally:
+            module.train(mode)
+        logger = events.logger("", epoch)
+        for i, img in enumerate(outs):
+            c = img.shape[-1]
+            m, s = self.mean, self.std
+            if c == 1 and len(m) > 1:
+                m, s = np.zeros(1, np.float32), np.ones(1, np.float32)
+            rgb = np.clip(img * s[:c] + m[:c], 0, 1)
+            if rgb.shape[-1] == 1:
+                rgb = rgb[..., 0]
+            label = self.names[i] if self.names and i < len(self.names) \
+                else str(i)
+            logger("%s/%s" % (self.key, label), rgb, "blob")
+
+
+class MultiCriterialValidation:
+    """Named child validations run in turn (validation.py:121-156); the
+    decisive criterion goes to the events' MetadataKeeper."""
+
+    def __init__(self, children, decisive_criterion=None):
+        self.children = dict(children)
+        self.decisive_criterion = decisive_criterion
+
+    def __call__(self, state, epoch, events):
+        for child in self.children.values():
+            child(state, epoch, events)

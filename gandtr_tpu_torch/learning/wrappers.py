@@ -3,9 +3,10 @@ wrapper is a pair `pre(x, ctx) -> (x, meta)` / `post(y, ctx, meta) -> y`
 composed around a model forward. NHWC batches in, (N, D) descriptors out.
 
 Ported so far: the eval chain of the descriptor nets (`cirmultiscale`,
-`cirwhiten`) and the fine-tune chain of the augment net (`meanstd_post`,
-`clahepost`, `cir_ratio_pass_through`, `cirfaketuplebatch`), in both forms
-configs write them in: the string DSL and the sorted dict. The md5-name
+`cirwhiten`), the fine-tune chain of the augment net (`meanstd_post`,
+`clahepost`, `cir_ratio_pass_through`, `cirfaketuplebatch`) and the HED
+detectors' input chain of HED^N-GAN (`rgb2bgr_pre`, `meanstd_pre`), in both
+forms configs write them in: the string DSL and the sorted dict. The md5-name
 augmentation gate is decided on the host per image name and reaches the
 batch as a boolean `ctx["pass_mask"]` tensor; the selection is a
 `torch.where`.
@@ -196,13 +197,36 @@ class MeanStdPost(Wrapper):
                 "Some std element is zero, leading to zero division.")
         self.im = [_as_chan(v) for v in im]
         self.om = [_as_chan(v) for v in om]
+        self._on = None   # (device, the four tensors there)
 
     def _adapt(self, x):
-        x = x * self.im[1].to(x.device) + self.im[0].to(x.device)
-        return (x - self.om[0].to(x.device)) / self.om[1].to(x.device)
+        # the statistics are copied to the device once: a copy from host
+        # memory each call would wait for the stream
+        if self._on is None or self._on[0] != x.device:
+            self._on = (x.device, [v.to(x.device) for v in self.im + self.om])
+        im0, im1, om0, om1 = self._on[1]
+        return (x * im1 + im0 - om0) / om1
 
     def post(self, y, ctx, meta):
         return self._adapt(y)
+
+
+class MeanStdPre(MeanStdPost):
+    """The same adaptation before the model (wrapper.py:193-204): the HED
+    detectors' input from the generator's normalization to HED's."""
+
+    def pre(self, x, ctx):
+        return self._adapt(x), None
+
+    def post(self, y, ctx, meta):
+        return y
+
+
+class RgbToBgrPre(Wrapper):
+    """RGB -> BGR channel flip before the model (wrapper.py:351-364)."""
+
+    def pre(self, x, ctx):
+        return x.flip(-1), None
 
 
 class ClahePost(Wrapper):
@@ -236,6 +260,8 @@ WRAPPERS_LABELS = {
     "cirfaketuplebatch": CirFakeTupleBatch,
     "cir_ratio_pass_through": CirRatioPassThrough,
     "meanstd_post": MeanStdPost,
+    "meanstd_pre": MeanStdPre,
+    "rgb2bgr_pre": RgbToBgrPre,
     "cirmultiscale": CirMultiscaleAggregation,
     "cirwhiten": CirtorchWhiten,
     "clahepost": ClahePost,

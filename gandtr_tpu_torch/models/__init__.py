@@ -1,7 +1,12 @@
 """Model registry (counterpart of gandtr_tpu/models/__init__.py). Ported so
-far: the descriptor net `cirnet` (GeM VGG16 and ResNet) and the ResNet
-generator `official_resnet_generator`."""
+far: the descriptor net `cirnet` (GeM VGG16 and ResNet), the ResNet
+generator `official_resnet_generator`, the PatchGAN discriminators
+`official_p2p_discriminator` and `official_patch_discriminator`, and the
+HED edge detector `hed_interpolation`."""
+from gandtr_tpu_torch.models.discriminators import (NLayerDiscriminator,
+                                                    PatchDiscriminator)
 from gandtr_tpu_torch.models.generators import ResnetGenerator
+from gandtr_tpu_torch.models.hed import HedInterpolation
 from gandtr_tpu_torch.models.retrieval import GemRetrievalNet
 
 
@@ -25,9 +30,24 @@ def _resnet_generator(**kw):
     return ResnetGenerator(**kw)
 
 
+def _discriminator(**kw):
+    kw.setdefault("norm_type", kw.pop("norm_layer", "batch"))
+    kw.pop("track_running_stats", None)
+    return NLayerDiscriminator(**kw)
+
+
+def _patch_discriminator(**kw):
+    kw.setdefault("norm_type", kw.pop("norm_layer", "batch"))
+    return PatchDiscriminator(**kw)
+
+
 MODEL_LABELS = {
     "cirnet": _cirnet,
     "official_resnet_generator": _resnet_generator,
+    "official_p2p_discriminator": _discriminator,
+    "official_patch_discriminator": _patch_discriminator,
+    "hed_interpolation": lambda **kw: HedInterpolation(
+        width_mult=float(kw.get("width_mult", 1.0))),
 }
 
 

@@ -8,7 +8,9 @@ loads with `load_state_dict(strict=True)`. Activations stay channels-last
 
 An eligible residual block (ops/resblock.py::eligible: inference, bf16,
 reflect padding, instance norm, bias) runs as one fused op, K3 on the card;
-any other runs its layers one by one.
+any other runs its layers one by one. In `.train()` with batch norm (the
+HED^N-GAN generator) every block runs layer by layer in float32, each
+BatchNorm on its batch's statistics, and autograd records the forward.
 
 Masked mode (`forward(x, mask=...)`, the padded-bucket form of
 gandtr_tpu/models/generators.py:145-286): each image is the valid top-left

@@ -29,11 +29,24 @@ def tensor_key(t):
     return t.data_ptr(), (-1 if t.is_inference() else t._version)
 
 
+def _reflect_cat(x, pad, dim):
+    """Reflect-pad one axis by concatenating flipped slices."""
+    n = x.shape[dim]
+    return torch.cat([x.narrow(dim, 1, pad).flip(dim), x,
+                      x.narrow(dim, n - 1 - pad, pad).flip(dim)], dim)
+
+
 def pad2d(x, pad, mode="zero"):
     """Pad both spatial dims of an NHWC tensor by `pad` on each side.
-    Returns an NHWC-contiguous tensor."""
+    Returns an NHWC-contiguous tensor.
+
+    A reflect pad is built from flipped slices: its backward then sums a
+    border pixel's two gradients in a fixed order, where the CUDA backward
+    of `F.pad(mode="reflect")` adds them with atomics, in any order."""
     if mode not in _PAD_MODES:
         raise NotImplementedError("pad mode %s" % mode)
+    if _PAD_MODES[mode] == "reflect":
+        return _reflect_cat(_reflect_cat(x, pad, 1), pad, 2)
     y = F.pad(x.permute(0, 3, 1, 2), (pad,) * 4, mode=_PAD_MODES[mode])
     return y.permute(0, 2, 3, 1).contiguous()
 
@@ -118,14 +131,25 @@ class FrozenBatchNorm(nn.BatchNorm2d):
 
 
 class BatchNorm(FrozenBatchNorm):
-    """The generators' BatchNorm2d, in its frozen eval form only. The
-    training form comes with GAN training."""
+    """The GAN nets' BatchNorm2d (gandtr_tpu/models/layers.py::BatchNorm).
+
+    In `.eval()` it normalizes by its running statistics. In `.train()` it
+    normalizes by the batch's mean and biased variance over (N, H, W) and
+    moves the running statistics by momentum 0.1 towards the batch mean
+    and the unbiased variance, in float32 for a bf16 or float32 input (a
+    float64 one, a reference, stays float64), and counts the batch in
+    `num_batches_tracked`, as torch's BatchNorm2d does."""
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm runs in eval mode only (call .eval())")
-        return super().forward(x)
+        if not self.training:
+            return super().forward(x)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
+                         self.running_var, self.weight, self.bias,
+                         training=True, momentum=self.momentum, eps=self.eps)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+        return y.permute(0, 2, 3, 1)
 
 
 def make_norm(norm_type):

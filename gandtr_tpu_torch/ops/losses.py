@@ -1,5 +1,7 @@
-"""Metric-learning losses (counterpart of gandtr_tpu/ops/losses.py) over
-(D, N) descriptor columns, the reference's layout."""
+"""Losses (counterpart of gandtr_tpu/ops/losses.py): the contrastive loss
+over (D, N) descriptor columns, the reference's layout, and the GAN losses
+with the reference's inverted adversarial targets (real -> 0, fake -> 1,
+compound_losses.py:47-50)."""
 import torch
 
 
@@ -18,3 +20,34 @@ def contrastive_loss(x, label, num_tuples, margin=0.7, eps=1e-6):
     y = 0.5 * lbl * dist ** 2 \
         + 0.5 * (1 - lbl) * torch.clamp(margin - dist, min=0.0) ** 2
     return y.sum()
+
+
+def l1_loss(x, target):
+    """Mean absolute error. Its subgradient at a tie is 0, torch's: the
+    HED^N-GAN student starts equal to its teacher, so the first step's
+    differences are exactly 0 and must take no gradient (the JAX package
+    routes ties explicitly; `torch.abs` gives 0 there itself)."""
+    return torch.abs(x - target).mean()
+
+
+def mse_loss(x, target):
+    return ((x - target) ** 2).mean()
+
+
+def adversarial_target(like, is_target_real):
+    """The constant target map: 0.0 for "real", 1.0 for "fake"."""
+    return torch.full_like(like, float(not is_target_real))
+
+
+def discriminator_loss(output, is_target_real, criterion=mse_loss):
+    """(total, partial) of `criterion` against the constant target map; a
+    list of outputs (multiscale discriminators) sums, with each in
+    `partial` under layer<k>, the last output as layer0."""
+    if isinstance(output, (list, tuple)):
+        partial, total = {}, 0.0
+        for i, y in enumerate(output):
+            key = "layer%d" % (len(output) - 1 - i)
+            partial[key] = criterion(y, adversarial_target(y, is_target_real))
+            total = total + partial[key]
+        return total, partial
+    return criterion(output, adversarial_target(output, is_target_real)), {}

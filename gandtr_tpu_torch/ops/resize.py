@@ -1,13 +1,57 @@
-"""Multiscale resize (counterpart of gandtr_tpu/ops/resize.py::scale_resize
-and ::masked_scale_resize).
+"""Bilinear resizes (counterpart of gandtr_tpu/ops/resize.py).
 
-The JAX package re-implements torch's `F.interpolate(scale_factor=s,
-mode="bilinear", align_corners=False)`; here it is that very op. The output
-size is int(H * s) x int(W * s), and coordinates map with 1/s.
+`scale_resize` and `masked_scale_resize`: the JAX package re-implements
+torch's `F.interpolate(scale_factor=s, mode="bilinear",
+align_corners=False)`; here it is that very op. The output size is
+int(H * s) x int(W * s), and coordinates map with 1/s.
+
+`bilinear_resize` to a given size (align_corners false, half-pixel
+centres, no antialias: the JAX package's `bilinear_resize`) is two matrix
+products with interpolation matrices made on the host from the JAX
+coordinates. Its backward is two matrix products too, so it sums in a
+fixed order on the card, where the CUDA backward of `F.interpolate` adds
+with atomics.
 """
+import numpy as np
+import torch
 import torch.nn.functional as F
 
 from gandtr_tpu_torch.ops.maskprop import MaskState
+
+
+_MATRICES = {}
+
+
+def _interp_matrix(out_n, in_n, device):
+    """(out_n, in_n) float32 matrix of the JAX package's `_source_coords`
+    (float32 source coordinates, clamped at both ends)."""
+    key = (out_n, in_n, str(device))
+    if key not in _MATRICES:
+        src = (np.arange(out_n, dtype=np.float32) + np.float32(0.5)) \
+            * np.float32(in_n / out_n) - np.float32(0.5)
+        src = np.clip(src, np.float32(0.0), None)
+        i0 = np.clip(np.floor(src).astype(np.int64), 0, in_n - 1)
+        i1 = np.clip(i0 + 1, 0, in_n - 1)
+        w1 = np.clip(src - i0.astype(np.float32), 0.0, 1.0).astype(np.float32)
+        m = np.zeros((out_n, in_n), np.float32)
+        rows = np.arange(out_n)
+        np.add.at(m, (rows, i0), np.float32(1.0) - w1)
+        np.add.at(m, (rows, i1), w1)
+        _MATRICES[key] = torch.from_numpy(m).to(device)
+    return _MATRICES[key]
+
+
+def bilinear_resize(x, out_h, out_w):
+    """x: (N, H, W, C) float -> (N, out_h, out_w, C), torch-bilinear
+    semantics; the identity where the size does not change."""
+    N, H, W, C = x.shape
+    if (H, W) == (out_h, out_w):
+        return x
+    ah = _interp_matrix(out_h, H, x.device).to(x.dtype)
+    aw = _interp_matrix(out_w, W, x.device).to(x.dtype)
+    y = torch.matmul(ah, x.permute(0, 3, 1, 2))       # (N, C, out_h, W)
+    y = torch.matmul(y, aw.T)                          # (N, C, out_h, out_w)
+    return y.permute(0, 2, 3, 1)
 
 
 def scale_resize(x, scale):

@@ -1,0 +1,241 @@
+"""Build the GAN training experiment of a train scenario (counterpart of
+gandtr_tpu/scenarios/build.py::build_gan_experiment; the reference's
+initialize_learning) for the HED^N-GAN family of
+parameters/train_hedngan.yml: the NetworkSet (generator_X,
+discriminator_Y, the student `detector` and its frozen teacher
+`detector_frozen`), an Adam per trained network with its lr schedule, the
+step, the RandomDomainsPair loader, events, checkpoints and the visual
+validation.
+
+    exp = build_gan_experiment(params, directory)        # on cuda
+    state, start = exp["training"].resume_or_start(exp["state"])
+    state = exp["training"].run(state, start_epoch=start)
+
+Weights: a member with `initialize: {weights, seed}` takes that scheme
+(models/init.py), any other seeded He-normal weights from
+`learning.training.seed` and its position; then a local `pretrained:`
+checkpoint loads strictly (a URL raises: the port downloads nothing), and
+`detector_frozen` starts as a copy of `detector`. The loader's shuffle
+state is saved with each training file, so a resumed run repeats the
+straight run bit for bit.
+
+`dispatch_chunk: K` is the loop's `chunk`: the same steps in the same
+order, the metrics read back once a chunk. Not ported (ROADMAP A.5, A.7):
+the CycleGAN, CUT and HED-GAN families, `concat_student`,
+`cache_teacher_targets`, `device_scalecrop`, `alternate_iteration` other
+than 1, path-form members, and data parallelism.
+"""
+import copy
+import os
+import warnings
+
+from gandtr_tpu_torch.data.datasets import (InferImageListDataset, Loader,
+                                            initialize_dataset_loader)
+from gandtr_tpu_torch.data.transforms import initialize_transforms
+from gandtr_tpu_torch.device import resolve_device, upload
+from gandtr_tpu_torch.hub import _init_random
+from gandtr_tpu_torch.learning import gan_steps
+from gandtr_tpu_torch.learning.checkpoints import Checkpoints
+from gandtr_tpu_torch.learning.criteria import check_criterion_losses
+from gandtr_tpu_torch.learning.events import initialize_processor
+from gandtr_tpu_torch.learning.network import build_network_set
+from gandtr_tpu_torch.learning.optimizers import initialize_optimizer
+from gandtr_tpu_torch.learning.schedules import initialize_schedule
+from gandtr_tpu_torch.learning.training import (MultiCriterialValidation,
+                                                Training, VisualValidation)
+from gandtr_tpu_torch.models.init import initialize_weights
+from gandtr_tpu_torch.utils.io import resolve_path
+from gandtr_tpu_torch.utils.weights import load_pretrained
+
+EPOCH_ITERATION_FAMILIES = {
+    "SupervisedCycleGanEpoch": "cyclegan",
+    "SupervisedCUTEpoch": "cut",
+    "SupervisedCutEpoch": "cut",
+    "SupervisedHEDGANEpoch": "hedgan",
+    "SupervisedHedGanEpoch": "hedgan",
+    "SupervisedHEDNGANEpoch": "hedngan",
+    "SupervisedHedNGanEpoch": "hedngan",
+}
+GAN_MEAN_STD = [[0.5, 0.5, 0.5], [0.5, 0.5, 0.5]]
+VISUAL_IMAGES = 4   # the first images of the validation directory
+
+
+def _refuse_opt_in(it_cfg, data_cfg, train_cfg, opt_cfg):
+    for knob in ("concat_student", "cache_teacher_targets"):
+        if it_cfg.get(knob):
+            raise NotImplementedError(
+                "epoch_iteration.%s is an opt-in knob of the JAX package that "
+                "is not ported yet (ROADMAP A.5)" % knob)
+    if (data_cfg.get("train") or {}).get("device_scalecrop"):
+        raise NotImplementedError("data.train.device_scalecrop is not ported "
+                                  "yet (ROADMAP A.5)")
+    composition = dict(opt_cfg.get("composition") or {})
+    if composition.get("alternate_iteration", 1) not in (None, 0, 1):
+        raise NotImplementedError(
+            "optimizer composition with alternate_iteration %r is not ported "
+            "yet (ROADMAP A.5)" % composition["alternate_iteration"])
+    par = train_cfg.get("parallel", True)
+    if isinstance(par, dict) and int(par.get("devices", 1) or 1) > 1:
+        raise NotImplementedError("data-parallel GAN training is not ported "
+                                  "yet (ROADMAP A.7)")
+
+
+def _init_nets(nets, init_specs, net_cfg, seed, device):
+    """Seed, load and place every member; the teacher copies the student."""
+    for i, (name, net) in enumerate(nets.items()):
+        spec = init_specs.get(name)
+        if spec:
+            initialize_weights(net.module, spec.get("weights", "normal_p2p"),
+                               spec.get("seed", 0))
+        else:
+            _init_random(net.module, seed + i)
+        load_pretrained(net.module,
+                        (net_cfg[name].get("model") or {}).get("pretrained"),
+                        "%s.model.pretrained" % name)
+    if "detector_frozen" in nets and "detector" in nets:
+        nets["detector_frozen"].module.load_state_dict(
+            nets["detector"].module.state_dict())
+    for net in nets.values():
+        net.module.to(device)
+        if net.frozen:
+            net.module.eval().requires_grad_(False)
+
+
+def _visual_validation(val_cfg):
+    """The validations of a `MultiCriterialValidation` tree whose children
+    are visual criteria (_gan_eval.yml); [] without a section. Only an
+    empty or absent image directory skips a visual criterion."""
+    if not isinstance(val_cfg, dict) or not val_cfg:
+        return []
+    children = {}
+    for name, child in val_cfg.items():
+        if name in ("type", "decisive_criterion", "__template__"):
+            continue
+        crit = dict((child or {}).get("criterion") or {})
+        if crit.get("type") != "visual":
+            raise NotImplementedError("validation %r of type %r is not "
+                                      "ported yet" % (name, crit.get("type")))
+        vdata = dict(crit.get("data") or {})
+        image_dir = resolve_path((vdata.get("dataset") or {})
+                                 .get("image_dir"))
+        names = (sorted(os.listdir(image_dir))[:VISUAL_IMAGES]
+                 if image_dir and os.path.isdir(image_dir) else [])
+        if not names:
+            warnings.warn("no validation images found in %r: the visual "
+                          "validation %r is skipped" % (image_dir, name))
+            continue
+        mean_std = vdata.get("mean_std", GAN_MEAN_STD)
+        dataset = InferImageListDataset(
+            [names], initialize_transforms(
+                vdata.get("transforms", "pil2np | totensor | normalize"),
+                mean_std), image_dir)
+        images = [imgs[0] for _, imgs in
+                  Loader(dataset, batch_size=1, num_workers=0)]
+        children[name] = VisualValidation(
+            images, mean_std=mean_std,
+            frequency=(child or {}).get("frequency", 1), names=names)
+    if not children:
+        return []
+    return [MultiCriterialValidation(children,
+                                     val_cfg.get("decisive_criterion"))]
+
+
+def build_gan_experiment(params, directory=None, device=None):
+    """params: the resolved train tree (network / learning / data /
+    output). `directory` holds the checkpoints and events (none without
+    it). Returns the JAX package's keys {"models", "variables",
+    "optimizers", "state", "step", "training", "loader", "events",
+    "checkpoints", "schedules", "base_lr", "family"}: `models` the
+    WrappedNets by name, `variables` their state dicts, `step(state,
+    real_X, real_Y)` on device tensors. Runs on cuda unless
+    `device="cpu"`."""
+    dev = resolve_device(device)
+    params = copy.deepcopy(params)
+    net_cfg = dict(params["network"])
+    learn_cfg = params["learning"]
+    train_cfg = dict(learn_cfg["training"])
+    data_cfg = params.get("data") or {}
+    config_snapshot = copy.deepcopy({"validation": learn_cfg.get("validation"),
+                                     "datasets": data_cfg})
+    it_cfg = dict(train_cfg.get("epoch_iteration") or {})
+    family = EPOCH_ITERATION_FAMILIES[it_cfg.get("type",
+                                                 "SupervisedHEDNGANEpoch")]
+    opt_cfg = dict(train_cfg.get("optimizer") or {})
+    _refuse_opt_in(it_cfg, data_cfg, train_cfg, opt_cfg)
+    crit = dict(train_cfg.get("criterion") or {})
+    check_criterion_losses(crit, family)
+    seed = int(train_cfg.get("seed", 0))
+
+    net_cfg.pop("type", None)
+    nets, init_specs = build_network_set({"type": "NetworkSet", **net_cfg})
+    _init_nets(nets, init_specs, net_cfg, seed, dev)
+
+    opt_cfg.pop("composition", None)
+    optimizers, base_lr = {}, {}
+    for name, cfg in opt_cfg.items():
+        if cfg is None:
+            continue
+        arch = ((net_cfg.get(name) or {}).get("model") or {}) \
+            .get("architecture", "")
+        optimizers[name], base_lr[name] = initialize_optimizer(
+            dict(cfg), nets[name].module.named_parameters(), arch)
+    epochs = int(train_cfg.get("epochs", 1))
+    sched_cfg = dict(train_cfg.get("scheduler") or {})
+    sched_cfg.pop("composition", None)
+    schedules = {name: initialize_schedule(epochs, dict(cfg))
+                 for name, cfg in sched_cfg.items() if cfg is not None}
+
+    state = gan_steps.make_gan_state(nets, optimizers)
+    step = gan_steps.GAN_STEPS[family](nets, optimizers,
+                                       dict(crit.get("weights") or {}))
+
+    loader = None
+    gen_data = nets["generator_X"].data_params or {}
+    if data_cfg.get("train"):
+        dp = copy.deepcopy(data_cfg["train"])
+        dp.setdefault("transforms", gen_data.get("transforms"))
+        dp.setdefault("mean_std", gen_data.get("mean_std"))
+        dp.pop("device_scalecrop", None)
+        loader = initialize_dataset_loader([], dp, {"shuffle": True})
+
+    out_cfg = (params.get("output") or {}).get("learning", {})
+    val_cfg = learn_cfg.get("validation") or {}
+    events = initialize_processor(
+        out_cfg, directory=directory,
+        decisive_criterion=val_cfg.get("decisive_criterion")
+        if isinstance(val_cfg, dict) else None)
+    ckpt_cfg = dict(learn_cfg.get("checkpoints") or {})
+    checkpoints = Checkpoints(
+        directory,
+        store_every=ckpt_cfg.get("store_every", 10) or 0,
+        checkpoint_every=ckpt_cfg.get("checkpoint_every", 2) or 0,
+        directory_epoch_regex=ckpt_cfg.get("directory_epoch_regex")) \
+        if directory else None
+    frozen = tuple(name for name, net in nets.items() if net.frozen)
+    validations = _visual_validation(val_cfg)
+
+    chunk = int(train_cfg.get("dispatch_chunk", 0) or 0)
+    training = None
+    if loader is not None:
+        if chunk > 1:
+            loader.prefetch = max(loader.prefetch, chunk + 2)
+        training = Training(
+            step_fn=step, loader=loader, epochs=epochs, seed=seed,
+            optimizers_base_lr=base_lr, schedules=schedules, events=events,
+            checkpoints=checkpoints, frozen=frozen, validations=validations,
+            batch_to_args=lambda b: (upload(b[0], dev), upload(b[1], dev)),
+            mean_std=(data_cfg.get("train") or {}).get(
+                "mean_std", gen_data.get("mean_std")),
+            config_snapshot=config_snapshot, chunk=chunk,
+            net_params={name: {"model": (net_cfg[name] or {}).get("model"),
+                               "runtime": (net_cfg[name] or {})
+                               .get("runtime")}
+                        for name in nets},
+            rng_states={"loader": loader.rng})
+
+    return {"models": nets,
+            "variables": {k: n.module.state_dict() for k, n in nets.items()},
+            "optimizers": optimizers, "state": state, "step": step,
+            "training": training, "loader": loader, "events": events,
+            "checkpoints": checkpoints, "schedules": schedules,
+            "base_lr": base_lr, "family": family}

@@ -33,10 +33,28 @@ wrapper level dropped:
 and each BatchNorm gets `num_batches_tracked` = 0, which torch's state has
 and JAX's has not, so the result loads with `strict=True`.
 
+Discriminators follow the same rule (`model_<i>` -> `model.<i>`, and
+`d/model_<i>` -> `d.model.<i>` in the patch discriminator). HED
+(models/hed.py) takes the JAX package's `hed_key_map`, kept here as its
+own copy:
+
+    vgg<b>_<c>/conv/kernel -> vgg<b>.<2c, or 2c + 1 after block 1's>.weight
+    score<b>/conv/kernel   -> score<b>.weight
+    fusion/conv/kernel     -> fusion.0.weight
+
+which are the names of the published `hed_sniklaus_github.pth` too.
+
 The fine-tune tree {"augment": variables, "embed": variables} (the JAX
 fine-tune state's `variables`) gives {"augment": state_dict, "embed":
-state_dict}, the generator's batch statistics and the GeM `p` included.
+state_dict}, the generator's batch statistics and the GeM `p` included;
+a GAN state's {"generator_X": ..., "detector": ..., ...} likewise.
+
+`load_pretrained` fills a module from a model config's `pretrained:`
+entry: a local checkpoint loads strictly (every parameter covered), null
+or false keeps the module's seeded weights, and a URL raises.
 """
+import re
+
 import numpy as np
 import torch
 
@@ -81,6 +99,27 @@ def _resnet_key(path):
     return None
 
 
+def hed_key_map(path):
+    """The JAX package's hed_key_map: vgg<b>_<c> -> vgg<b>.<index in the
+    torch Sequential> (block 1 is [conv relu conv relu], the others start
+    with a max-pool); score<b> is a conv; fusion a Sequential."""
+    p = path[0]
+    leaf = {"kernel": "weight", "bias": "bias"}.get(path[-1], path[-1])
+    if p.startswith("vgg"):
+        block, ci = p[3:].split("_")
+        return "vgg%s.%d.%s" % (block, int(ci) * 2 + (block != "1"), leaf)
+    if p.startswith("score"):
+        return "%s.%s" % (p, leaf)
+    if p == "fusion":
+        return "fusion.0.%s" % leaf
+    return None
+
+
+def _is_hed(params):
+    return "fusion" in params and any(re.match(r"vgg\d_\d+$", k)
+                                      for k in params)
+
+
 def _torch_key(path):
     key = _retrieval_key(path)
     if key is not None:
@@ -114,11 +153,35 @@ def from_jax_variables(variables):
     if "params" not in variables:
         return {name: from_jax_variables(v) for name, v in variables.items()}
     out = {}
+    name = hed_key_map if _is_hed(variables["params"]) else _torch_key
     for collection in ("params", "batch_stats"):
         for path, value in _walk(variables.get(collection, {})):
-            key = _torch_key(path)
+            key = name(path)
             out[key] = torch.from_numpy(np.array(_layout(path, value)))
             if key.endswith(".running_mean"):
                 out[key[:-len("running_mean")] + "num_batches_tracked"] = (
                     torch.tensor(0, dtype=torch.int64))
     return out
+
+
+def load_pretrained(module, pretrained, what="pretrained"):
+    """Load a model config's `pretrained:` entry into `module`: a local
+    checkpoint (a reference `.pth`, flat or {"net": ...}, or a plain state
+    dict) strictly, so every parameter is covered; null, false or true
+    (the JAX package's "no file") keep the weights. A URL raises: this
+    package downloads nothing."""
+    if not pretrained or pretrained is True:
+        return module
+    path = str(pretrained)
+    if "://" in path:
+        raise NotImplementedError(
+            "%s %r: only local files load (this package downloads nothing; "
+            "put the file in place and give its path)" % (what, path))
+    state = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(state, dict) and "net" in state:
+        state = state["net"]
+    if isinstance(state, dict) and "model_state" in state:
+        state = state["model_state"]
+    module.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()},
+                           strict=True)
+    return module

@@ -410,3 +410,120 @@ def test_r101_path_launches_k4_and_k1(cuda, tmp_path):
                                       None), None))
     assert kclahe.LAUNCHES - k1 == chip_smoke.EVAL_DB + chip_smoke.EVAL_Q
     assert rec[0][2].shape == (2048, chip_smoke.EVAL_DB)
+
+
+def _gan_micro(root, batch=2, size=4):
+    """chip_smoke's train_hedngan.yml at micro widths (ngf 8 with 2 blocks,
+    ndf 8, HED at width 0.25) on its seeded domain set, 64x64 crops."""
+    import chip_smoke
+    cfg = chip_smoke.gan_train_config(root, chip_smoke.make_domain_set(root))
+    net = cfg["network"]
+    net["generator_X"]["model"].update(ngf=8, n_blocks=2)
+    net["discriminator_Y"]["model"].update(ndf=8)
+    for k in ("detector", "detector_frozen"):
+        net[k]["model"]["width_mult"] = 0.25
+    cfg["data"]["train"]["transforms"] = \
+        "pil2np | scalecrop:64_64:0.8_1 | totensor | normalize"
+    cfg["data"]["train"]["loader"] = {"batch_size": batch}
+    cfg["data"]["train"]["dataset"]["size"] = size
+    return cfg
+
+
+def test_gan_step_on_card_matches_cpu(cuda, tmp_path):
+    """The HED^N-GAN step on the card against the port on the CPU from the
+    same seeded weights: the step-1 tie exact on both (E_real 0), the
+    losses within 1e-4 relative, fake_Y within 1e-5, BN statistics within
+    1e-5; D's and the student's gradients in the step, and the generator's
+    two G-step terms on the starting weights, each no further from a
+    float64 CPU reference than twice the CPU float32's distance or 1e-5 of
+    its norm (float32 rounding's level: at these widths either device
+    lands 1e-7 to 3e-6 away, and which is nearer is chance); no kernel of
+    the port launched. As a sanity check only, every updated parameter
+    within 2 lr (Adam's first step is lr times g/(|g| + eps), below lr for
+    any g)."""
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    import chip_smoke
+    cfg = _gan_micro(str(tmp_path))
+    rs = np.random.RandomState(0)
+    X, Y = (rs.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+            for _ in range(2))
+
+    def grads(dev, dtype):
+        exp = build_gan_experiment(cfg, device=dev)
+        if dtype == torch.float64:
+            for net in exp["models"].values():
+                net.module.double()
+        x = torch.from_numpy(X).to(dev, dtype)
+        y = torch.from_numpy(Y).to(dev, dtype)
+        terms = chip_smoke._g_grad_terms(exp, x)
+        got = chip_smoke._grab_grads(exp, chip_smoke.GAN_OPTIMIZED)
+        _, m, dbg = exp["step"](exp["state"], x, y)
+        flat = {"G_adv": terms[0].double(), "G_edge": terms[1].double(),
+                "D": chip_smoke._flat(got["discriminator_Y"]).double(),
+                "E": chip_smoke._flat(got["detector"]).double()}
+        return exp, m, dbg, flat
+
+    _, _, _, ref = grads("cpu", torch.float64)
+    out, vs64 = {}, {}
+    chip_smoke.reset_launches()
+    for dev in ("cpu", cuda):
+        exp, m, dbg, flat = grads(dev, torch.float32)
+        vs64[str(dev)] = {k: chip_smoke._rel(v, ref[k])
+                          for k, v in flat.items()}
+        out[str(dev)] = ({k: float(v) for k, v in m.items()},
+                         dbg["fake_Y"].cpu(),
+                         {name: {k: v.detach().cpu() for k, v in
+                                 net.module.state_dict().items()}
+                          for name, net in exp["models"].items()})
+    assert chip_smoke.launches() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    for k, v in vs64[str(cuda)].items():
+        assert v <= max(2 * vs64["cpu"][k], 1e-5), (k, vs64)
+    (cm, cf, cs), (gm, gf, gs) = out["cpu"], out[str(cuda)]
+    assert cm["E_real"] == gm["E_real"] == 0.0
+    for k, v in cm.items():
+        assert abs(gm[k] - v) <= 1e-4 * max(abs(v), 1e-6), k
+    assert float((gf - cf).abs().max()) <= 1e-5
+    lrs = {name: c["lr"] for name, c in
+           cfg["learning"]["training"]["optimizer"].items()}
+    for name in cs:
+        for k, v in cs[name].items():
+            d = float((gs[name][k].double() - v.double()).abs().max())
+            if k.endswith(("running_mean", "running_var")):
+                assert d <= 1e-5, (name, k, d)
+            elif name in lrs and not k.endswith("num_batches_tracked"):
+                # HED's groups scale its lr by up to 200
+                mult = 200 if name == "detector" else 1
+                assert d <= 2 * lrs[name] * mult * (1 + 1e-6), (name, k, d)
+            else:
+                assert d == 0, (name, k, d)
+
+
+def test_gan_loop_resume_on_card(cuda, tmp_path):
+    """Two epochs of two steps through the loop on the card, then a copy
+    of the directory as it was after epoch 1 resumed: epoch 2 ends bit for
+    bit equal (the fixed-order reflect pad and resize backward, cuDNN's
+    deterministic algorithms, the loader's saved shuffle)."""
+    import shutil
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    cfg = _gan_micro(str(tmp_path))
+    root = str(tmp_path / "exp")
+    exp = build_gan_experiment(cfg, directory=root)
+
+    def hook(state, epoch):
+        if epoch == 1:
+            shutil.copytree(root, root + "_1", symlinks=True)
+    exp["training"].state_hook = hook
+    state = exp["training"].run(exp["state"])
+    rexp = build_gan_experiment(cfg, directory=root + "_1")
+    rstate, start = rexp["training"].resume_or_start(rexp["state"])
+    assert start == 2
+    rstate = rexp["training"].run(rstate, start_epoch=start)
+    for name, net in state.models.items():
+        got = rstate.models[name].module.state_dict()
+        for k, v in net.module.state_dict().items():
+            assert torch.equal(v, got[k]), (name, k)
+    for name, opt in state.optimizers.items():
+        got = rstate.optimizers[name].state_dict()["state"]
+        for i, s in opt.state_dict()["state"].items():
+            for k, v in s.items():
+                assert torch.equal(v, got[i][k]), (name, i, k)

@@ -243,8 +243,10 @@ def test_dataset_factories_and_loader(tmp_path):
 def test_events_and_histograms_against_jax(tmp_path):
     """The event broker against the JAX one on the same events: history,
     metadata (best epoch under a loss criterion), histograms, the SVG
-    files, and a state_dict round trip; blobs and heatmaps (the GAN
-    paths' sample images) raise until they are ported."""
+    files, and a state_dict round trip; then blobs (an image, a gray map,
+    text) and heatmaps (the GAN paths' sample images) written as the same
+    files with the same bytes, and the HTML report (the `htmlreport`
+    processor) with the same document.""" 
     from gandtr_tpu.learning import events as jev
     from gandtr_tpu_torch.learning import events as pev
     rng = np.random.RandomState(2)
@@ -279,11 +281,36 @@ def test_events_and_histograms_against_jax(tmp_path):
     fresh = pev.initialize_processor({}, decisive_criterion=None)
     fresh.load_state_dict(pb.state_dict())
     assert fresh.state_dict() == pb.state_dict()
-    for dtype in ("blob", "heatmap"):
-        with pytest.raises(NotImplementedError, match=dtype):
-            pb.logger("", 4)("img", np.zeros((24, 24, 3)), dtype)
-    with pytest.raises(NotImplementedError, match="htmlreport"):
-        pev.initialize_processor({"htmlreport": {}}, directory=str(tmp_path))
+    img = rng.rand(24, 24, 3).astype(np.float32)
+    for b in brokers:
+        log = b.logger("", 4)
+        log("data/real_X/image0.rgb", img, "blob")
+        log("data/real_E/image0.chan1", img[..., 0], "blob")
+        log("data/labels", "[1, 2]", "blob")
+        log("val/loss_map", {"a": img[..., 1]}, "heatmap")
+        log("val/edges", img[..., 2], "heatmap")
+    for name in os.listdir(tmp_path / "j" / "epochs" / "blobs"):
+        assert (tmp_path / "p" / "epochs" / "blobs" / name).read_bytes() \
+            == (tmp_path / "j" / "epochs" / "blobs" / name).read_bytes(), name
+    assert _listing(tmp_path / "p") == _listing(tmp_path / "j")
+    reports, ws = [], rng.randn(2, 20)
+    for mod, sub in ((jev, "jr"), (pev, "pr")):
+        b = mod.initialize_processor({"htmlreport": {}},
+                                     directory=str(tmp_path / sub))
+        for epoch in (1, 2):
+            log = b.logger("train", epoch, 2)
+            for i in range(2):
+                log("loss", float(epoch + i), "scalar/loss", iteration=i)
+            log("w", {"a": ws[epoch - 1]}, "weight/param")
+            b.logger("", epoch)("val/visual/v0", img, "blob")
+            b.close_epoch(epoch)
+        reports.append((tmp_path / sub / "epochs" / "htmlreport" /
+                        "index.html").read_text())
+    assert reports[1] == reports[0] and "val_visual_v0_epoch_02.jpg" in \
+        reports[1]
+    with pytest.raises(NotImplementedError, match="tensorboard"):
+        pev.initialize_processor({"tensorboard": {}},
+                                 directory=str(tmp_path))
 
 
 def test_checkpoint_gc_and_adoption_against_jax(tmp_path):

@@ -23,7 +23,9 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "scenarios.infer_stage", "scenarios.validate_stage",
           "data.mining", "learning.events", "learning.checkpoints",
           "learning.training", "models.backbones", "ops.pooling",
-          "ops.whiten", "scenarios.multistep_stage")
+          "ops.whiten", "scenarios.multistep_stage", "models.discriminators",
+          "models.hed", "learning.gan_steps", "learning.html_report",
+          "scenarios.build", "scenarios.train_stage")
 
 torch.set_num_threads(1)
 
@@ -66,7 +68,8 @@ def test_no_source_file_names_jax():
                                    "hedngan", "finetune", "validate",
                                    "gem_resnet101_cyclegan",
                                    "gem_resnet101_hedngan", "infer",
-                                   "infer_and_learn_whitening"])
+                                   "infer_and_learn_whitening", "train",
+                                   "gan_build"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from gandtr_tpu_torch import hub
@@ -83,6 +86,12 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
             build_finetune_experiment({"network": {}, "learning": {}})
         elif entry == "validate":
             validate({"network": {}, "validation": {}}, None)
+        elif entry == "train":
+            from gandtr_tpu_torch.scenarios.train_stage import train
+            train({"network": {"type": "NetworkSet"}, "learning": {}}, ())
+        elif entry == "gan_build":
+            from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+            build_gan_experiment({"network": {}, "learning": {}})
         elif entry == "infer":
             from gandtr_tpu_torch.scenarios.infer_stage import infer
             infer({"network": {}, "output": {"type": "embedding"}}, ([],))
