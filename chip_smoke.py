@@ -139,7 +139,36 @@
    bare and in the loop, images/s, the card's busy share over epoch 2's
    steps (torch.profiler), CUDA-event spans of a step's parts, peak
    memory and the epoch split.
-12. Stage breakdowns of one batch of each served path, the `{"kernels":
+12. The scenario CLI (`run_scenario`), in a temp dir set as $GANDTR_ROOT
+   whose data/ tree is what the download checks expect (seeded photos:
+   SfM-120k's cid tree with the 180-photo tuple set, its database and
+   whitening pickles, day / night lists of 30 photos, the 4 VAL_IMS
+   photos; roxford5k, rparis6k and 247tokyo1k of 24 + 3 photos each):
+   (a) train/hedngan.yml's `all` target through
+   `gandtr_tpu_torch.scenarios.run.main` in this process at full width,
+   cut by the CLI's own key=value overrides (`all_target_overrides`: the
+   GAN as GAN_CUTS, the fine-tune as finetune_loop_config with the embed
+   in bf16 from a seeded local file, whitening's pickle local), every
+   launch count set to 0 just before it: generator_X_best.ckpt,
+   embed_best.ckpt (the augment loaded from the GAN's file),
+   lw-retrieval.pkl (512x512), finite E/M/H mAPs of the three sets and
+   the printed scores; K4 and K2 launched, K1 and K3 not, and every call
+   of K4 and K2 recorded and held against its plain version (K4 bit for
+   bit, K2 within 2e-2); each step's seconds, the GAN's ms a step and the
+   card's busy share over its epoch 2; (b) the `output` target in a process of its own with 8 photo
+   names on stdin, twice: one PNG a name, within one level of the trained
+   generator applied directly, and the second (append) run writes
+   nothing; (c) train/cyclegan.yml's `train` target at full width (ngf
+   64, 256x256 crops, batch 1), 2 epochs of 4 steps: no launch, epoch 2
+   resumed from a copy bit for bit (networks, moments, pools), one step
+   at 128x128 on the shipped normal_p2p weights, card vs CPU: losses
+   1e-3 relative, the fakes, reconstructions and four gradients within
+   twice the CPU float32's distance from a float64 CPU step (with
+   kaiming_p2p weights also the images within 1e-4); the trained
+   generator_X served through hub.cyclegan in bf16, K3 launched 9 times
+   and held on each block call's inputs against its plain version (mean
+   0.01; each element 0.06 or one bf16 step of the output).
+13. Stage breakdowns of one batch of each served path, the `{"kernels":
    [...]}` line (each kernel with its launches by path, K1 and K4 with
    their times at the eval's geometry and the r101 inputs), the card's
    line again, and last `{"ok": true, "device": {...}}`.
@@ -1426,18 +1455,26 @@ def r101_whitening_params(net_path, whiten_pkl, image_dir, directory):
     return params
 
 
-def make_tuple_set(root, seed=0):
+def cid_path(cid):
+    """The reference's cid tree: cid[-2:]/cid[-4:-2]/cid[-6:-4]/cid."""
+    return "/".join([cid[-2:], cid[-4:-2], cid[-6:-4], cid])
+
+
+def make_tuple_set(root, seed=0, cids=False):
     """A seeded retrieval-SfM-style tuple set under root: LOOP_CLUSTERS
     clusters of LOOP_PER JPEGs (a scene of its own: a hue and 3 plane waves,
     each photo at another offset, with noise), shapes cycling through
     LOOP_SHAPES; root/db.pkl in the reference's form {"train": {"ids",
     "cluster", "qidxs", "pidxs"}}, each cluster's first photo a query and
-    its second the positive. Returns the pkl's path."""
+    its second the positive. With `cids`, the photos are named by 32-digit
+    hex cids in the reference's cid tree under root/ims, and the database
+    is root/retrieval-SfM-120k.pkl {"train", "val"} in the cids form, as
+    SfM-120k ships. Returns the pkl's path."""
     import pickle
     from PIL import Image
     rng = np.random.RandomState(seed)
     ims = os.path.join(root, "ims")
-    os.makedirs(ims)
+    os.makedirs(ims, exist_ok=True)
     ids, cluster = [], []
     for c in range(LOOP_CLUSTERS):
         freq = rng.uniform(4, 30, (3, 2)) * rng.choice([-1, 1], (3, 2))
@@ -1455,16 +1492,21 @@ def make_tuple_set(root, seed=0):
                                     + phase[j])
             img += rng.rand(h, w, 3) * 0.15
             name = "c%02d_%d.jpg" % (c, k)
+            if cids:
+                name = "%032x" % (0x5f3759df * (1 + len(ids)) + seed)
+                os.makedirs(os.path.dirname(os.path.join(
+                    ims, cid_path(name))), exist_ok=True)
             Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
-                os.path.join(ims, name), quality=90)
+                os.path.join(ims, cid_path(name) if cids else name),
+                format="JPEG", quality=90)
             ids.append(name)
             cluster.append(c)
-    db = {"ids": ids, "cluster": cluster,
+    db = {"cids" if cids else "ids": ids, "cluster": cluster,
           "qidxs": [LOOP_PER * c for c in range(LOOP_CLUSTERS)],
           "pidxs": [LOOP_PER * c + 1 for c in range(LOOP_CLUSTERS)]}
-    path = os.path.join(root, "db.pkl")
+    path = os.path.join(root, "retrieval-SfM-120k.pkl" if cids else "db.pkl")
     with open(path, "wb") as f:
-        pickle.dump({"train": db}, f)
+        pickle.dump({"train": db, "val": db} if cids else {"train": db}, f)
     return path
 
 
@@ -1857,27 +1899,29 @@ EVAL_SHAPES = [(768, 1024), (1024, 768), (683, 1024), (1024, 683),
 EVAL_DB, EVAL_Q = 48, 6
 
 
-def make_eval_set(root, seed=0):
-    """A seeded synthetic roxford5k-style set under root/roxford5k: EVAL_Q
-    scenes, each seen by one query (cropped to a bbx) and by EVAL_DB //
-    EVAL_Q database photos at other offsets, with noise; sizes cycle through
+def make_eval_set(root, seed=0, name="roxford5k", n_db=EVAL_DB,
+                  n_q=EVAL_Q):
+    """A seeded synthetic roxford5k-style set under root/<name>: n_q
+    scenes, each seen by one query (cropped to a bbx) and by n_db // n_q
+    database photos at other offsets, with noise; sizes cycle through
     EVAL_SHAPES (1280x960 is downsized by LANCZOS, 800x600 kept). Each
-    query's gnd lists 4 easy, 3 hard and 1 junk photo of its scene. Returns
-    the database paths."""
+    query's gnd lists 4 easy, 3 hard and 1 junk photo of its scene (for
+    247tokyo1k, the one-protocol form: its scene's photos "ok", no junk).
+    Returns the database paths."""
     import pickle
     from PIL import Image
     rng = np.random.RandomState(seed)
-    jpg = os.path.join(root, "roxford5k", "jpg")
+    jpg = os.path.join(root, name, "jpg")
     os.makedirs(jpg)
     # a scene: a hue of its own and 4 plane waves, in units of the photo's
     # longest side (so a downsized photo shows the same scene)
-    hues = np.linspace(0, 1, EVAL_Q, endpoint=False)
+    hues = np.linspace(0, 1, n_q, endpoint=False)
     scenes = [((rng.uniform(2, 14, (4, 2)) * rng.choice([-1, 1], (4, 2))
                 * 2 * np.pi).astype(np.float32),
                rng.uniform(0, 2 * np.pi, (4, 3)).astype(np.float32),
                (0.5 + 0.25 * np.cos(2 * np.pi * (hues[k] + np.array(
                    [0, 1 / 3, 2 / 3])))).astype(np.float32))
-              for k in range(EVAL_Q)]
+              for k in range(n_q)]
 
     def photo(scene, h, w, path):
         freq, phase, base = scenes[scene]
@@ -1893,24 +1937,26 @@ def make_eval_set(root, seed=0):
         Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
             path, quality=90)
 
-    per = EVAL_DB // EVAL_Q
+    per = n_db // n_q
     imlist, db_paths = [], []
-    for i in range(EVAL_DB):
-        name = "db%02d" % i
-        db_paths.append(os.path.join(jpg, name + ".jpg"))
+    for i in range(n_db):
+        im = "db%02d" % i
+        db_paths.append(os.path.join(jpg, im + ".jpg"))
         photo(i // per, *EVAL_SHAPES[i % len(EVAL_SHAPES)], db_paths[-1])
-        imlist.append(name)
+        imlist.append(im)
     qimlist, gnd = [], []
-    for q in range(EVAL_Q):
+    for q in range(n_q):
         h, w = EVAL_SHAPES[(q + 3) % len(EVAL_SHAPES)]
         photo(q, h, w, os.path.join(jpg, "q%d.jpg" % q))
         qimlist.append("q%d" % q)
         own = list(range(q * per, (q + 1) * per))
+        if name == "247tokyo1k":
+            gnd.append({"ok": np.asarray(own), "junk": np.asarray([], int)})
+            continue
         gnd.append({"easy": np.asarray(own[:4]), "hard": np.asarray(own[4:7]),
                     "junk": np.asarray(own[7:]),
                     "bbx": [w // 10, h // 8, w - w // 10, h - h // 8]})
-    with open(os.path.join(root, "roxford5k", "gnd_roxford5k.pkl"),
-              "wb") as f:
+    with open(os.path.join(root, name, "gnd_%s.pkl" % name), "wb") as f:
         pickle.dump({"imlist": imlist, "qimlist": qimlist, "gnd": gnd}, f)
     return db_paths
 
@@ -3283,6 +3329,617 @@ def run_gan_train(dev):
     return out
 
 
+# ---- the scenario CLI: hedngan.yml's `all` and `output` targets and
+# cyclegan.yml's `train` target through gandtr_tpu_torch.scenarios.run
+ICCV23_TRAIN = ROOT / "gandtr_tpu" / "scenarios" / "configs" / "iccv23" / \
+    "train"
+HEDNGAN_YML = str(ICCV23_TRAIN / "hedngan.yml")
+CYCLEGAN_YML = str(ICCV23_TRAIN / "cyclegan.yml")
+SFM = "data/train/retrieval-SfM-120k"
+SCEN_TEST_DB, SCEN_TEST_Q = 24, 3       # photos a test set
+SCEN_OUTPUT = 8                         # photos the output target writes
+SCEN_OUTPUT_SHAPES = [(272, 362), (362, 272)]
+
+
+def _scenario_cuts(prefix, epochs, schedulers):
+    """key=value overrides of an epochs / schedule / checkpoint cut."""
+    out = ["%slearning.training.epochs=%d" % (prefix, epochs)]
+    out += ["%slearning.training.scheduler.%s.n_epochs_decay=1"
+            % (prefix, name) for name in schedulers]
+    return out + ["%slearning.checkpoints.checkpoint_every=1" % prefix,
+                  "%slearning.checkpoints.store_every=2" % prefix]
+
+
+def all_target_overrides(embed_init):
+    """hedngan.yml's `all` target cut by the CLI's own key=value
+    overrides (PERF.md section 4, "Scenario CLI"): the GAN as GAN_CUTS
+    cuts it, with the HED files `pretrained: null` (seeded); the fine-tune
+    as finetune_loop_config cuts it, the embed in bf16 (K2) and its
+    `pretrained: true` a seeded local file; whitening's dataset_pkl the
+    local SfM-120k whitening pickle."""
+    gan, ft = "all.1_train_augment.", "all.2_finetune_embed."
+    out = _scenario_cuts(gan, GAN_CUTS["epochs"],
+                         ("generator_X", "discriminator_Y", "detector"))
+    out += ["%sdata.train.dataset.size=%d" % (gan, GAN_CUTS["size"]),
+            "%slearning.validation.visual.frequency=%d"
+            % (gan, GAN_CUTS["frequency"])]
+    out += ["%snetwork.%s.model.pretrained=null" % (gan, k)
+            for k in ("detector", "detector_frozen")]
+    out += _scenario_cuts(ft, LOOP_EPOCHS, ())
+    out += ["%sdata.train.dataset.%s=%d" % (ft, k, v)
+            for k, v in LOOP_CUTS.items()]
+    out += [ft + "network.embed.runtime.dtype=\"bfloat16\"",
+            ft + "network.embed.model.pretrained=%s" % json.dumps(embed_init),
+            "all.3_train_whitening.whitening.dataset_pkl=\"%s/"
+            "retrieval-SfM-120k-whiten.pkl\"" % SFM]
+    return out
+
+
+def cyclegan_overrides():
+    """cyclegan.yml's `train` target at full width (ngf 64, 256x256 crops,
+    batch 1 as shipped), cut to 2 epochs of 4 steps."""
+    pre = "train.1_train_augment."
+    return _scenario_cuts(pre, 2, ("generator_X", "generator_Y",
+                                   "discriminator_X", "discriminator_Y")) + [
+        pre + "data.train.dataset.size=4",
+        pre + "learning.validation.visual.frequency=1"]
+
+
+def make_scenario_data(root, seed=0):
+    """The data/ tree the download checks expect, under root (the run's
+    $GANDTR_ROOT), with seeded photos: SfM-120k's cid tree holding the
+    tuple set of make_tuple_set (180 photos in 60 clusters) with its
+    database and whitening pickles, day and night lists of 30 photos each
+    (those that take a 256x256 crop; the night ones darkened copies), the
+    four VAL_IMS photos, and the
+    three test sets (make_eval_set); plus SCEN_OUTPUT PNG photos for the
+    output target. Returns their names and the embed's initial weights."""
+    import pickle
+    from PIL import Image
+    from gandtr_tpu_torch.hub import _init_random
+    from gandtr_tpu_torch.models import initialize_model
+    from gandtr_tpu_torch.utils.download import TEST_SETS, VAL_IMS
+    sfm = os.path.join(root, SFM)
+    make_tuple_set(sfm, seed=seed, cids=True)
+    with open(os.path.join(sfm, "retrieval-SfM-120k.pkl"), "rb") as f:
+        db = pickle.load(f)["train"]
+    with open(os.path.join(sfm, "retrieval-SfM-120k-whiten.pkl"), "wb") as f:
+        pickle.dump({"cids": db["cids"], "qidxs": db["qidxs"],
+                     "pidxs": db["pidxs"]}, f)
+    ims = os.path.join(sfm, "ims")
+    # the GAN's photos: those whose shorter side takes a 256x256 crop
+    # (LOOP_SHAPES' fourth, 362x204, does not)
+    fits = [c for i, c in enumerate(db["cids"])
+            if min(LOOP_SHAPES[i % len(LOOP_SHAPES)]) >= 256]
+    day = [cid_path(c) for c in fits[:GAN_DOMAIN]]
+    night = []
+    for i, name in enumerate(fits[GAN_DOMAIN:2 * GAN_DOMAIN]):
+        arr = np.asarray(Image.open(os.path.join(ims, cid_path(name))))
+        cid = "%032x" % (0x9e3779b9 * (i + 1) + seed)
+        path = os.path.join(ims, cid_path(cid))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray((arr * 0.35).astype(np.uint8)).save(
+            path, format="JPEG", quality=90)
+        night.append(cid_path(cid))
+    os.makedirs(os.path.join(sfm, "dataset"))
+    for name, names in (("train_day.txt", day), ("train_night.txt", night)):
+        with open(os.path.join(sfm, "dataset", name), "w") as f:
+            f.write("\n".join(names) + "\n")
+    rs = np.random.RandomState(seed + 1)
+    for cid, (h, w) in zip(VAL_IMS, GAN_VAL_SHAPES):
+        path = os.path.join(ims, cid)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(rs.randint(0, 256, (h, w, 3), np.uint8)).save(
+            path, format="JPEG")
+    for i, ds in enumerate(TEST_SETS):
+        make_eval_set(os.path.join(root, "data", "test"), seed=seed + 2 + i,
+                      name=ds, n_db=SCEN_TEST_DB, n_q=SCEN_TEST_Q)
+    out_names = []
+    for i in range(SCEN_OUTPUT):
+        h, w = SCEN_OUTPUT_SHAPES[i % len(SCEN_OUTPUT_SHAPES)]
+        out_names.append("output_src/day_%d.png" % i)
+        path = os.path.join(ims, out_names[-1])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        small = rs.randint(0, 256, (h // 8 + 1, w // 8 + 1, 3), np.uint8)
+        Image.fromarray(small).resize((w, h), Image.BILINEAR).save(path)
+    embed = initialize_model(FINETUNE["network"]["embed"]["model"])
+    _init_random(embed, seed + 7)
+    embed_init = os.path.join(root, "embed_init.pth")
+    torch.save({"model_state": embed.state_dict()}, embed_init)
+    return out_names, embed_init
+
+
+def _timed_functions(run_mod, times):
+    """Wrap every stage of the CLI's table: each run appends (function,
+    seconds to its end on the card)."""
+    orig = dict(run_mod.FUNCTIONS)
+
+    def timed(name, fn):
+        def stage(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times.append((name, time.perf_counter() - t0))
+            return out
+        return stage
+    run_mod.FUNCTIONS.update({k: timed(k, v) for k, v in orig.items()})
+    return orig
+
+
+def _cli(argv, capture):
+    """run.main(argv) in this process; its step metadata and its stdout
+    (echoed after) kept in `capture`."""
+    import contextlib
+    import io
+    from gandtr_tpu_torch.scenarios import run
+    results, times = {}, []
+    orig_run, orig_fns = run.run_target, _timed_functions(run, times)
+
+    def recording(*args, **kwargs):
+        results.update(orig_run(*args, **kwargs))
+        return results
+    run.run_target = recording
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = run.main(argv)
+    finally:
+        run.run_target = orig_run
+        run.FUNCTIONS.clear()
+        run.FUNCTIONS.update(orig_fns)
+        sys.stdout.write(buf.getvalue()[-4000:])
+    if rc != 0:
+        raise AssertionError("%s returned %r" % (argv, rc))
+    capture.update(results=results, stdout=buf.getvalue(),
+                   step_seconds=[(step, secs) for step, (_, secs) in
+                                 zip(results, times)])
+    return results
+
+
+def _instrumented_gan_builds(recs):
+    """Patch the GAN build the train stage calls: each experiment gets
+    _instrument_gan with a record of its own (appended to `recs`).
+    Returns the original, to put back."""
+    from gandtr_tpu_torch.scenarios import build
+    orig = build.build_gan_experiment
+
+    def instrumented(*args, **kwargs):
+        exp = orig(*args, **kwargs)
+        d = exp["checkpoints"].directory
+        recs.append({"epochs": [], "metrics": [], "exp": exp,
+                     "copy_dir": d.rstrip("/") + "_after1"})
+        _instrument_gan(exp, recs[-1])
+        return exp
+    build.build_gan_experiment = instrumented
+    return orig
+
+
+def _gan_loop_numbers(rec):
+    """ms a step in epoch 2 and the card's busy share over its steps."""
+    prof = rec.pop("prof")
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    steps = len(rec["exp"]["loader"])
+    return {"steps_an_epoch": steps,
+            "loop_ms_per_step_epoch2": 1e3 * rec["epochs"][1]["steps_s"]
+            / steps,
+            "epoch2_steps_busy_share": busy_us / 1e6 / rec["prof_wall"],
+            "epochs": rec["epochs"]}
+
+
+def _check_all_target(root, res, stdout, counts):
+    """Each step's artifact, the mAPs, the printed scores, the launches."""
+    import pickle
+    from gandtr_tpu_torch.utils.download import TEST_SETS
+    gan_dir = os.path.join(root, "experiments", "gan", "hedngan", "epochs")
+    ft_dir = os.path.join(root, "experiments", "cirtorch", "vgg16_hedngan")
+    lw_path = os.path.join(ft_dir, "whitening", "lw-retrieval.pkl")
+    for path in (os.path.join(gan_dir, "generator_X_best.ckpt"),
+                 os.path.join(ft_dir, "epochs", "embed_best.ckpt"), lw_path,
+                 os.path.join(root, "data", "val", "day_night", "4.jpg")):
+        if not os.path.exists(path):
+            raise AssertionError("the all target left no %s" % path)
+    with open(lw_path, "rb") as f:
+        lw = pickle.load(f)
+    if lw["P"].shape != (512, 512) or not np.isfinite(lw["P"]).all():
+        raise AssertionError("Lw P %s" % (lw["P"].shape,))
+    if res["3_train_whitening"]["whitening_path"] != lw_path:
+        raise AssertionError("whitening at %r"
+                             % res["3_train_whitening"]["whitening_path"])
+    val = res["5_evaluate"]["metadata"]["validation"]
+    maps = {k: v for k, v in val.items() if "score_avg:map" in k}
+    want = {"%s/validation/score_avg:map_%s" % (ds, p) for ds in TEST_SETS[:2]
+            for p in ("easy", "medium", "hard")} \
+        | {"247tokyo1k/validation/score_avg:map"}
+    if set(maps) != want or not all(np.isfinite(v) for v in maps.values()):
+        raise AssertionError("mAPs %s" % maps)
+    for label in ("roxford.5k medium", "rparis.6k medium", "247tokyo.1k"):
+        if label not in stdout:
+            raise AssertionError("print_scores printed no %r" % label)
+    for step in ("1_train_augment", "2_finetune_embed"):
+        meta = res[step]
+        if not {"metrics", "metrics_series", "best_epoch", "resource_usage",
+                "code_version", "directory"} <= set(meta):
+            raise AssertionError("%s metadata %s" % (step, sorted(meta)))
+    if not (counts["K4"] > 0 and counts["K2"] > 0 and counts["K1"] == 0
+            and counts["K3"] == 0):
+        raise AssertionError("all-target launches %s: K4 and K2 > 0, K1 0 "
+                             "(eval.yml's shape_bucket 64), K3 0" % counts)
+    return maps
+
+
+def check_recorded_k2_k4(calls):
+    """K4 and K2 on every input the `all` target gave them (`calls`:
+    {"K4": [(args, kwargs)], "K2": [...]}, recorded by reference while
+    the launches were counted): each call launched again (after the
+    counts were read) and held against its plain version, K4 bit for bit
+    and K2 within check_k2's bounds (2e-2 of 1 + |plain| for bf16 out,
+    2e-5 for float32 out). Returns {kernel: {calls, shapes, max_abs_err}}."""
+    from gandtr_tpu_torch.device import set_float32_policy
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.ops.clahe import clahe_u8_masked_plain
+    from gandtr_tpu_torch.ops.vggconv import conv3x3_same_plain
+    set_float32_policy()        # the plain conv in full float32
+    out = {}
+    for k in ("K4", "K2"):
+        shapes, err = set(), 0.0
+        for args, kwargs in calls[k]:
+            if k == "K4":
+                got = kmasked.clahe_u8_masked_cuda(*args, **kwargs)
+                want = clahe_u8_masked_plain(*args, **kwargs)
+                ok = torch.equal(got, want)
+                d = float((got.int() - want.int()).abs().max())
+            else:
+                x, wmat, bias, relu, out_dtype = args
+                got = kvgg.conv3x3_same_cuda(x, wmat, bias, relu, out_dtype)
+                want = conv3x3_same_plain(
+                    x, wmat.view(3, 3, x.shape[-1], -1), bias, relu,
+                    out_dtype)
+                ok, d = _within(got, want, 2e-2 if out_dtype ==
+                                torch.bfloat16 else 2e-5)
+            if not ok:
+                raise AssertionError("%s on the all target's input %s: "
+                                     "%g from its plain version"
+                                     % (k, tuple(args[0].shape), d))
+            shapes.add(tuple(args[0].shape))
+            err = max(err, d)
+        torch.cuda.synchronize()
+        out[k] = {"calls": len(calls[k]), "shapes": len(shapes),
+                  "max_abs_err": err}
+    return out
+
+
+def _run_output_target(root, names):
+    """The output target in a process of its own, the names on stdin."""
+    env = dict(os.environ, GANDTR_ROOT=root)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gandtr_tpu_torch.scenarios.run", "output",
+         HEDNGAN_YML], input="\n".join(names) + "\n", text=True,
+        capture_output=True, cwd=str(ROOT), env=env, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("output target rc %d:\n%s%s" % (
+            proc.returncode, proc.stdout[-3000:], proc.stderr[-3000:]))
+    return secs
+
+
+def _check_output(root, names, dev):
+    """One PNG a name, each within one uint8 level of the trained
+    generator (generator_X_best.ckpt) applied directly; returns the files'
+    bytes."""
+    from PIL import Image
+    from gandtr_tpu_torch import hub
+    gen = hub.hedngan(pretrained=True, checkpoint=os.path.join(
+        root, "experiments", "gan", "hedngan", "epochs",
+        "generator_X_best.ckpt"))
+    out_dir = os.path.join(root, "experiments", "gan", "hedngan", "output")
+    files, worst = {}, 0
+    for name in names:
+        path = os.path.join(out_dir, name)
+        with open(path, "rb") as f:
+            files[name] = f.read()
+        got = np.asarray(Image.open(path))
+        src = np.asarray(Image.open(os.path.join(root, SFM, "ims", name))
+                         .convert("RGB"))
+        with torch.no_grad():
+            y = gen(gen.transform(src)[None])[0].float().cpu().numpy()
+        want = np.clip((y.astype(np.float64) * 0.5 + 0.5) * 255, 0,
+                       255).astype(np.uint8)
+        if got.shape != want.shape or got.dtype != np.uint8:
+            raise AssertionError("output %s: %s" % (name, got.shape))
+        worst = max(worst, int(np.abs(got.astype(int) - want).max()))
+    if worst > 1:
+        raise AssertionError("output PNGs %d levels from the generator"
+                             % worst)
+    n_files = sum(len(f) for _, _, f in os.walk(out_dir))
+    if n_files != len(names):
+        raise AssertionError("%d files for %d names" % (n_files, len(names)))
+    return files, worst
+
+
+def _same_tree(a, b, where):
+    if isinstance(a, torch.Tensor):
+        if not torch.equal(a, b):
+            raise AssertionError("resume differs at %s" % (where,))
+    elif isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            raise AssertionError("resume keys differ at %s" % (where,))
+        for k in a:
+            _same_tree(a[k], b[k], where + (k,))
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(x, y, where + (i,))
+    elif a != b:
+        raise AssertionError("resume differs at %s" % (where,))
+
+
+CG_NETS = ("generator_X", "generator_Y", "discriminator_X",
+           "discriminator_Y")
+CG_IMAGES = ("fake_Y", "rec_X", "fake_X", "rec_Y")
+
+
+def _cyclegan_step(cfg, where, X, Y, dtype=torch.float32):
+    """One CycleGAN step of `cfg` built on `where`, in `dtype`: its losses,
+    its fakes and reconstructions, and each network's gradient as its Adam
+    update takes it (flat, on the host)."""
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    exp = build_gan_experiment(cfg, device=where)
+    for net in exp["models"].values():
+        net.module.to(dtype)
+    grads = _grab_grads(exp, CG_NETS)
+    _, m, dbg = exp["step"](exp["state"],
+                            *(torch.from_numpy(a).to(where, dtype)
+                              for a in (X, Y)))
+    return ({k: float(v) for k, v in m.items()},
+            {k: dbg[k].cpu().double() for k in CG_IMAGES},
+            {k: _flat(grads[k]).double() for k in CG_NETS})
+
+
+def _cyclegan_parity(dev):
+    """One step of cyclegan.yml's networks (full width, the shipped
+    normal_p2p init) at batch 1 and 128x128, from the same seeded weights,
+    in float64 and in float32 on the CPU and in float32 on the card, held
+    as _gan_parity holds HED^N-GAN: the card's losses within 1e-3
+    relative of the CPU's; the card's fakes and reconstructions and the
+    four networks' gradients (each taken just before its Adam update: all
+    four depend on the starting weights only, since the D steps take the
+    starting generators' fakes) within twice the CPU float32's distance
+    from float64 (L2, relative). As an extra check, with kaiming_p2p
+    weights the losses within 1e-3 and the images within 1e-4 of the
+    CPU's float32 (run_gan_train's bounds)."""
+    from gandtr_tpu_torch.scenarios.engine import load_yaml_scenario
+    cfg = load_yaml_scenario([CYCLEGAN_YML] + cyclegan_overrides())
+    cfg = cfg["train"]["1_train_augment"]
+    cfg = {k: v for k, v in cfg.items() if k in ("network", "learning")}
+    cfg["learning"]["checkpoints"]["directory"] = None
+    rs = np.random.RandomState(9)
+    X, Y = (rs.uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32)
+            for _ in range(2))
+    torch.set_num_threads(os.cpu_count() or 1)
+    out = {}
+    for init in ("normal_p2p", "kaiming_p2p"):
+        for member in cfg["network"].values():
+            if isinstance(member, dict) and member.get("initialize"):
+                member["initialize"]["weights"] = init
+        cpu = _cyclegan_step(cfg, "cpu", X, Y)
+        card = _cyclegan_step(cfg, dev, X, Y)
+        res = {"losses_max_rel": max(
+                   abs(card[0][k] - v) / max(abs(v), 1e-12)
+                   for k, v in cpu[0].items()),
+               "images_max_abs": {k: float((card[1][k] - v).abs().max())
+                                  for k, v in cpu[1].items()}}
+        if init == "normal_p2p":
+            ref = _cyclegan_step(cfg, "cpu", X, Y, torch.float64)
+            for part, name in ((1, "images"), (2, "grads")):
+                res[name + "_rel_to_float64_cpu"] = {
+                    k: _rel(v, ref[part][k]) for k, v in cpu[part].items()}
+                res[name + "_rel_to_float64_card"] = {
+                    k: _rel(v, ref[part][k]) for k, v in card[part].items()}
+            res["grads_rel_card_vs_cpu"] = {
+                k: _rel(v, cpu[2][k]) for k, v in card[2].items()}
+            del ref
+        out[init] = res
+        del cpu, card
+    print("CycleGAN step, card vs CPU: %s" % json.dumps(out))
+    n, k = out["normal_p2p"], out["kaiming_p2p"]
+    far = [(name, key) for name in ("images", "grads")
+           for key, v in n[name + "_rel_to_float64_card"].items()
+           if v > 2 * n[name + "_rel_to_float64_cpu"][key]]
+    if far or n["losses_max_rel"] > 1e-3 or k["losses_max_rel"] > 1e-3 \
+            or max(k["images_max_abs"].values()) > 1e-4:
+        raise AssertionError("CycleGAN card vs CPU (past twice the CPU's "
+                             "distance from float64: %s): %s" % (far, out))
+    return out
+
+
+def _k3_on(gen, img):
+    """The bf16 generator on one photo, K3 counted; each of its nine block
+    calls held against K3's plain version on the same inputs: the mean
+    difference under 0.01 and each element's within 0.06 or one bf16
+    step of the output, whichever is larger (the trained net's block
+    outputs pass 8, where one bf16 step is 0.0625; K3's own check holds
+    0.06 at its test inputs' scale)."""
+    from gandtr_tpu_torch.ops import resblock
+    calls, kernel = [], resblock.fused_resblock
+
+    def recording(*args, **kwargs):
+        out = kernel(*args, **kwargs)
+        calls.append((args, out))
+        return out
+    resblock.fused_resblock = recording
+    reset_launches()
+    try:
+        with torch.inference_mode():
+            y = gen(gen.transform(img)[None])
+        torch.cuda.synchronize()
+    finally:
+        resblock.fused_resblock = kernel
+    counts = launches()
+    errs = []
+    with torch.inference_mode():
+        for args, out in calls:
+            want = resblock.fused_resblock_plain(*args).float()
+            d = (out.float() - want).abs()
+            # one bf16 step of the output: 2^(exponent - 7)
+            step = torch.exp2(torch.floor(torch.log2(
+                want.abs().clamp_min(2.0 ** -126))) - 7)
+            errs.append((float(d.max()), float(d.mean()),
+                         int((d > K3_MAX).sum()),
+                         bool((d <= torch.maximum(step, torch.full_like(
+                             step, K3_MAX))).all()), float(want.abs().max())))
+    mx, mean = max(e[0] for e in errs), max(e[1] for e in errs)
+    if counts["K3"] != 9 or len(calls) != 9 or mean >= K3_MEAN or \
+            not all(e[3] for e in errs):
+        raise AssertionError("K3 on the trained CycleGAN generator: %s "
+                             "launches, %d calls, %s"
+                             % (counts, len(calls), errs))
+    if not bool(torch.isfinite(y.float()).all()):
+        raise AssertionError("trained CycleGAN generator: not finite")
+    return counts, {"max_abs_err": mx, "mean_abs_err": mean,
+                    "over_0.06": sum(e[2] for e in errs),
+                    "max_abs_output": max(e[4] for e in errs),
+                    "block_calls": len(calls)}
+
+
+def run_scenario(dev):
+    """The scenario CLI on the card (the module docstring's item 12)."""
+    import pickle
+    import shutil
+    import tempfile
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.scenarios import build
+    tmp = tempfile.mkdtemp(prefix="scenario_", dir=os.environ.get("TMPDIR"))
+    old_root = os.environ.get("GANDTR_ROOT")
+    os.environ["GANDTR_ROOT"] = tmp
+    out = {"launches": dict.fromkeys(("K1", "K2", "K3", "K4"), 0)}
+    try:
+        t0 = time.perf_counter()
+        names, embed_init = make_scenario_data(tmp)
+        out["data_s"] = time.perf_counter() - t0
+
+        # hedngan.yml's `all` target, in this process
+        recs, cap, calls = [], {}, {"K4": [], "K2": []}
+        orig_build = _instrumented_gan_builds(recs)
+        restore = (_recording_calls(kmasked, "clahe_u8_masked_cuda",
+                                    calls["K4"]),
+                   _recording_calls(kvgg, "conv3x3_same_cuda", calls["K2"]))
+        import warnings
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                res = _cli(["all", HEDNGAN_YML]
+                           + all_target_overrides(embed_init), cap)
+                torch.cuda.synchronize()
+                out["all_s"] = time.perf_counter() - t0
+                counts = launches()
+        finally:
+            build.build_gan_experiment = orig_build
+            for put_back in restore:
+                put_back()
+        unloaded = [str(w.message) for w in caught
+                    if "not loaded" in str(w.message)]
+        if unloaded:
+            raise AssertionError("a network file was not loaded: %s"
+                                 % unloaded)
+        maps = _check_all_target(tmp, res, cap["stdout"], counts)
+        held = check_recorded_k2_k4(calls)
+        if held["K4"]["calls"] != counts["K4"] \
+                or held["K2"]["calls"] != counts["K2"]:
+            raise AssertionError("recorded %s for launches %s"
+                                 % (held, counts))
+        del calls
+        out["all"] = {"launches": counts, "step_seconds": cap["step_seconds"],
+                      "maps": maps, "held_vs_plain": held,
+                      "gan": _gan_loop_numbers(recs[0])}
+        for k, v in counts.items():
+            out["launches"][k] += v
+        print("scenario all target (hedngan.yml): %s" % json.dumps(
+            out["all"]))
+        del recs, res
+
+        # the output target, twice, in a process of its own
+        secs = [_run_output_target(tmp, names)]
+        files, worst = _check_output(tmp, names, dev)
+        secs.append(_run_output_target(tmp, names))
+        again, _ = _check_output(tmp, names, dev)
+        if again != files:
+            raise AssertionError("the append run rewrote the output")
+        out["output"] = {"seconds": secs, "images": len(names),
+                         "max_level_vs_generator": worst,
+                         "second_run_wrote_nothing": True}
+        print("scenario output target: %s" % json.dumps(out["output"]))
+
+        # cyclegan.yml's `train` target; the resume of epoch 2
+        recs, cap = [], {}
+        orig_build = _instrumented_gan_builds(recs)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            _cli(["train", CYCLEGAN_YML] + cyclegan_overrides(), cap)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = launches()
+            copy_dir = recs[0]["copy_dir"]
+            _cli(["train", CYCLEGAN_YML] + cyclegan_overrides() + [
+                "train.1_train_augment.learning.checkpoints.directory=%s"
+                % json.dumps(copy_dir)], {})
+        finally:
+            build.build_gan_experiment = orig_build
+        gan_dir = os.path.join(tmp, "experiments", "gan", "cyclegan")
+        for name in ("generator_X", "generator_Y", "discriminator_X",
+                     "discriminator_Y"):
+            _same_tree(*(torch.load(os.path.join(
+                d, "epochs", "%s_epoch_02.ckpt" % name), weights_only=True)
+                ["model_state"] for d in (gan_dir, copy_dir)), (name,))
+        a, b = (torch.load(os.path.join(d, "epochs", "training_epoch_02.pkl"),
+                           weights_only=True) for d in (gan_dir, copy_dir))
+        for key in ("aux", "events", "rngs", "epoch"):
+            _same_tree(a[key], b[key], (key,))
+        if len(recs[1]["epochs"]) != 1:
+            raise AssertionError("the resumed run ran %d epochs"
+                                 % len(recs[1]["epochs"]))
+        if any(counts.values()):
+            raise AssertionError("CycleGAN training launched %s (float32 "
+                                 "training reaches no kernel)" % counts)
+        out["cyclegan"] = {"seconds": train_s, "launches": counts,
+                           "step_seconds": cap["step_seconds"],
+                           "gan": _gan_loop_numbers(recs[0]),
+                           "resume_epoch2_bit_equal": True,
+                           "pools": sorted(a["aux"]["pools"])}
+        del recs
+        out["cyclegan"]["parity"] = _cyclegan_parity(dev)
+
+        # the trained generator served in bf16: K3 against its plain version
+        gen = hub.cyclegan(pretrained=True, checkpoint=os.path.join(
+            gan_dir, "epochs", "generator_X_last.ckpt"))
+        gen.net.compute_dtype = torch.bfloat16
+        img = np.random.RandomState(5).randint(0, 256, HW + (3,),
+                                               dtype=np.uint8)
+        counts, k3 = _k3_on(gen, img)
+        out["cyclegan"]["k3_served"] = k3
+        for k, v in counts.items():
+            out["launches"][k] += v
+        print("scenario cyclegan.yml train target: %s" % json.dumps(
+            out["cyclegan"]))
+        del gen
+    finally:
+        if old_root is None:
+            os.environ.pop("GANDTR_ROOT", None)
+        else:
+            os.environ["GANDTR_ROOT"] = old_root
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3443,12 +4100,18 @@ def main():
     # ---- HED^N-GAN training of train_hedngan.yml
     torch.cuda.empty_cache()
     gan = run_gan_train(dev)
+
+    # ---- the scenario CLI: hedngan.yml's all and output, cyclegan.yml's
+    # train
+    torch.cuda.empty_cache()
+    scen = run_scenario(dev)
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
                    "finetune_loop": loop["launches"][k],
                    "eval": sum(c[k] for c in ev["launches"].values()),
                    "r101": r101["launches"][k],
-                   "gan_train": gan["launches"][k]}
+                   "gan_train": gan["launches"][k],
+                   "scenario": scen["launches"][k]}
                for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{

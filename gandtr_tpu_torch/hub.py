@@ -64,13 +64,15 @@ class HubModel:
 
 
 def _init_random(module, seed=0):
-    """Seeded He-normal convolution/linear weights, zero biases (BatchNorm
-    keeps its identity init): the same numbers on every device, since they
-    are drawn on the CPU."""
+    """Seeded He-normal convolution (transposed too)/linear weights, zero
+    biases (BatchNorm keeps its identity init): the same numbers on every
+    device and every call, since they are drawn on the CPU from the seed
+    alone."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                              torch.nn.Linear)):
                 fan_in = m.weight[0].numel()
                 w = torch.empty(m.weight.shape).normal_(
                     0.0, math.sqrt(2.0 / fan_in), generator=g)

@@ -370,6 +370,28 @@ class EventBroker:
                              histograms=self.histograms)
         return aggregated
 
+    def ref_metadata(self):
+        """Each loss's and each iteration-logged score's per-epoch series
+        under the reference's metadata() key forms (eventprocessor.py:
+        84-92, 119-120): `<section>/loss:<name>_avg.4` for a loss,
+        `<key>_avg.4` for a score logged per iteration. A score logged
+        once an epoch keeps its own key in the reference, so it is left
+        out here: it stays a flat last-epoch value in the stage's
+        `metrics`, and its series is in `metrics_series`."""
+        out = {}
+        for key, dtype in self.metadata.dtypes.items():
+            if dtype == "scalar/loss":
+                if ":" in key.rsplit("/", 1)[-1]:
+                    base = key
+                else:
+                    head, _, name = key.rpartition("/")
+                    base = "%s/loss:%s" % (head, name) if head \
+                        else "loss:%s" % name
+                out[base + "_avg.4"] = self.metadata.series(key)
+            elif dtype == "scalar/score" and key in self.iter_keys:
+                out[key + "_avg.4"] = self.metadata.series(key)
+        return out
+
     def state_dict(self):
         return {"history": self.history,
                 "metadata": self.metadata.state_dict(),

@@ -1,7 +1,8 @@
-"""The HED^N-GAN train step (counterpart of gandtr_tpu/learning/gan_steps.py;
-the reference's SupervisedHEDNGANEpoch, edges_epochs.py:61-121).
+"""The GAN train steps, HED^N-GAN and CycleGAN (counterpart of
+gandtr_tpu/learning/gan_steps.py).
 
-One step on a batch (real_X day images, real_Y night images), in the
+HED^N-GAN (the reference's SupervisedHEDNGANEpoch, edges_epochs.py:
+61-121): one step on a batch (real_X day images, real_Y night images), in the
 reference's order:
 
 1. one generator forward, fake_Y = G(real_X), whose graph is kept for (4);
@@ -24,12 +25,13 @@ losses), `D_real`, `D_fake`, `G_gan`, `G_hed`, `E_real`, `E_fake` as 0-dim
 tensors on the device, and the last sample of the batch's images and edge
 maps for the event blobs. Nothing is read back to the host.
 
-The JAX package's opt-in knobs `concat_student` and
-`cache_teacher_targets`, and the other families (CycleGAN, CUT, HED-GAN),
-are ROADMAP A.5.
+`build_cyclegan_step` is CycleGAN's step (below), with its image pools
+(learning/image_pool.py). The JAX package's opt-in knobs `concat_student`
+and `cache_teacher_targets`, and the HED-GAN and CUT families, are
+ROADMAP A.2.
 """
 import contextlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict
 
 import torch
@@ -42,24 +44,32 @@ from gandtr_tpu_torch.ops import losses as L
 class GanState:
     models: Dict[str, Any]       # {name: WrappedNet}
     optimizers: Dict[str, Any]   # {name: torch optimizer}
+    pools: Dict[str, Any] = field(default_factory=dict)  # {name: ImagePool}
     step: int = 0
 
     def state_dict(self):
         """What a resume needs besides the networks' weights and
         statistics: every optimizer's state (Adam's moments and step
-        counts, on the host) and the step count."""
+        counts, on the host), the image pools and the step count."""
         return {"optimizers": {name: _to_cpu(opt.state_dict())
                                for name, opt in self.optimizers.items()},
+                "pools": {name: pool.state_dict()
+                          for name, pool in self.pools.items()},
                 "step": int(self.step)}
 
     def load_state_dict(self, state):
         for name, opt in self.optimizers.items():
             opt.load_state_dict(state["optimizers"][name])
+        device = next(next(iter(self.models.values())).module.parameters()
+                      ).device
+        for name, pool in self.pools.items():
+            pool.load_state_dict(state["pools"][name], device)
         self.step = int(state["step"])
 
 
-def make_gan_state(models, optimizers):
-    return GanState(models=dict(models), optimizers=dict(optimizers))
+def make_gan_state(models, optimizers, pools=None):
+    return GanState(models=dict(models), optimizers=dict(optimizers),
+                    pools=dict(pools or {}))
 
 
 @contextlib.contextmanager
@@ -146,16 +156,99 @@ def build_hedngan_step(models, optimizers, weights):
     return step
 
 
+def build_cyclegan_step(models, optimizers, weights_GX, weights_GY):
+    """step(state, real_X, real_Y) -> (state, metrics, debug) for `models`
+    {generator_X, generator_Y, discriminator_X, discriminator_Y}
+    (WrappedNets, D_X judging domain Y) and an optimizer each; the
+    weights are each generator loss's {adversarial, cycle} (1, 10 as
+    published). The reference's order (gan_epochs.py:61-140):
+
+    1. the joint generator step through one graph: fake_Y = G_X(real_X),
+       rec_X = G_Y(fake_Y), fake_X = G_Y(real_Y), rec_Y = G_X(fake_X),
+       each in train mode (a BatchNorm's statistics move call by call, as
+       the JAX step threads them), then D_X(fake_Y) and D_Y(fake_X)
+       against "real" (D's statistics move too, its parameters take no
+       gradient); the mse terms and the L1 cycle terms, weighted; one
+       backward of both losses, one Adam step each;
+    2. each D step on its pool's answer to the (detached) fakes of (1):
+       D(real) then D(pool(fake)), each mse against its target, averaged;
+       one Adam step each, D_X first.
+
+    The metrics are the weighted partials under the reference's key forms
+    (`netG_X_adversarial`, `netG_X_cycle`, ..., `netD_X_total`) and
+    `total`."""
+    w_adv_x = float(weights_GX.get("adversarial", 1.0))
+    w_cyc_x = float(weights_GX.get("cycle", 10.0))
+    w_adv_y = float(weights_GY.get("adversarial", 1.0))
+    w_cyc_y = float(weights_GY.get("cycle", 10.0))
+    GX, GY = models["generator_X"], models["generator_Y"]
+    DX, DY = models["discriminator_X"], models["discriminator_Y"]
+
+    def d_step(name, D, real, fake):
+        opt = optimizers[name]
+        opt.zero_grad(set_to_none=True)
+        loss_real = _adversarial(D.apply(real, train=True), True)
+        loss_fake = _adversarial(D.apply(fake, train=True), False)
+        loss = (loss_real + loss_fake) * 0.5
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def step(state, real_X, real_Y):
+        # (1) the joint generator step
+        for name in ("generator_X", "generator_Y"):
+            optimizers[name].zero_grad(set_to_none=True)
+        fake_Y = GX.apply(real_X, train=True)
+        rec_X = GY.apply(fake_Y, train=True)
+        fake_X = GY.apply(real_Y, train=True)
+        rec_Y = GX.apply(fake_X, train=True)
+        with _no_param_grads(DX, DY):
+            adv_X = w_adv_x * _adversarial(DX.apply(fake_Y, train=True), True)
+            adv_Y = w_adv_y * _adversarial(DY.apply(fake_X, train=True), True)
+            cyc_X = w_cyc_x * L.l1_loss(rec_X, real_X)
+            cyc_Y = w_cyc_y * L.l1_loss(rec_Y, real_Y)
+            loss_GX = adv_X + cyc_X
+            loss_GY = adv_Y + cyc_Y
+            g_total = loss_GX + loss_GY
+            g_total.backward()
+        optimizers["generator_X"].step()
+        optimizers["generator_Y"].step()
+
+        # (2) the D steps on the pools' answers
+        fake_Y, fake_X = fake_Y.detach(), fake_X.detach()
+        with torch.no_grad():
+            fake_Y_pool = state.pools["fake_X_pool"].query(fake_Y)
+            fake_X_pool = state.pools["fake_Y_pool"].query(fake_X)
+        dx_loss = d_step("discriminator_X", DX, real_Y, fake_Y_pool)
+        dy_loss = d_step("discriminator_Y", DY, real_X, fake_X_pool)
+
+        state.step += 1
+        metrics = {"total": g_total.detach() + dx_loss + dy_loss,
+                   "netG_X_total": loss_GX.detach(),
+                   "netG_Y_total": loss_GY.detach(),
+                   "netG_X_adversarial": adv_X.detach(),
+                   "netG_X_cycle": cyc_X.detach(),
+                   "netG_Y_adversarial": adv_Y.detach(),
+                   "netG_Y_cycle": cyc_Y.detach(),
+                   "netD_X_total": dx_loss, "netD_Y_total": dy_loss}
+        debug = {"real_X": real_X[-1], "fake_Y": fake_Y[-1],
+                 "rec_X": rec_X.detach()[-1], "real_Y": real_Y[-1],
+                 "fake_X": fake_X[-1], "rec_Y": rec_Y.detach()[-1]}
+        return state, metrics, debug
+
+    return step
+
+
 def _not_ported(family):
     def build(*args, **kwargs):
         raise NotImplementedError(
-            "the %s train step is not ported yet (ROADMAP A.5)" % family)
+            "the %s train step is not ported yet (ROADMAP A.2)" % family)
     return build
 
 
 GAN_STEPS = {
     "hedngan": build_hedngan_step,
+    "cyclegan": build_cyclegan_step,
     "hedgan": _not_ported("HED-GAN"),
     "cut": _not_ported("CUT"),
-    "cyclegan": _not_ported("CycleGAN"),
 }

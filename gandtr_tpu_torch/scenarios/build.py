@@ -1,11 +1,13 @@
 """Build the GAN training experiment of a train scenario (counterpart of
 gandtr_tpu/scenarios/build.py::build_gan_experiment; the reference's
 initialize_learning) for the HED^N-GAN family of
-parameters/train_hedngan.yml: the NetworkSet (generator_X,
+parameters/train_hedngan.yml (the NetworkSet generator_X,
 discriminator_Y, the student `detector` and its frozen teacher
-`detector_frozen`), an Adam per trained network with its lr schedule, the
-step, the RandomDomainsPair loader, events, checkpoints and the visual
-validation.
+`detector_frozen`) and the CycleGAN family of parameters/
+train_cyclegan.yml (generator_X, generator_Y, discriminator_X,
+discriminator_Y, and two image pools of `epoch_iteration.pool_size`): an
+Adam per trained network with its lr schedule, the step, the
+RandomDomainsPair loader, events, checkpoints and the visual validation.
 
     exp = build_gan_experiment(params, directory)        # on cuda
     state, start = exp["training"].resume_or_start(exp["state"])
@@ -20,8 +22,8 @@ state is saved with each training file, so a resumed run repeats the
 straight run bit for bit.
 
 `dispatch_chunk: K` is the loop's `chunk`: the same steps in the same
-order, the metrics read back once a chunk. Not ported (ROADMAP A.5, A.7):
-the CycleGAN, CUT and HED-GAN families, `concat_student`,
+order, the metrics read back once a chunk. Not ported (ROADMAP A.2, A.7):
+the CUT and HED-GAN families, `concat_student`,
 `cache_teacher_targets`, `device_scalecrop`, `alternate_iteration` other
 than 1, path-form members, and data parallelism.
 """
@@ -38,6 +40,7 @@ from gandtr_tpu_torch.learning import gan_steps
 from gandtr_tpu_torch.learning.checkpoints import Checkpoints
 from gandtr_tpu_torch.learning.criteria import check_criterion_losses
 from gandtr_tpu_torch.learning.events import initialize_processor
+from gandtr_tpu_torch.learning.image_pool import ImagePool
 from gandtr_tpu_torch.learning.network import build_network_set
 from gandtr_tpu_torch.learning.optimizers import initialize_optimizer
 from gandtr_tpu_torch.learning.schedules import initialize_schedule
@@ -65,15 +68,15 @@ def _refuse_opt_in(it_cfg, data_cfg, train_cfg, opt_cfg):
         if it_cfg.get(knob):
             raise NotImplementedError(
                 "epoch_iteration.%s is an opt-in knob of the JAX package that "
-                "is not ported yet (ROADMAP A.5)" % knob)
+                "is not ported yet (ROADMAP A.2)" % knob)
     if (data_cfg.get("train") or {}).get("device_scalecrop"):
         raise NotImplementedError("data.train.device_scalecrop is not ported "
-                                  "yet (ROADMAP A.5)")
+                                  "yet (ROADMAP A.2)")
     composition = dict(opt_cfg.get("composition") or {})
     if composition.get("alternate_iteration", 1) not in (None, 0, 1):
         raise NotImplementedError(
             "optimizer composition with alternate_iteration %r is not ported "
-            "yet (ROADMAP A.5)" % composition["alternate_iteration"])
+            "yet (ROADMAP A.2)" % composition["alternate_iteration"])
     par = train_cfg.get("parallel", True)
     if isinstance(par, dict) and int(par.get("devices", 1) or 1) > 1:
         raise NotImplementedError("data-parallel GAN training is not ported "
@@ -185,9 +188,17 @@ def build_gan_experiment(params, directory=None, device=None):
     schedules = {name: initialize_schedule(epochs, dict(cfg))
                  for name, cfg in sched_cfg.items() if cfg is not None}
 
-    state = gan_steps.make_gan_state(nets, optimizers)
+    pools, weights = {}, [crit.get("weights")]
+    if family == "cyclegan":
+        pool_size = int(it_cfg.get("pool_size", 50))
+        pools = {"fake_X_pool": ImagePool(pool_size, seed),
+                 "fake_Y_pool": ImagePool(pool_size, seed + 1)}
+        # each generator's loss has its own weights
+        weights = [(crit.get(k) or {}).get("weights")
+                   for k in ("loss_G_X", "loss_G_Y")]
     step = gan_steps.GAN_STEPS[family](nets, optimizers,
-                                       dict(crit.get("weights") or {}))
+                                       *(dict(w or {}) for w in weights))
+    state = gan_steps.make_gan_state(nets, optimizers, pools)
 
     loader = None
     gen_data = nets["generator_X"].data_params or {}

@@ -53,6 +53,8 @@ from gandtr_tpu_torch.learning.training import Training
 from gandtr_tpu_torch.learning.wrappers import (cir_hash_passthrough,
                                                 metadata_name)
 from gandtr_tpu_torch.models.init import initialize_weights
+from gandtr_tpu_torch.utils.io import resolve_path
+from gandtr_tpu_torch.utils.weights import load_pretrained
 
 GENERATOR_DATA = {"transforms": "pil2np | totensor | normalize",
                   "mean_std": [[0.5, 0.5, 0.5], [0.5, 0.5, 0.5]]}
@@ -60,10 +62,12 @@ EXTRACT_BATCH = 32   # images a mining extraction batch
 
 
 def _load_local(module, path, what):
-    """Load a local reference checkpoint into `module`; warn and keep the
-    seeded weights when the file is not there (as the JAX package does)."""
+    """Load a local reference checkpoint into `module` (a relative path
+    under $GANDTR_ROOT); warn and keep the seeded weights when the file is
+    not there (as the JAX package does)."""
     if not path:
         return
+    path = resolve_path(str(path))
     if "://" in str(path) or not os.path.exists(str(path)):
         warnings.warn("%s checkpoint %r not loaded: not a local file; the "
                       "weights stay seeded" % (what, path))
@@ -139,6 +143,9 @@ def build_finetune_experiment(params, directory=None, db=None, images=None,
     embed_path = embed_cfg.pop("path", None)
     embed = build_single_net(embed_cfg, device="cpu")
     _init_random(embed.module, seed + 1)
+    load_pretrained(embed.module,
+                    (embed_cfg.get("model") or {}).get("pretrained"),
+                    "embed.model.pretrained")
     _load_local(embed.module, embed_path, "embed")
     embed.module.to(dev)
     models = {"augment": augment, "embed": embed}

@@ -1,54 +1,211 @@
 """The infer stage and the network loader of the scenario stages
-(counterpart of gandtr_tpu/scenarios/infer_stage.py::infer and
-::_load_network).
+(counterpart of gandtr_tpu/scenarios/infer_stage.py; the reference's
+stages/infer.py and data/output.py).
 
     (meta,) = infer(params, (names,))                  # on cuda
-    meta["vecs"]     # (D, N) float32 descriptors, in the order of `names`
+    meta["vecs"]     # embedding output: (D, N) float32, in `names` order
+    meta["count"]    # image output: the images written
 
-Only the `embedding` output is ported: the images go through the validate
-stage's extractor (with `data.shape_bucket`, padded buckets and masked
-CLAHE, K4 on the card; without it exact shapes and K1). The `image` output
-(a generator's images written to disk) is not ported yet.
+The `embedding` output runs the images through the validate stage's
+extractor (with `data.shape_bucket`, padded buckets and masked CLAHE, K4
+on the card; without it exact shapes and K1). The `image` output (the
+`output` target, parameters/output_gan.yml) runs same-shape batches
+through a generator in eval mode, optionally through a named method with
+extra arguments (the `forward` section), and writes each output as an
+image file through `RgbImageSaver`. `data` takes the flat form
+{image_dir, image_size, transforms, mean_std, loader, ...} or the
+reference's nested `data.test.{dataset: {name: CirImageList, image_dir,
+image_size}, loader, ...}`.
 """
+import os
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from PIL import Image
 
-from gandtr_tpu_torch.data.datasets import path_join
-from gandtr_tpu_torch.data.transforms import seed_transforms
-from gandtr_tpu_torch.device import resolve_device
-from gandtr_tpu_torch.eval.retrieval import extract_vectors
+from gandtr_tpu_torch.data.cir_datasets import imresize
+from gandtr_tpu_torch.data.datasets import imread, path_join
+from gandtr_tpu_torch.data.transforms import (initialize_transforms,
+                                              seed_transforms,
+                                              split_device_transform)
+from gandtr_tpu_torch.device import resolve_device, upload
+from gandtr_tpu_torch.eval.retrieval import _prefetched, extract_vectors
 from gandtr_tpu_torch.hub import (_checkpoint_data_params,
                                   _checkpoint_model_state,
                                   _checkpoint_net_state, _init_random)
 from gandtr_tpu_torch.learning.network import build_single_net
+from gandtr_tpu_torch.learning.wrappers import apply_wrapped
+from gandtr_tpu_torch.ops import colorspace as cs
 from gandtr_tpu_torch.utils.io import resolve_path
+
+GAN_MEAN_STD = [[0.5] * 3, [0.5] * 3]
+
+
+class RgbImageSaver:
+    """Denormalize and write each output image (the reference's
+    output.py:29-115), on a pool of writer threads.
+
+    Names: `structure="flat"` joins a multi-piece name with "::" (every
+    piece but the last without its extension) and turns "/" into "%";
+    `"input"` keeps the relative path (a multi-piece name its first
+    piece). By default a plain name is "input" and a multi-piece one
+    "flat", row by row. With `append`, names whose file exists are left
+    out (`exclude_existing`).
+
+    `stretch_by` (imgtools.py:20-29): "meanstd" denormalizes with the
+    mean and std, in float64 as the reference's python lists promote
+    (which keeps its truncation ties); "auto" stretches min to max;
+    "none" writes the raw values; a number n denormalizes, divides by n
+    and adds 1/(2n). A `tolab` marker in the dataset's transforms undoes
+    LAB instead (imgtools.py:31-60): denormalize, clip L to [0, 100] and
+    a, b to [-127, 127], convert to RGB; stretch_by is ignored there, as
+    in the reference. The other colorspaces (luv, lsh, the `tospace:X`
+    transform) and the channel sinks (chan1, chan42, add_meanstd) raise.
+
+    `close()` waits for every write and re-raises the first error."""
+
+    WRITERS = 6     # threads encoding and writing the files
+
+    def __init__(self, directory, mean_std, structure=None, append=False,
+                 stretch_by="meanstd", transforms=""):
+        self.transforms = transforms or ""
+        for marker in ("toluv", "tolsh", "tospace:"):
+            if marker in self.transforms:
+                raise NotImplementedError(
+                    "undoing the %r colorspace of an image output is not "
+                    "ported yet (ROADMAP A, item 5.3)" % marker)
+        for marker in ("chan1", "chan42", "add_meanstd"):
+            if marker in self.transforms:
+                raise NotImplementedError(
+                    "the %r image sink is not ported yet: its transforms are "
+                    "not (ROADMAP A, item 5.4)" % marker)
+        self.directory = resolve_path(directory)
+        self.mean = np.asarray(mean_std[0], np.float64)
+        self.std = np.asarray(mean_std[1], np.float64)
+        self.structure = structure
+        self.append = append
+        self.stretch_by = stretch_by
+        self.lab = "tolab" in self.transforms
+        os.makedirs(self.directory, exist_ok=True)
+        self.pool = ThreadPoolExecutor(self.WRITERS)
+        self.futures = []
+
+    @staticmethod
+    def flat_name(name):
+        if isinstance(name, (list, tuple)):
+            name = "::".join([x.rsplit(".", 1)[0] for x in name[:-1]]
+                             + [name[-1]])
+        return name.replace("/", "%")
+
+    def target_path(self, name):
+        structure = self.structure
+        if structure is None:
+            structure = "flat" if isinstance(name, (list, tuple)) else "input"
+        if structure == "flat":
+            name = self.flat_name(name)
+        elif isinstance(name, (list, tuple)):
+            name = name[0]
+        path = os.path.join(self.directory, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return path
+
+    def exclude_existing(self, names):
+        if not self.append:
+            return names
+        return [n for n in names if not os.path.exists(self.target_path(n))]
+
+    def to_uint8(self, arr):
+        """(H, W, C) float output -> the uint8 image written."""
+        if self.lab:
+            return self._lab_to_uint8(arr)
+        img = np.asarray(arr, np.float32)
+        if img.shape[-1] == 1:
+            img = img[..., 0]
+        elif img.shape[-1] > 3:
+            img = img[..., :3]
+        s = self.stretch_by
+        c = 1 if img.ndim == 2 else img.shape[-1]
+        if s == "auto":
+            img = img - np.min(img)
+            img = img / np.max(img)
+        elif s == "meanstd":
+            img = img * self.std[:c] + self.mean[:c]
+        elif s != "none":
+            img = img * self.std[:c] + self.mean[:c]
+            img = img / float(s)
+            img = img + 1.0 / 2.0 / float(s)
+        return np.clip(img * 255, 0, 255).astype(np.uint8)
+
+    def _lab_to_uint8(self, arr):
+        img = np.asarray(arr, np.float32)[..., :3] * self.std[:3] \
+            + self.mean[:3]
+        img[..., 0] = np.clip(img[..., 0], 0, 100)
+        img[..., 1:] = np.clip(img[..., 1:], -127, 127)
+        rgb = cs.lab_to_rgb(torch.from_numpy(img.astype(np.float32)))
+        # cv2 saturates the LAB2RGB float output to [0, 1]
+        return (rgb.clamp(0.0, 1.0).numpy() * 255).astype(np.uint8)
+
+    def add(self, name, image_hwc):
+        """Queue the write of one (H, W, C) float output."""
+        def write(arr):
+            Image.fromarray(self.to_uint8(arr)).save(self.target_path(name))
+        self.futures.append(self.pool.submit(write, np.asarray(image_hwc)))
+
+    def close(self):
+        try:
+            for f in self.futures:
+                f.result()
+        finally:
+            self.pool.shutdown()
+
+
+def _flat_data(data_cfg):
+    """The flat data section of either form; the nested form takes only
+    the reference's CirImageList dataset."""
+    data_cfg = dict(data_cfg or {})
+    if isinstance(data_cfg.get("test"), dict):
+        nested = dict(data_cfg["test"])
+        ds = dict(nested.pop("dataset", None) or {})
+        name = ds.pop("name", None)
+        if name not in (None, "CirImageList"):
+            raise NotImplementedError("infer dataset %r" % name)
+        data_cfg = {**nested, **ds}
+    return data_cfg
 
 
 def infer(params, data, device=None):
     """params: {network: {path | model, runtime}, data: {image_dir,
-    image_size, shape_bucket, transforms, mean_std, loader}, output: {type:
-    embedding}}; data[0]: the image names, joined to `data.image_dir` as
-    the reference's path_join does. Returns ({"count", "vecs" (D, N) in
-    name order, "names"},). Runs on cuda unless `device="cpu"`."""
-    # validate_stage imports this module for _load_network
-    from gandtr_tpu_torch.scenarios.validate_stage import build_eval
+    image_size, shape_bucket, transforms, mean_std, loader} (or the nested
+    form), output: {type: image | embedding, ...}, forward: {method,
+    params}}; data[0]: the image names, joined to `data.image_dir` as the
+    reference's path_join does. The embedding output returns ({"count",
+    "vecs" (D, N) in name order, "names"},), the image output
+    ({"count"},), the count of images run (an `append` output leaves out
+    those already written). Runs on cuda unless `device="cpu"`."""
     dev = resolve_device(device)
     # the stage's fixed seed, as the reference's (stages/infer.py:20-21)
     np.random.seed(0)
     seed_transforms(0)
     params = dict(params)
     names = list(data[0]) if data else []
-    out_type = dict(params.get("output") or {}).get("type", "image")
-    if out_type != "embedding":
+    out_cfg = dict(params.pop("output", None) or {})
+    out_type = out_cfg.pop("type", "image")
+    data_cfg = _flat_data(params.pop("data", None))
+    if data_cfg.get("device_postprocess"):
         raise NotImplementedError(
-            "infer output %r is not ported yet; only `embedding` is"
-            % out_type)
+            "data.device_postprocess (the JAX package's opt-in uint8 "
+            "quantization on the device) is not ported")
+    if out_type == "image":
+        return _infer_images(params, data_cfg, out_cfg, names, dev)
+    if out_type != "embedding":
+        raise ValueError("infer output type %r" % out_type)
     if params.get("forward"):
-        raise NotImplementedError("infer's `forward` section is not ported "
-                                  "yet")
-    data_cfg = dict(params.get("data") or {})
+        raise NotImplementedError("infer's `forward` section takes an image "
+                                  "output only")
+    # validate_stage imports this module for _load_network
+    from gandtr_tpu_torch.scenarios.validate_stage import build_eval
     setup = build_eval({"network": params["network"], "data": data_cfg},
                        dev)
     image_dir = resolve_path(data_cfg.get("image_dir", ""))
@@ -59,6 +216,79 @@ def infer(params, data, device=None):
                            int(image_size) if image_size else None,
                            setup["transform"], batch_size=batch_size)
     return ({"count": len(names), "vecs": vecs, "names": names},)
+
+
+def _infer_images(params, data_cfg, out_cfg, names, dev):
+    """The image output: same-shape batches of `loader.batch_size` through
+    the network in eval mode, each output written by an RgbImageSaver."""
+    if data_cfg.get("shape_bucket"):
+        raise ValueError("data.shape_bucket needs an embedding output (an "
+                         "image would keep the pad band)")
+    model = _load_network(params["network"], dev)
+    net_defaults = model.data_params if isinstance(model.data_params, dict) \
+        else {}
+    tf_str = data_cfg.get("transforms", net_defaults.get(
+        "transforms", "pil2np | totensor | normalize"))
+    mean_std = data_cfg.get("mean_std", net_defaults.get("mean_std",
+                                                         GAN_MEAN_STD))
+    sink = RgbImageSaver(out_cfg.pop("directory"), mean_std,
+                         structure=out_cfg.pop("structure", None),
+                         append=bool(out_cfg.pop("append", False)),
+                         stretch_by=out_cfg.pop("stretch_by", "meanstd"),
+                         transforms=tf_str)
+    # uint8 images go up and are normalized on the device where the
+    # pipeline splits so (the generators' pil2np | totensor | normalize)
+    transform, device_pre = split_device_transform(tf_str, mean_std)
+    if device_pre is None:
+        transform = initialize_transforms(tf_str, mean_std)
+
+    fwd_cfg = dict(params.get("forward") or {})
+    fwd_kwargs = dict(fwd_cfg.get("params") or {})
+    method = fwd_cfg.get("method")
+    if method:
+        bound = getattr(model.module, method)
+
+        def run(x):
+            return apply_wrapped(model.wrappers_eval,
+                                 lambda xx: bound(xx, **fwd_kwargs), x, {})
+    else:
+        def run(x):
+            return model.apply(x, train=False, **fwd_kwargs)
+
+    names = sink.exclude_existing(names)
+    batch_size = int((data_cfg.get("loader") or {}).get("batch_size", 8))
+    image_dir = resolve_path(data_cfg.get("image_dir", ""))
+    image_size = data_cfg.get("image_size")
+
+    def load(i):
+        img = imread(path_join(image_dir, names[i]))
+        if image_size:
+            img = imresize(img, int(image_size))
+        return np.asarray(transform(img))
+
+    def flush(batch_names, arrays):
+        x = upload(np.stack(arrays), dev)
+        with torch.no_grad():
+            if device_pre is not None:
+                x = device_pre(x.float() / 255.0)
+            out = run(x).float().cpu().numpy()
+        for name, y in zip(batch_names, out):
+            sink.add(name, y)
+
+    try:
+        buckets = {}
+        for i, arr in _prefetched(len(names), load,
+                                  depth=max(8, batch_size)):
+            bucket = buckets.setdefault(arr.shape, ([], []))
+            bucket[0].append(names[i])
+            bucket[1].append(arr)
+            if len(bucket[0]) == batch_size:
+                flush(*buckets.pop(arr.shape))
+        for shape in list(buckets):
+            flush(*buckets.pop(shape))
+    finally:
+        sink.close()
+    return ({"count": len(names)},)
 
 
 def _load_network(net_cfg, device):

@@ -17,6 +17,7 @@ import torch
 
 from gandtr_tpu_torch.device import resolve_device
 from gandtr_tpu_torch.utils.io import resolve_path
+from gandtr_tpu_torch.utils.stats import CodeVersion, ResourceUsage
 
 
 def train(params, data=None, device=None):
@@ -46,6 +47,7 @@ def train(params, data=None, device=None):
                              "(data.train.dataset.dataset_pkl)")
     else:
         raise NotImplementedError("network type %s" % net_type)
+    usage = ResourceUsage(dev)
     training = exp["training"]
     state, start_epoch = training.resume_or_start(exp["state"])
     if training.epochs <= 0 and start_epoch == 1:
@@ -55,17 +57,23 @@ def train(params, data=None, device=None):
                  for name in state.models})
         return ({},)
     training.run(state, start_epoch=start_epoch)
-    return (_stage_metadata(exp["events"], directory),)
+    return (_stage_metadata(exp["events"], directory, usage),)
 
 
-def _stage_metadata(events, directory):
-    """The last epoch's metrics, each metric's per-epoch series, the best
-    epoch and the directory."""
+def _stage_metadata(events, directory, usage):
+    """The stage metadata of the reference's learning: `metrics`, the last
+    epoch's flat values merged with the reference's per-epoch key forms
+    (`events.ref_metadata`, whose keys all carry a ':' or a suffix the
+    flat ones lack); `metrics_series`, each metric's per-epoch values; the
+    best epoch; the resources used; the code version; the directory."""
     series = {key: [by_epoch[e] for e in sorted(by_epoch)]
               for key, by_epoch in events.metadata.metrics.items()
               if by_epoch}
-    return {"metrics": dict(events.history[-1]["metrics"]
-                            if events.history else {}),
+    metrics = dict(events.history[-1]["metrics"] if events.history else {})
+    metrics.update(events.ref_metadata())
+    return {"metrics": metrics,
             "metrics_series": series,
             "best_epoch": events.metadata.best_epoch(),
+            "resource_usage": usage.snapshot(),
+            "code_version": CodeVersion().snapshot(),
             "directory": directory}

@@ -185,15 +185,15 @@ def _cfg_with(tmp_path, path, value):
 
 @pytest.mark.parametrize("path,value,match", [
     (("learning", "training", "epoch_iteration", "concat_student"), True,
-     "ROADMAP A.5"),
+     "ROADMAP A.2"),
     (("learning", "training", "epoch_iteration", "cache_teacher_targets"),
-     {"max_items": 8}, "ROADMAP A.5"),
+     {"max_items": 8}, "ROADMAP A.2"),
+    (("learning", "training", "parallel"), {"devices": 2},
+     "data-parallel GAN training.*ROADMAP A.7"),
     (("learning", "training", "epoch_iteration", "type"),
-     "SupervisedCycleGanEpoch", "CycleGAN.*ROADMAP A.5"),
+     "SupervisedCUTEpoch", "CUT.*ROADMAP A.2"),
     (("learning", "training", "epoch_iteration", "type"),
-     "SupervisedCUTEpoch", "CUT.*ROADMAP A.5"),
-    (("learning", "training", "epoch_iteration", "type"),
-     "SupervisedHEDGANEpoch", "HED-GAN.*ROADMAP A.5"),
+     "SupervisedHEDGANEpoch", "HED-GAN.*ROADMAP A.2"),
     (("learning", "training", "optimizer", "composition"),
      {"alternate_iteration": 2, "order": "generator_X,discriminator_Y"},
      "alternate_iteration"),

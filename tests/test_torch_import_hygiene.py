@@ -25,7 +25,9 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "learning.training", "models.backbones", "ops.pooling",
           "ops.whiten", "scenarios.multistep_stage", "models.discriminators",
           "models.hed", "learning.gan_steps", "learning.html_report",
-          "scenarios.build", "scenarios.train_stage")
+          "scenarios.build", "scenarios.train_stage", "scenarios.engine",
+          "scenarios.run", "scenarios.stages", "utils.download",
+          "utils.stats", "learning.image_pool")
 
 torch.set_num_threads(1)
 
@@ -69,7 +71,8 @@ def test_no_source_file_names_jax():
                                    "gem_resnet101_cyclegan",
                                    "gem_resnet101_hedngan", "infer",
                                    "infer_and_learn_whitening", "train",
-                                   "gan_build"])
+                                   "gan_build", "infer_image",
+                                   "run_target"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from gandtr_tpu_torch import hub
@@ -95,6 +98,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
         elif entry == "infer":
             from gandtr_tpu_torch.scenarios.infer_stage import infer
             infer({"network": {}, "output": {"type": "embedding"}}, ([],))
+        elif entry == "infer_image":
+            from gandtr_tpu_torch.scenarios.infer_stage import infer
+            infer({"network": {}, "output": {"type": "image"}}, ([],))
+        elif entry == "run_target":
+            from gandtr_tpu_torch.scenarios.run import run_target
+            run_target({"t": {"1_v": {"__function__": "mdir.stages.validate"
+                                      ".validate", "network": {},
+                                      "validation": {}}}}, "t", "s")
         elif entry == "infer_and_learn_whitening":
             from gandtr_tpu_torch.scenarios.multistep_stage import \
                 infer_and_learn_whitening

@@ -282,7 +282,8 @@ def test_without_directory_returns_the_whitening(stages):
 def test_infer_embedding_in_name_order(stages):
     """The infer stage on names of two buckets, in an order that is not
     the buckets': columns in the names' order, each equal to the image's
-    descriptor alone, bucketed equal to exact within 1e-5."""
+    descriptor alone, bucketed equal to exact within 1e-5; an image
+    output refuses the shape bucket."""
     params = copy.deepcopy(stages["port"]["params"])
     params.pop("whitening")
     params["output"] = {"type": "embedding"}
@@ -299,6 +300,8 @@ def test_infer_embedding_in_name_order(stages):
     (exact,) = tinfer.infer(params, (names,), device="cpu")
     np.testing.assert_allclose(meta["vecs"], exact["vecs"], atol=1e-5,
                                rtol=0)
+    # an image output takes no shape bucket (it would keep the pad band)
+    params["data"]["shape_bucket"] = 64
     params["output"] = {"type": "image", "directory": stages["root"]}
-    with pytest.raises(NotImplementedError, match="embedding"):
+    with pytest.raises(ValueError, match="embedding output"):
         tinfer.infer(params, (names,), device="cpu")
