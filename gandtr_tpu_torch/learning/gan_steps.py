@@ -1,5 +1,6 @@
-"""The GAN train steps, HED^N-GAN and CycleGAN (counterpart of
-gandtr_tpu/learning/gan_steps.py).
+"""The GAN train steps, HED^N-GAN, HED-GAN, CUT and CycleGAN
+(counterpart of gandtr_tpu/learning/gan_steps.py). RCF-GAN and RCF^N-GAN
+are HED-GAN and HED^N-GAN with RCF detectors (models/rcf.py).
 
 HED^N-GAN (the reference's SupervisedHEDNGANEpoch, edges_epochs.py:
 61-121): one step on a batch (real_X day images, real_Y night images), in the
@@ -25,10 +26,10 @@ losses), `D_real`, `D_fake`, `G_gan`, `G_hed`, `E_real`, `E_fake` as 0-dim
 tensors on the device, and the last sample of the batch's images and edge
 maps for the event blobs. Nothing is read back to the host.
 
-`build_cyclegan_step` is CycleGAN's step (below), with its image pools
-(learning/image_pool.py). The JAX package's opt-in knobs `concat_student`
-and `cache_teacher_targets`, and the HED-GAN and CUT families, are
-ROADMAP A.2.
+`build_hedgan_step`, `build_cut_step` and `build_cyclegan_step` (the
+latter with its image pools, learning/image_pool.py) are the other
+families' steps (below). The JAX package's opt-in knobs `concat_student`
+and `cache_teacher_targets` are ROADMAP A.2.
 """
 import contextlib
 from dataclasses import dataclass, field
@@ -46,15 +47,20 @@ class GanState:
     optimizers: Dict[str, Any]   # {name: torch optimizer}
     pools: Dict[str, Any] = field(default_factory=dict)  # {name: ImagePool}
     step: int = 0
+    # {name: CPU torch.Generator}: CUT's patch positions ("patches")
+    rngs: Dict[str, Any] = field(default_factory=dict)
 
     def state_dict(self):
         """What a resume needs besides the networks' weights and
         statistics: every optimizer's state (Adam's moments and step
-        counts, on the host), the image pools and the step count."""
+        counts, on the host), the image pools, the generators' states and
+        the step count."""
         return {"optimizers": {name: _to_cpu(opt.state_dict())
                                for name, opt in self.optimizers.items()},
                 "pools": {name: pool.state_dict()
                           for name, pool in self.pools.items()},
+                "rngs": {name: g.get_state() for name, g in
+                         self.rngs.items()},
                 "step": int(self.step)}
 
     def load_state_dict(self, state):
@@ -64,12 +70,14 @@ class GanState:
                       ).device
         for name, pool in self.pools.items():
             pool.load_state_dict(state["pools"][name], device)
+        for name, g in self.rngs.items():
+            g.set_state(state["rngs"][name])
         self.step = int(state["step"])
 
 
-def make_gan_state(models, optimizers, pools=None):
+def make_gan_state(models, optimizers, pools=None, rngs=None):
     return GanState(models=dict(models), optimizers=dict(optimizers),
-                    pools=dict(pools or {}))
+                    pools=dict(pools or {}), rngs=dict(rngs or {}))
 
 
 @contextlib.contextmanager
@@ -88,6 +96,19 @@ def _no_param_grads(*nets):
 
 def _adversarial(pred, is_real):
     return L.discriminator_loss(pred, is_real, L.mse_loss)[0]
+
+
+def _d_step(D, opt, real, fake, w_adv):
+    """One D update (gan_epochs.py:19-37): D(real) then D(fake), each in
+    train mode, the mse against the inverted targets, weighted and
+    averaged. Returns (loss, loss_real, loss_fake), detached."""
+    opt.zero_grad(set_to_none=True)
+    loss_real = w_adv * _adversarial(D.apply(real, train=True), True)
+    loss_fake = w_adv * _adversarial(D.apply(fake, train=True), False)
+    loss = (loss_real + loss_fake) * 0.5
+    loss.backward()
+    opt.step()
+    return loss.detach(), loss_real.detach(), loss_fake.detach()
 
 
 def build_hedngan_step(models, optimizers, weights):
@@ -109,12 +130,7 @@ def build_hedngan_step(models, optimizers, weights):
         fake_sg = fake_Y.detach()
 
         # (2) D step
-        opt_d.zero_grad(set_to_none=True)
-        d_real = w_adv * _adversarial(D.apply(real_Y, train=True), True)
-        d_fake = w_adv * _adversarial(D.apply(fake_sg, train=True), False)
-        d_loss = (d_real + d_fake) * 0.5
-        d_loss.backward()
-        opt_d.step()
+        d_loss, d_real, d_fake = _d_step(D, opt_d, real_Y, fake_sg, w_adv)
 
         # (3) E step: the student distilled on the frozen teacher
         with torch.no_grad():
@@ -143,14 +159,170 @@ def build_hedngan_step(models, optimizers, weights):
             # the teacher, for the blobs
             real_E_check = H_s.apply(real_X[-1:], train=False)[0]
         state.step += 1
-        metrics = {"total": (g_loss + d_loss).detach(),
-                   "D_real": d_real.detach(), "D_fake": d_fake.detach(),
+        metrics = {"total": g_loss.detach() + d_loss,
+                   "D_real": d_real, "D_fake": d_fake,
                    "G_gan": g_gan.detach(), "G_hed": g_hed.detach(),
                    "E_real": e_real.detach(), "E_fake": e_fake.detach()}
         debug = {"real_X": real_X[-1], "real_Y": real_Y[-1],
                  "fake_Y": fake_sg[-1], "real_E": real_E[-1],
                  "fake_E": fake_E.detach()[-1],
                  "real_E_check": real_E_check}
+        return state, metrics, debug
+
+    return step
+
+
+def build_hedgan_step(models, optimizers, weights):
+    """step(state, real_X, real_Y) -> (state, metrics, debug) for `models`
+    {generator_X, discriminator_Y, detector} (WrappedNets; the detector,
+    HED or RCF, does not train) and an optimizer for the first two;
+    `weights` are the criterion's {adversarial, edge} (1, 5 as
+    published). The reference's order (edges_epochs.py:8-54):
+
+    1. one generator forward, fake_Y = G(real_X), kept for (3);
+    2. the D step on real_Y and fake_Y.detach(), as HED^N-GAN's;
+    3. the G step through the updated D (train mode: its statistics move
+       again) and the detector in eval mode: the mse of D(fake_Y) against
+       "real" and the L1 of the detector's edge map of fake_Y against
+       real_E, its map of real_X without autograd; one Adam step. D and
+       the detector take no parameter gradient.
+
+    The metrics are `total`, `D_real`, `D_fake`, `G_gan`, `G_hed`; the
+    debug dict the last sample's images and edge maps."""
+    w_adv = float(weights.get("adversarial", 1.0))
+    w_edge = float(weights.get("edge", 5.0))
+    G, D, H = (models[k] for k in ("generator_X", "discriminator_Y",
+                                   "detector"))
+    opt_g = optimizers["generator_X"]
+
+    def step(state, real_X, real_Y):
+        fake_Y = G.apply(real_X, train=True)
+        fake_sg = fake_Y.detach()
+        d_loss, d_real, d_fake = _d_step(D, optimizers["discriminator_Y"],
+                                         real_Y, fake_sg, w_adv)
+        with torch.no_grad():
+            real_E = H.apply(real_X, train=False)
+        opt_g.zero_grad(set_to_none=True)
+        with _no_param_grads(D, H):
+            g_gan = w_adv * _adversarial(D.apply(fake_Y, train=True), True)
+            fake_E = H.apply(fake_Y, train=False)
+            g_hed = w_edge * L.l1_loss(fake_E, real_E)
+            g_loss = g_gan + g_hed
+            g_loss.backward()
+        opt_g.step()
+        state.step += 1
+        metrics = {"total": g_loss.detach() + d_loss, "D_real": d_real,
+                   "D_fake": d_fake, "G_gan": g_gan.detach(),
+                   "G_hed": g_hed.detach()}
+        debug = {"real_X": real_X[-1], "real_Y": real_Y[-1],
+                 "fake_Y": fake_sg[-1], "real_E": real_E[-1],
+                 "fake_E": fake_E.detach()[-1]}
+        return state, metrics, debug
+
+    return step
+
+
+@contextlib.contextmanager
+def _statistics_kept(module):
+    """The module's BatchNorm running statistics put back, at the end of
+    the block, to what they were at its start: the JAX package discards
+    CUT's encoder passes' updates of them."""
+    saved = [(b, b.clone()) for name, b in module.named_buffers()
+             if name.rsplit(".", 1)[-1] in ("running_mean", "running_var",
+                                            "num_batches_tracked")]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)
+
+
+def build_cut_step(models, optimizers, weights, nce_layers=(4, 8, 12, 16),
+                   num_patches=256, temperature=0.07, nce_weight=1.0,
+                   batch_dim_for_bmm=1, fixed_patch_ids=None):
+    """step(state, real_X, real_Y) -> (state, metrics, debug) for `models`
+    {generator_X, featdown, discriminator_Y} (WrappedNets; featdown a
+    PatchSampleF) and an optimizer each; `weights` are the criterion's
+    {adversarial, identity} (1, 10 as published), the rest its `nce`
+    section. The reference's order (cut_epochs.py:20-89):
+
+    1. one generator forward on [real_X; real_Y] (the identity trick):
+       fake_Y and idt_Y, kept for (3);
+    2. the D step on real_Y and fake_Y.detach();
+    3. the joint G and featdown step: the mse of D(fake_Y) (the updated
+       D, train mode) against "real", plus the mean of PatchNCE(real_X ->
+       fake_Y) and of the identity PatchNCE(real_Y -> idt_Y); one Adam
+       step each. A PatchNCE runs the generator's taps (`nce_layers`,
+       train mode, BatchNorm statistics left as they were) on the source
+       and on the output, samples `num_patches` positions a tap from the
+       source's (the key, no gradient) and the same ones from the
+       output's (the query), and takes the multilayer loss.
+
+    As in the reference, the criterion's `weight` multiplies each tap's
+    loss inside the multilayer loss and the NCE term again outside it:
+    the NCE term scales by weight squared and the identity term by
+    identity x weight (the same at the published weight 1).
+
+    Positions come from `state.rngs["patches"]`, a CPU torch.Generator,
+    or `fixed_patch_ids` (one index array a tap, both PatchNCEs) when
+    given. The metrics are `total`, `D_real`, `D_fake`, `G_gan`, `G_nce`
+    (the averaged NCE term), `G_idt`; the debug dict the last sample's
+    images and idt_Y."""
+    w_adv = float(weights.get("adversarial", 1.0))
+    w_idt = float(weights.get("identity", 10.0))
+    w_nce = float(nce_weight)
+    nce_layers = [int(i) for i in nce_layers]
+    G, F, D = (models[k] for k in ("generator_X", "featdown",
+                                   "discriminator_Y"))
+    opt_g, opt_f = optimizers["generator_X"], optimizers["featdown"]
+
+    def nce(src, dst, generator):
+        feat_q = G.apply(dst, train=True, layers=nce_layers,
+                         encode_only=True)
+        with torch.no_grad():
+            feat_k = G.apply(src, train=True, layers=nce_layers,
+                             encode_only=True)
+            pool_k, ids = F.apply(feat_k, train=True,
+                                  num_patches=num_patches,
+                                  patch_ids=fixed_patch_ids,
+                                  generator=generator)
+        pool_q, _ = F.apply(feat_q, train=True, num_patches=num_patches,
+                            patch_ids=ids)
+        return L.multilayer_patch_nce_loss(pool_q, pool_k, batch_dim_for_bmm,
+                                           temperature, w_nce)[0]
+
+    def step(state, real_X, real_Y):
+        n = real_X.shape[0]
+        fake = G.apply(torch.cat([real_X, real_Y]), train=True)
+        fake_Y, idt_Y = fake[:n], fake[n:]
+        fake_sg = fake_Y.detach()
+        d_loss, d_real, d_fake = _d_step(D, optimizers["discriminator_Y"],
+                                         real_Y, fake_sg, w_adv)
+        generator = state.rngs.get("patches")
+        opt_g.zero_grad(set_to_none=True)
+        opt_f.zero_grad(set_to_none=True)
+        # the statistics go back after the backward, which needs them as
+        # the encoder passes left them
+        with _no_param_grads(D), _statistics_kept(G.module):
+            g_gan = w_adv * _adversarial(D.apply(fake_Y, train=True), True)
+            g_nce = w_nce * nce(real_X, fake_Y, generator)
+            if w_idt > 0.0 and w_nce > 0.0:
+                g_idt = w_idt * nce(real_Y, idt_Y, generator)
+                g_nce_total = (g_nce + g_idt) * 0.5
+            else:
+                g_idt = torch.zeros((), device=fake.device)
+                g_nce_total = g_nce
+            g_loss = g_gan + g_nce_total
+            g_loss.backward()
+        opt_g.step()
+        opt_f.step()
+        state.step += 1
+        metrics = {"total": g_loss.detach() + d_loss, "D_real": d_real,
+                   "D_fake": d_fake, "G_gan": g_gan.detach(),
+                   "G_nce": g_nce_total.detach(), "G_idt": g_idt.detach()}
+        debug = {"real_X": real_X[-1], "real_Y": real_Y[-1],
+                 "fake_Y": fake_sg[-1], "idt_Y": idt_Y.detach()[-1]}
         return state, metrics, debug
 
     return step
@@ -184,16 +356,6 @@ def build_cyclegan_step(models, optimizers, weights_GX, weights_GY):
     GX, GY = models["generator_X"], models["generator_Y"]
     DX, DY = models["discriminator_X"], models["discriminator_Y"]
 
-    def d_step(name, D, real, fake):
-        opt = optimizers[name]
-        opt.zero_grad(set_to_none=True)
-        loss_real = _adversarial(D.apply(real, train=True), True)
-        loss_fake = _adversarial(D.apply(fake, train=True), False)
-        loss = (loss_real + loss_fake) * 0.5
-        loss.backward()
-        opt.step()
-        return loss.detach()
-
     def step(state, real_X, real_Y):
         # (1) the joint generator step
         for name in ("generator_X", "generator_Y"):
@@ -219,8 +381,10 @@ def build_cyclegan_step(models, optimizers, weights_GX, weights_GY):
         with torch.no_grad():
             fake_Y_pool = state.pools["fake_X_pool"].query(fake_Y)
             fake_X_pool = state.pools["fake_Y_pool"].query(fake_X)
-        dx_loss = d_step("discriminator_X", DX, real_Y, fake_Y_pool)
-        dy_loss = d_step("discriminator_Y", DY, real_X, fake_X_pool)
+        dx_loss = _d_step(DX, optimizers["discriminator_X"], real_Y,
+                          fake_Y_pool, 1.0)[0]
+        dy_loss = _d_step(DY, optimizers["discriminator_Y"], real_X,
+                          fake_X_pool, 1.0)[0]
 
         state.step += 1
         metrics = {"total": g_total.detach() + dx_loss + dy_loss,
@@ -239,16 +403,9 @@ def build_cyclegan_step(models, optimizers, weights_GX, weights_GY):
     return step
 
 
-def _not_ported(family):
-    def build(*args, **kwargs):
-        raise NotImplementedError(
-            "the %s train step is not ported yet (ROADMAP A.2)" % family)
-    return build
-
-
 GAN_STEPS = {
     "hedngan": build_hedngan_step,
+    "hedgan": build_hedgan_step,
+    "cut": build_cut_step,
     "cyclegan": build_cyclegan_step,
-    "hedgan": _not_ported("HED-GAN"),
-    "cut": _not_ported("CUT"),
 }

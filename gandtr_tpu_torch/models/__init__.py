@@ -1,12 +1,15 @@
 """Model registry (counterpart of gandtr_tpu/models/__init__.py). Ported so
 far: the descriptor net `cirnet` (GeM VGG16 and ResNet), the ResNet
 generator `official_resnet_generator`, the PatchGAN discriminators
-`official_p2p_discriminator` and `official_patch_discriminator`, and the
-HED edge detector `hed_interpolation`."""
+`official_p2p_discriminator` and `official_patch_discriminator`, the edge
+detectors `hed_interpolation` and `rcf`, and CUT's feature sampler
+`official_p2p_mlp`."""
 from gandtr_tpu_torch.models.discriminators import (NLayerDiscriminator,
                                                     PatchDiscriminator)
 from gandtr_tpu_torch.models.generators import ResnetGenerator
 from gandtr_tpu_torch.models.hed import HedInterpolation
+from gandtr_tpu_torch.models.patchsample import PatchSampleF
+from gandtr_tpu_torch.models.rcf import RCF
 from gandtr_tpu_torch.models.retrieval import GemRetrievalNet
 
 
@@ -36,6 +39,14 @@ def _discriminator(**kw):
     return NLayerDiscriminator(**kw)
 
 
+def _mlp(**kw):
+    # the reference's eager-MLP arguments: the MLPs are made from the
+    # generator's taps (scenarios/build.py), their weights by `initialize`
+    for k in ("init_type", "init_gain", "input_nc", "nce_layers"):
+        kw.pop(k, None)
+    return PatchSampleF(**kw)
+
+
 def _patch_discriminator(**kw):
     kw.setdefault("norm_type", kw.pop("norm_layer", "batch"))
     return PatchDiscriminator(**kw)
@@ -48,6 +59,8 @@ MODEL_LABELS = {
     "official_patch_discriminator": _patch_discriminator,
     "hed_interpolation": lambda **kw: HedInterpolation(
         width_mult=float(kw.get("width_mult", 1.0))),
+    "rcf": lambda **kw: RCF(),
+    "official_p2p_mlp": _mlp,
 }
 
 

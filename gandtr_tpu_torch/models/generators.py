@@ -21,8 +21,17 @@ forward on it. Reflect padding reflects at each image's own boundary
 followed by re-zeroing the band; sizes follow torch's floor rule for the
 stride-2 convs and x2 for the transposed convs; the call returns
 `(y, out_mask)`. K3 is not used there (it has no masked form), and a
-training-mode BatchNorm is refused. Only `no_antialias` sampling is ported:
-the feature taps (`layers`, `encode_only`), the blur-pool sampling,
+training-mode BatchNorm is refused.
+
+Feature taps (`forward(x, layers=..., encode_only=...)`, CUT's PatchNCE,
+p2p_networks.py:318-337): `layers` are indices into `model` (the torch
+Sequential's); the forward returns `(y, feats)`, or with `encode_only`
+only `feats`, stopping after the last tap. The reference's ReLUs are in
+place, so a tap whose next module is a ReLU is seen ReLU'd, and is stored
+so here; the tap at which `encode_only` returns is stored before that
+ReLU, since the reference returns before running it.
+
+Only `no_antialias` sampling is ported: the blur-pool sampling,
 ResnetEncoder / ResnetDecoder and UnetGenerator come later.
 """
 import torch
@@ -147,9 +156,14 @@ class ResnetGenerator(nn.Module):
         self.norm_type = norm_type
         self.meta = {"in_channels": input_nc, "out_channels": output_nc}
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, layers=(), encode_only=False):
         """x: (N, H, W, input_nc). With `mask` (N, H, W), the masked mode:
-        returns (y, out_mask) with the output's valid rectangles."""
+        returns (y, out_mask) with the output's valid rectangles. With
+        `layers`, the feature taps (the module docstring)."""
+        if layers:
+            if mask is not None:
+                raise NotImplementedError("feature taps in masked mode")
+            return self._taps(x, list(layers), encode_only)
         if mask is None:
             return self.model(x)
         if self.training and self.norm_type == "batch":
@@ -158,6 +172,20 @@ class ResnetGenerator(nn.Module):
         ms = MaskState.maybe(mask)
         y, ms = _masked_layers(self.model, ms.apply(x), ms)
         return y, ms.mask(y.shape[1], y.shape[2], y.dtype)
+
+    def _taps(self, x, layers, encode_only):
+        mods = list(self.model)
+        feats, h = [], x
+        for i, module in enumerate(mods):
+            h = module(h)
+            last = encode_only and i == layers[-1]
+            if i in layers:
+                relu_next = i + 1 < len(mods) and isinstance(mods[i + 1],
+                                                             nn.ReLU)
+                feats.append(torch.relu(h) if relu_next and not last else h)
+            if last:
+                return feats
+        return h, feats
 
     @staticmethod
     def output_hw(h, w):

@@ -64,12 +64,12 @@ class Pad(nn.Module):
 
 class Conv(nn.Conv2d):
     """Conv2d with torch-style integer padding (`pad_mode` zero, reflect or
-    replicate); NHWC in and out."""
+    replicate) and dilation; NHWC in and out."""
 
     def __init__(self, in_channels, features, kernel_size=3, stride=1,
-                 padding=0, use_bias=True, pad_mode="zero"):
+                 padding=0, use_bias=True, pad_mode="zero", dilation=1):
         super().__init__(in_channels, features, kernel_size, stride=stride,
-                         bias=use_bias)
+                         dilation=dilation, bias=use_bias)
         self.pad, self.pad_mode = padding, pad_mode
 
     def forward(self, x):
@@ -79,7 +79,7 @@ class Conv(nn.Conv2d):
         if self.pad and not zero:
             x = pad2d(x, self.pad, self.pad_mode)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt), None,
-                     self.stride, self.pad if zero else 0)
+                     self.stride, self.pad if zero else 0, self.dilation)
         y = y.permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(dt)

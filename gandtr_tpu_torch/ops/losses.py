@@ -1,7 +1,8 @@
 """Losses (counterpart of gandtr_tpu/ops/losses.py): the contrastive loss
-over (D, N) descriptor columns, the reference's layout, and the GAN losses
+over (D, N) descriptor columns, the reference's layout, the GAN losses
 with the reference's inverted adversarial targets (real -> 0, fake -> 1,
-compound_losses.py:47-50)."""
+compound_losses.py:47-50), and CUT's PatchNCE (compound_losses.py:
+113-173)."""
 import torch
 
 
@@ -51,3 +52,33 @@ def discriminator_loss(output, is_target_real, criterion=mse_loss):
             total = total + partial[key]
         return total, partial
     return criterion(output, adversarial_target(output, is_target_real)), {}
+
+
+def patch_nce_loss(feat_q, feat_k, batch_dim_for_bmm=1, temperature=0.07):
+    """PatchNCE per patch, no reduction. feat_q, feat_k: (P, dim) sampled
+    features of the same P positions; the key takes no gradient. Each
+    query's positive is its own key, its negatives the other keys of its
+    bmm batch (the diagonal there set to -10); cross entropy to class 0
+    of the logits over `temperature`. Returns (P,)."""
+    dim = feat_q.shape[1]
+    feat_k = feat_k.detach()
+    l_pos = (feat_q * feat_k).sum(dim=1, keepdim=True)
+    fq = feat_q.reshape(batch_dim_for_bmm, -1, dim)
+    fk = feat_k.reshape(batch_dim_for_bmm, -1, dim)
+    n = fq.shape[1]
+    l_neg = torch.bmm(fq, fk.transpose(1, 2))
+    diag = torch.eye(n, dtype=torch.bool, device=l_neg.device)[None]
+    l_neg = l_neg.masked_fill(diag, -10.0).reshape(-1, n)
+    logits = torch.cat([l_pos, l_neg], dim=1) / temperature
+    return -torch.log_softmax(logits, dim=1)[:, 0]
+
+
+def multilayer_patch_nce_loss(feats_q, feats_k, batch_dim_for_bmm=1,
+                              temperature=0.07, weight=1.0):
+    """(total, partial): each tap's mean PatchNCE times `weight`, under
+    layer<i>, and their mean over the taps."""
+    partial = {}
+    for i, (fq, fk) in enumerate(zip(feats_q, feats_k)):
+        partial["layer%d" % i] = (patch_nce_loss(
+            fq, fk, batch_dim_for_bmm, temperature) * weight).mean()
+    return sum(partial.values()) / len(partial), partial

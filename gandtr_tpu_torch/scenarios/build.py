@@ -1,12 +1,23 @@
 """Build the GAN training experiment of a train scenario (counterpart of
 gandtr_tpu/scenarios/build.py::build_gan_experiment; the reference's
-initialize_learning) for the HED^N-GAN family of
-parameters/train_hedngan.yml (the NetworkSet generator_X,
-discriminator_Y, the student `detector` and its frozen teacher
-`detector_frozen`) and the CycleGAN family of parameters/
-train_cyclegan.yml (generator_X, generator_Y, discriminator_X,
-discriminator_Y, and two image pools of `epoch_iteration.pool_size`): an
-Adam per trained network with its lr schedule, the step, the
+initialize_learning) for the four families of the paper:
+
+- HED^N-GAN, parameters/train_hedngan.yml: the NetworkSet generator_X,
+  discriminator_Y, the student `detector` and its frozen teacher
+  `detector_frozen` (HED; RCF in rcfngan.yml);
+- HED-GAN, parameters/train_hedgan.yml: the same without the teacher and
+  with a detector that does not train (HED; RCF in rcfgan.yml);
+- CUT, parameters/train_cut.yml: generator_X, discriminator_Y and the
+  `featdown` PatchSampleF, whose MLPs are made from the generator's taps
+  on a sample input before the weights are set (the JAX package's lazy
+  member), with the criterion's `nce` section (nce_layers, num_patches,
+  temperature, weight, batch_dim_for_bmm) and a CPU torch.Generator for
+  the patch positions, seeded from `learning.training.seed`;
+- CycleGAN, parameters/train_cyclegan.yml: generator_X, generator_Y,
+  discriminator_X, discriminator_Y, and two image pools of
+  `epoch_iteration.pool_size`;
+
+each with an Adam per trained network and its lr schedule, the step, the
 RandomDomainsPair loader, events, checkpoints and the visual validation.
 
     exp = build_gan_experiment(params, directory)        # on cuda
@@ -23,13 +34,15 @@ straight run bit for bit.
 
 `dispatch_chunk: K` is the loop's `chunk`: the same steps in the same
 order, the metrics read back once a chunk. Not ported (ROADMAP A.2, A.7):
-the CUT and HED-GAN families, `concat_student`,
-`cache_teacher_targets`, `device_scalecrop`, `alternate_iteration` other
-than 1, path-form members, and data parallelism.
+`concat_student`, `cache_teacher_targets`, `device_scalecrop`,
+`alternate_iteration` other than 1, path-form members, and data
+parallelism.
 """
 import copy
 import os
 import warnings
+
+import torch
 
 from gandtr_tpu_torch.data.datasets import (InferImageListDataset, Loader,
                                             initialize_dataset_loader)
@@ -104,6 +117,30 @@ def _init_nets(nets, init_specs, net_cfg, seed, device):
             net.module.eval().requires_grad_(False)
 
 
+def _nce_options(crit):
+    """build_cut_step's keyword arguments from the criterion's `nce`
+    section."""
+    nce = dict(crit.get("nce") or {})
+    return {"nce_layers": tuple(int(i) for i in str(
+                nce.get("nce_layers", "4,8,12,16")).split(",")),
+            "num_patches": int(nce.get("num_patches", 256)),
+            "temperature": float(nce.get("temperature", 0.07)),
+            "nce_weight": float(nce.get("weight", 1.0)),
+            "batch_dim_for_bmm": int(nce.get("batch_dim_for_bmm", 1))}
+
+
+def _create_featdown(nets, nce_layers):
+    """featdown's MLPs, one for each of the generator's taps on a sample
+    input (in eval mode: no BatchNorm statistic moves)."""
+    G = nets["generator_X"].module
+    mode = G.training
+    with torch.no_grad():
+        feats = G.eval()(torch.zeros(1, 32, 32, G.meta["in_channels"]),
+                         layers=nce_layers, encode_only=True)
+    G.train(mode)
+    nets["featdown"].module.create_mlp([f.shape[-1] for f in feats])
+
+
 def _visual_validation(val_cfg):
     """The validations of a `MultiCriterialValidation` tree whose children
     are visual criteria (_gan_eval.yml); [] without a section. Only an
@@ -171,6 +208,11 @@ def build_gan_experiment(params, directory=None, device=None):
 
     net_cfg.pop("type", None)
     nets, init_specs = build_network_set({"type": "NetworkSet", **net_cfg})
+    step_options, rngs = {}, {}
+    if family == "cut":
+        step_options = _nce_options(crit)
+        _create_featdown(nets, step_options["nce_layers"])
+        rngs = {"patches": torch.Generator().manual_seed(seed)}
     _init_nets(nets, init_specs, net_cfg, seed, dev)
 
     opt_cfg.pop("composition", None)
@@ -197,8 +239,9 @@ def build_gan_experiment(params, directory=None, device=None):
         weights = [(crit.get(k) or {}).get("weights")
                    for k in ("loss_G_X", "loss_G_Y")]
     step = gan_steps.GAN_STEPS[family](nets, optimizers,
-                                       *(dict(w or {}) for w in weights))
-    state = gan_steps.make_gan_state(nets, optimizers, pools)
+                                       *(dict(w or {}) for w in weights),
+                                       **step_options)
+    state = gan_steps.make_gan_state(nets, optimizers, pools, rngs)
 
     loader = None
     gen_data = nets["generator_X"].data_params or {}

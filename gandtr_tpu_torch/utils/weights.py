@@ -43,6 +43,14 @@ own copy:
     fusion/conv/kernel     -> fusion.0.weight
 
 which are the names of the published `hed_sniklaus_github.pth` too.
+RCF (models/rcf.py) takes the JAX package's `rcf_key_map`, and CUT's
+PatchSampleF (models/patchsample.py) its `patchsample_key_map`:
+
+    conv<s>_<c>[_down]|score_dsn<s>|score_fuse/conv/kernel -> <same>.weight
+    mlp_<i>_0/kernel (in, out), mlp_<i>_1/kernel     -> mlp_<i>.0.weight (out, in), mlp_<i>.2.weight
+
+the names of the published `rcf_bsds500_pascal_model.pth` and of the
+reference's PatchSampleF.
 
 The fine-tune tree {"augment": variables, "embed": variables} (the JAX
 fine-tune state's `variables`) gives {"augment": state_dict, "embed":
@@ -115,9 +123,30 @@ def hed_key_map(path):
     return None
 
 
-def _is_hed(params):
-    return "fusion" in params and any(re.match(r"vgg\d_\d+$", k)
-                                      for k in params)
+def rcf_key_map(path):
+    """The JAX package's rcf_key_map: every RCF conv is `<name>.<leaf>`."""
+    return "%s.%s" % (path[0], {"kernel": "weight", "bias": "bias"}[path[-1]])
+
+
+def patchsample_key_map(path):
+    """The JAX package's patchsample_key_map: mlp_<i>_<j> -> mlp_<i>.<0|2>
+    (torch Sequential(Linear, ReLU, Linear))."""
+    _, i, j = path[0].split("_")
+    return "mlp_%s.%d.%s" % (i, 0 if j == "0" else 2,
+                             {"kernel": "weight", "bias": "bias"}[path[-1]])
+
+
+def _key_map(params):
+    """The naming rule of a JAX params tree: HED's, RCF's, PatchSampleF's
+    or the generic one."""
+    if "fusion" in params and any(re.match(r"vgg\d_\d+$", k)
+                                  for k in params):
+        return hed_key_map
+    if "score_fuse" in params:
+        return rcf_key_map
+    if params and all(re.match(r"mlp_\d+_[01]$", k) for k in params):
+        return patchsample_key_map
+    return _torch_key
 
 
 def _torch_key(path):
@@ -153,7 +182,7 @@ def from_jax_variables(variables):
     if "params" not in variables:
         return {name: from_jax_variables(v) for name, v in variables.items()}
     out = {}
-    name = hed_key_map if _is_hed(variables["params"]) else _torch_key
+    name = _key_map(variables["params"])
     for collection in ("params", "batch_stats"):
         for path, value in _walk(variables.get(collection, {})):
             key = name(path)

@@ -7,6 +7,8 @@ a GPU machine with
 
 (`--noconftest`: tests/conftest.py sets JAX up, and the port's GPU
 machine needs no JAX.)"""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -527,3 +529,98 @@ def test_gan_loop_resume_on_card(cuda, tmp_path):
         for i, s in opt.state_dict()["state"].items():
             for k, v in s.items():
                 assert torch.equal(v, got[i][k]), (name, i, k)
+
+
+@pytest.mark.parametrize("no_sigmoid", [False, True])
+def test_rcf_on_card_matches_cpu(cuda, no_sigmoid):
+    """RCF (seeded, full width) at 37x45 on the card within 1e-4 of the
+    CPU; its parameter gradients on the card bit-equal on repeat."""
+    from gandtr_tpu_torch.hub import _init_random
+    from gandtr_tpu_torch.models import initialize_model
+    net = _init_random(initialize_model({"architecture": "rcf"}), 3)
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        -1, 1, (2, 37, 45, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = net(x, no_sigmoid=no_sigmoid)
+    net.to(cuda)
+    got = net(x.to(cuda), no_sigmoid=no_sigmoid)
+    assert float((got.detach().cpu() - want).abs().max()) <= 1e-4
+    grads = []
+    for _ in range(2):
+        net.zero_grad(set_to_none=True)
+        net(x.to(cuda), no_sigmoid=no_sigmoid).abs().mean().backward()
+        grads.append([p.grad.clone() for p in net.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def _family_micro(root, family):
+    """chip_smoke's family `train` section at micro widths (ngf 8 with 2
+    blocks, ndf 8; RCF at full width) on its seeded domain set, 64x64
+    crops, 2 epochs of 2 steps, seeded detector files."""
+    import chip_smoke
+    from gandtr_tpu_torch.scenarios.engine import load_yaml_scenario
+    pth = chip_smoke.seeded_detectors(root)
+    cfg = load_yaml_scenario([chip_smoke.FAMILY_YML[family]]
+                             + chip_smoke.family_overrides(family, pth))
+    cfg = cfg["train"]["1_train_augment"]
+    lists = chip_smoke.make_domain_set(root)
+    net = cfg["network"]
+    net["generator_X"]["model"].update(ngf=8, n_blocks=2)
+    net["discriminator_Y"]["model"].update(ndf=8)
+    data = cfg["data"]["train"]
+    data["dataset"].update(dataset_X=lists[0], dataset_Y=lists[1],
+                           image_dir=os.path.join(root, "ims") + "/*",
+                           size=4 if family != "cut" else 2)
+    data["transforms"] = "pil2np | scalecrop:64_64:0.8_1 | " \
+        "totensor | normalize"
+    if family != "cut":
+        data["loader"] = {"batch_size": 2}
+    cfg["learning"]["training"]["epochs"] = 2
+    cfg["learning"]["validation"]["visual"]["criterion"]["data"][
+        "dataset"]["image_dir"] = os.path.join(root, "val")
+    return cfg
+
+
+@pytest.mark.parametrize("family", ["rcfngan", "cut"])
+def test_family_resume_on_card(cuda, tmp_path, family):
+    """RCF^N-GAN and CUT (drawn patch positions): two epochs of two steps
+    on the card, then a copy of the directory after epoch 1 resumed:
+    epoch 2 ends bit for bit equal, networks, moments and the patch
+    generator; no kernel launched."""
+    import shutil
+    import chip_smoke
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    cfg = _family_micro(str(tmp_path), family)
+    root = str(tmp_path / "exp")
+    exp = build_gan_experiment(cfg, directory=root)
+
+    def hook(state, epoch):
+        if epoch == 1:
+            shutil.copytree(root, root + "_1", symlinks=True)
+    exp["training"].state_hook = hook
+    chip_smoke.reset_launches()
+    state = exp["training"].run(exp["state"])
+    assert chip_smoke.launches() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    rexp = build_gan_experiment(cfg, directory=root + "_1")
+    rstate, start = rexp["training"].resume_or_start(rexp["state"])
+    assert start == 2
+    rstate = rexp["training"].run(rstate, start_epoch=start)
+    for name, net in state.models.items():
+        got = rstate.models[name].module.state_dict()
+        for k, v in net.module.state_dict().items():
+            assert torch.equal(v, got[k]), (name, k)
+    a, b = state.state_dict(), rstate.state_dict()
+    chip_smoke._same_tree(a, b, (family,))
+
+
+def test_patch_positions_same_on_card_and_cpu(cuda):
+    """PatchSampleF draws its positions on the CPU: the same generator
+    seed gives the same positions for maps on the card and on the CPU."""
+    from gandtr_tpu_torch.models.patchsample import PatchSampleF
+    pf = PatchSampleF(nc=8).create_mlp([4])
+    feats = [torch.randn(1, 16, 16, 4)]
+    _, a = pf(feats, 64, generator=torch.Generator().manual_seed(5))
+    pf.to(cuda)
+    _, b = pf([feats[0].to(cuda)], 64,
+              generator=torch.Generator().manual_seed(5))
+    assert b[0].device.type == "cuda" and torch.equal(a[0], b[0].cpu())

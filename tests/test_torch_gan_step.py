@@ -190,10 +190,10 @@ def _cfg_with(tmp_path, path, value):
      {"max_items": 8}, "ROADMAP A.2"),
     (("learning", "training", "parallel"), {"devices": 2},
      "data-parallel GAN training.*ROADMAP A.7"),
-    (("learning", "training", "epoch_iteration", "type"),
-     "SupervisedCUTEpoch", "CUT.*ROADMAP A.2"),
-    (("learning", "training", "epoch_iteration", "type"),
-     "SupervisedHEDGANEpoch", "HED-GAN.*ROADMAP A.2"),
+    (("network", "generator_X", "path"), "generator_X.pth",
+     "`path` member.*not ported"),
+    (("network", "generator_X", "model", "no_antialias"), False,
+     "blur-pool.*not ported"),
     (("learning", "training", "optimizer", "composition"),
      {"alternate_iteration": 2, "order": "generator_X,discriminator_Y"},
      "alternate_iteration"),

@@ -27,7 +27,8 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "models.hed", "learning.gan_steps", "learning.html_report",
           "scenarios.build", "scenarios.train_stage", "scenarios.engine",
           "scenarios.run", "scenarios.stages", "utils.download",
-          "utils.stats", "learning.image_pool")
+          "utils.stats", "learning.image_pool", "models.rcf",
+          "models.patchsample")
 
 torch.set_num_threads(1)
 
@@ -115,6 +116,18 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
         else:
             getattr(hub, entry)(pretrained=False)
 
+
+
+def test_every_gan_family_has_its_step():
+    """GAN_STEPS builds all four families of the paper with their own
+    builders; nothing in it is a "not ported" stand-in."""
+    from gandtr_tpu_torch.learning import gan_steps
+    from gandtr_tpu_torch.models import MODEL_LABELS
+    assert {k: v.__name__ for k, v in gan_steps.GAN_STEPS.items()} == {
+        "hedngan": "build_hedngan_step", "hedgan": "build_hedgan_step",
+        "cut": "build_cut_step", "cyclegan": "build_cyclegan_step"}
+    assert not hasattr(gan_steps, "_not_ported")
+    assert {"rcf", "official_p2p_mlp"} <= set(MODEL_LABELS)
 
 
 def test_kernel_wrapper_takes_cuda_tensors_only():

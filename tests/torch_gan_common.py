@@ -49,6 +49,8 @@ def shape_init(monkeypatch):
     def init_all(self, rng, sample_inputs, init_specs=None, lazy=()):
         out = {}
         for i, (name, net) in enumerate(self.nets.items()):
+            if name not in sample_inputs:   # a lazy member (CUT's featdown)
+                continue
             shapes = jax.eval_shape(
                 lambda x, net=net: net.init(jax.random.PRNGKey(0), x),
                 sample_inputs[name])
@@ -58,25 +60,34 @@ def shape_init(monkeypatch):
     monkeypatch.setattr(jn.ModelSet, "init_all", init_all)
 
 
-def micro_config(root, n=6, size=8, batch=2, epochs=2):
-    """train_hedngan.yml (through the JAX scenario engine, its validation
-    template included) at micro size: ngf 4 with one block, ndf 4, HED at
-    width 0.0625 without the published file, 2 epochs with the decay in
+def micro_config(root, n=6, size=8, batch=2, epochs=2, path=TRAIN_HEDNGAN):
+    """train_hedngan.yml (or the parameters file at `path`, through the JAX
+    scenario engine, its validation template included) at micro size: ngf
+    4 with one block, ndf 4, HED at width 0.0625 (RCF at full width)
+    without the published file, 2 epochs with the decay in
     the second, checkpoint_every 1 and store_every 2, visual validation
     every epoch on 4 images, `size` pairs of 32x32 crops from n seeded
     JPEGs a domain, the loader single-threaded (the JAX package's draws
     are sequential only there)."""
     from gandtr_tpu.scenarios.engine import load_yaml_scenario
-    cfg = load_yaml_scenario([TRAIN_HEDNGAN])
+    cfg = load_yaml_scenario([path])
+    return micro_section(cfg, root, n, size, batch, epochs)
+
+
+def micro_section(cfg, root, n=6, size=8, batch=2, epochs=2):
+    """A GAN train section (network / learning / data / output) cut to
+    micro_config's size, in place."""
     net = cfg["network"]
     net["generator_X"]["model"].update(ngf=4, n_blocks=1)
     net["discriminator_Y"]["model"].update(ndf=4)
     for k in ("detector", "detector_frozen"):
-        net[k]["model"].update(width_mult=0.0625, pretrained=None)
+        if net.get(k):
+            net[k]["model"].update(width_mult=0.0625, pretrained=None)
     lt = cfg["learning"]["training"]
     lt.update(epochs=epochs, parallel=False)
     for sched in lt["scheduler"].values():
-        sched["n_epochs_decay"] = 1
+        if sched:
+            sched["n_epochs_decay"] = 1
     cfg["learning"]["checkpoints"].update(
         directory=os.path.join(root, "exp"), checkpoint_every=1,
         store_every=2)
@@ -122,3 +133,74 @@ def write_domain_set(root, n=6, seed=5):
 
 def without_data(cfg):
     return {k: copy.deepcopy(v) for k, v in cfg.items() if k != "data"}
+
+
+def train_target_pair(yml, root, tune=None, patch=None):
+    """`yml`'s `train` target through the JAX package's run_target, then
+    through the port's on the CPU: its train section cut by micro_section
+    and then `tune(section)`, each package writing under <root>/<jax|port>.
+    The download step is stubbed in both (it checks, or in the JAX
+    package fetches, SfM-120k, which the test does not have). The JAX nets
+    start from shape_init's values; the port's from the same ones, as
+    local `pretrained:` files. `patch(mp)` runs in both packages'
+    monkeypatch contexts. Returns {"jax", "port"} (each run_target's
+    results), "jexp" (the JAX experiment the stage built) and "section"
+    (the port's train section)."""
+    import gandtr_tpu.scenarios.build as jbuild
+    from gandtr_tpu.scenarios import run as jrun
+    from gandtr_tpu.scenarios.engine import load_yaml_scenario
+    from gandtr_tpu_torch.scenarios import run as prun
+    import pytest
+    scenario = load_yaml_scenario([yml])
+    scenario = {"train": scenario["train"]}
+    section = micro_section(scenario["train"]["1_train_augment"], root)
+    if tune:
+        tune(section)
+    download = "gandtr_tpu.utils.download.rsfm120k"
+    captured = {}
+    jscen = copy.deepcopy(scenario)
+    jscen["train"]["1_train_augment"]["learning"]["checkpoints"][
+        "directory"] = os.path.join(root, "jax")
+    with pytest.MonkeyPatch.context() as mp:
+        shape_init(mp)
+        orig = jbuild.build_gan_experiment
+
+        def recording(*args, **kwargs):
+            exp = orig(*args, **kwargs)
+            captured.setdefault("exp", exp)
+            return exp
+        mp.setattr(jbuild, "build_gan_experiment", recording)
+        mp.setitem(jrun.FUNCTIONS, download, lambda params, data: ({},))
+        if patch:
+            patch(mp)
+        jres = jrun.run_target(jscen, "train", "micro")
+    from test_torch_gan_train import _with_initial_weights
+    psec = _with_initial_weights(section, root, captured["exp"]["variables"])
+    psec["learning"]["checkpoints"]["directory"] = os.path.join(root,
+                                                                "port")
+    pscen = {"train": dict(scenario["train"], **{"1_train_augment": psec})}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(prun.FUNCTIONS, download,
+                   lambda params, data, device: ({},))
+        if patch:
+            patch(mp)
+        pres = prun.run_target(copy.deepcopy(pscen), "train", "micro",
+                               device="cpu")
+    return {"jax": jres, "port": pres, "jexp": captured["exp"],
+            "section": psec, "jdir": os.path.join(root, "jax"),
+            "pdir": os.path.join(root, "port")}
+
+
+def adam_reach(steps, beta1, beta2=0.999):
+    """The most that `steps` Adam steps of lr 1 can move a parameter: step
+    t moves it by at most sqrt(sum_i w_i**2 / v_i) (Cauchy-Schwarz over
+    the bias-corrected moments' weights w_i and v_i), 1 at the first
+    step, 1.054 at the second for beta1 0.5."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        w = [(1 - beta1) * beta1 ** (t - i) / (1 - beta1 ** t)
+             for i in range(1, t + 1)]
+        v = [(1 - beta2) * beta2 ** (t - i) / (1 - beta2 ** t)
+             for i in range(1, t + 1)]
+        total += sum(a * a / b for a, b in zip(w, v)) ** 0.5
+    return total
