@@ -195,7 +195,36 @@
    and held on each block call against its plain version. Printed per
    family: seconds, the loop's ms a step and the card's busy share over
    the last epoch's steps, peak memory.
-14. Stage breakdowns of one batch of each served path, the `{"kernels":
+14. Retrieval search and deployment (`run_search`), in a temp dir set as
+   $GANDTR_ROOT, every launch count set to 0 just before each part and
+   read just after: 32 seeded 768x1024 JPEGs indexed by the build_index
+   stage and the GeM-VGG16 (full width, 3 scales, a seeded Lw, seeded
+   weights in a local checkpoint) exported by the export stage at
+   768x1024 with buckets (1, 4, 8), both through the scenario engine's
+   run_target with eval.yml's network form; the cyclegan generator's bf16
+   artifact. Checks: the loaded descriptor artifact within 1e-5 of the
+   in-memory Servable (and 1e-4 of build_index's rows), the generator's
+   uint8 byte-equal. The database: the photos' rows and 1,001,001 seeded
+   unit 512-d rows made on the card (the R1M distractor count; 2.05 GB of
+   float32 rows uploaded), with 8 photo rows planted again among them:
+   the exact index's top-10 of 16 queries equal to a float64 host ranking,
+   each planted copy right after its photo's row (the lower index first).
+   The PQ index (m 16, ksub 256, k-means on 25,600 rows, rerank 100):
+   65,536 rows' codes and scan equal to the CPU's on the card's codebooks
+   (codes at float64 near-ties and top-k at near-ties excepted and
+   counted). One serve_http: 8 concurrent `:search?k=10` requests (npy
+   photos) a round against the exact index, then the PQ index, each
+   answer equal to index.query on the direct call's descriptor (the photo
+   first, its planted copy second); 8 concurrent `:predict` requests to
+   the generator artifact, PNGs byte-equal to its direct call. K1
+   launched by the descriptor artifact (at least once a batch) and held
+   bit for bit against its plain version on the recorded inputs; K3 9
+   times a batch by the generator artifact, each block call of the last
+   batch held against its plain version (phase 13's rule). Printed: the
+   stages' seconds, artifact sizes, upload, k-means and encoding rows/s,
+   the matmul, top-k and PQ scan ms at Nq 1 and 16 (CUDA events) beside
+   one torch.topk, each query's host ms, and :search requests/s.
+15. Stage breakdowns of one batch of each served path, the `{"kernels":
    [...]}` line (each kernel with its launches by path, K1 and K4 with
    their times at the eval's geometry and the r101 inputs), the card's
    line again, and last `{"ok": true, "device": {...}}`.
@@ -460,6 +489,7 @@ def _stream_launches(fn, tries=5):
 def check_k3(dev):
     """K3 against its plain version and the float32 block; returns the
     errors and the timings at the served block shape."""
+    from gandtr_tpu_torch.kernels import resblock as kres
     from gandtr_tpu_torch.ops.resblock import (fused_resblock,
                                                fused_resblock_plain)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -499,6 +529,11 @@ def check_k3(dev):
             continue
         out["max_abs_err"] = errs["plain"][0]
         out["ms"] = cuda_ms(lambda: fused_resblock(*args), reps=10)
+        # the wrapper alone, past the custom op (ops/library.py): the op's
+        # dispatch cost is the difference
+        wm1, wm2 = w1.view(9 * C, C), w2.view(9 * C, C)
+        out["wrapper_ms"] = cuda_ms(
+            lambda: kres.fused_resblock_cuda(x, wm1, b1, wm2, b2), reps=10)
         out["plain_ms"] = cuda_ms(lambda: fused_resblock_plain(*args),
                                   reps=3, warmup=1)
         cl = torch.channels_last
@@ -516,10 +551,11 @@ def check_k3(dev):
         out["tflop_s"] = flops / out["ms"] / 1e9
         out["stream_launches"] = _stream_launches(
             lambda: fused_resblock(*args))
-        print("K3 at %s: kernel %.3f ms (%.1f TFLOP/s), plain %.3f ms, "
-              "library %.3f ms, bound %.4f ms (%s)"
-              % (shape, out["ms"], out["tflop_s"], out["plain_ms"],
-                 out["library_ms"], out["bound_ms"], out["bound_by"]))
+        print("K3 at %s: kernel %.3f ms (%.1f TFLOP/s; the wrapper alone "
+              "%.3f ms), plain %.3f ms, library %.3f ms, bound %.4f ms (%s)"
+              % (shape, out["ms"], out["tflop_s"], out["wrapper_ms"],
+                 out["plain_ms"], out["library_ms"], out["bound_ms"],
+                 out["bound_by"]))
         print("K3 launches per block call on the stream (torch.profiler): "
               "%s" % out["stream_launches"])
         del xl, lw1, lw2
@@ -817,11 +853,12 @@ def seeded_lw(dim=512, seed=1):
             "m": (rng.randn(dim, 1) * 0.01).astype(np.float32)}
 
 
-def serve_rounds(base, name, images):
-    """Rounds of N_REQ concurrent :predict requests to model `name`; returns
-    the (content type, body) answers of the last round in request order,
-    and the timings of the rounds after the first."""
-    url = base + "/v1/models/%s:predict" % name
+def serve_rounds(base, name, images, action=":predict"):
+    """Rounds of N_REQ concurrent `action` requests (:predict, or
+    :search?k=...) to model `name`; returns the (content type, body)
+    answers of the last round in request order, and the timings of the
+    rounds after the first."""
+    url = base + "/v1/models/%s%s" % (name, action)
     walls, lat, last = [], [], None
     for rnd in range(ROUNDS + 1):
         res = [None] * N_REQ
@@ -3792,35 +3829,12 @@ def _cyclegan_parity(dev):
     return out
 
 
-def _k3_on(gen, img):
-    """The bf16 generator on one photo, K3 counted; each of its nine block
-    calls held against K3's plain version on the same inputs: the mean
-    difference under 0.01 and each element's within 0.06 or one bf16
-    step of the output, whichever is larger (the trained net's block
-    outputs pass 8, where one bf16 step is 0.0625; K3's own check holds
-    0.06 at its test inputs' scale). An element past that bound passes
-    only as two roundings of one value: within two bf16 steps of the
-    plain version, with the float32 block (the same bf16 inputs, no
-    rounding inside) between the two; and only in a call where the
-    kernel's largest and mean distance from the float32 block are the
-    plain version's within 1% (a trained CUT generator gave 3 such
-    elements in 113M, at 4.7-6.6, 0.0625 apart: two steps there)."""
+def _k3_held(calls):
+    """Each K3 block call [(args of ops/resblock.py::fused_resblock, the
+    kernel's output)] against the plain version on the same inputs, by
+    `_k3_on`'s rule; returns one (max, mean, elements over 0.06, ok, max
+    |output|, details) a call."""
     from gandtr_tpu_torch.ops import resblock
-    calls, kernel = [], resblock.fused_resblock
-
-    def recording(*args, **kwargs):
-        out = kernel(*args, **kwargs)
-        calls.append((args, out))
-        return out
-    resblock.fused_resblock = recording
-    reset_launches()
-    try:
-        with torch.inference_mode():
-            y = gen(gen.transform(img)[None])
-        torch.cuda.synchronize()
-    finally:
-        resblock.fused_resblock = kernel
-    counts = launches()
     errs = []
     with torch.inference_mode():
         for args, out in calls:
@@ -3857,6 +3871,39 @@ def _k3_on(gen, img):
                           "past_bound_plain_vs_f32_max": float(
                               ep[over].max()) if over.any() else 0.0}))
             del f32, ek, ep
+    return errs
+
+
+def _k3_on(gen, img):
+    """The bf16 generator on one photo, K3 counted; each of its nine block
+    calls held against K3's plain version on the same inputs: the mean
+    difference under 0.01 and each element's within 0.06 or one bf16
+    step of the output, whichever is larger (the trained net's block
+    outputs pass 8, where one bf16 step is 0.0625; K3's own check holds
+    0.06 at its test inputs' scale). An element past that bound passes
+    only as two roundings of one value: within two bf16 steps of the
+    plain version, with the float32 block (the same bf16 inputs, no
+    rounding inside) between the two; and only in a call where the
+    kernel's largest and mean distance from the float32 block are the
+    plain version's within 1% (a trained CUT generator gave 3 such
+    elements in 113M, at 4.7-6.6, 0.0625 apart: two steps there)."""
+    from gandtr_tpu_torch.ops import resblock
+    calls, kernel = [], resblock.fused_resblock
+
+    def recording(*args, **kwargs):
+        out = kernel(*args, **kwargs)
+        calls.append((args, out))
+        return out
+    resblock.fused_resblock = recording
+    reset_launches()
+    try:
+        with torch.inference_mode():
+            y = gen(gen.transform(img)[None])
+        torch.cuda.synchronize()
+    finally:
+        resblock.fused_resblock = kernel
+    counts = launches()
+    errs = _k3_held(calls)
     mx, mean = max(e[0] for e in errs), max(e[1] for e in errs)
     if counts["K3"] != 9 or len(calls) != 9 or mean >= K3_MEAN or \
             not all(e[3] for e in errs):
@@ -4367,6 +4414,448 @@ def run_gan_families(dev):
     torch.cuda.empty_cache()
     return out
 
+# ---- retrieval search and deployment (run_search)
+SEARCH_DB = 1_001_001      # the R1M distractors of Radenovic et al., CVPR 2018
+SEARCH_PHOTOS = 32         # seeded 768x1024 JPEGs indexed by build_index
+SEARCH_QUERIES = 16        # queries of the exact-search check
+SEARCH_PLANTS = 8          # photo rows planted again among the distractors
+PQ_CFG = {"m": 16, "ksub": 256, "train_size": 25600, "iters": 25,
+          "rerank": 100}
+PQ_CHECK_ROWS = 65536      # rows whose PQ codes and scan the CPU repeats
+CIRNET_VGG16 = {"architecture": "cirnet", "cir_architecture": "vgg16",
+                "pooling": "gem", "local_whitening": False,
+                "whitening": False}
+
+
+def _plant_rows():
+    """Distractor rows that hold copies of photo rows 0..SEARCH_PLANTS-1."""
+    return [1000 + 125_000 * i for i in range(SEARCH_PLANTS)]
+
+
+def make_search_photos(root, seed=0):
+    """SEARCH_PHOTOS seeded 768x1024 JPEGs (smooth colour fields with
+    noise, so that no two descriptors coincide); returns their names and
+    the decoded uint8 arrays."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "photos"), exist_ok=True)
+    yy, xx = np.mgrid[:HW[0], :HW[1]].astype(np.float32)
+    names, arrays = [], []
+    for i in range(SEARCH_PHOTOS):
+        f = rng.uniform(20, 200, 3)
+        base = 0.5 + 0.4 * np.sin(yy[..., None] / f + xx[..., None]
+                                  / f[::-1] + rng.uniform(0, 6, 3))
+        img = np.clip((base + 0.15 * rng.rand(*HW, 3)) * 255, 0, 255)
+        name = "photo_%02d.jpg" % i
+        path = os.path.join(root, "photos", name)
+        Image.fromarray(img.astype(np.uint8)).save(path, quality=90)
+        names.append(name)
+        arrays.append(np.asarray(Image.open(path).convert("RGB")))
+    return names, np.stack(arrays)
+
+
+def _float64_topk(rows, queries, k):
+    """[(indices, scores)] a query: the float64 host ranking, ties to the
+    lower index."""
+    q64 = queries.astype(np.float64)
+    S = np.empty((rows.shape[0], q64.shape[0]), np.float64)
+    for i in range(0, rows.shape[0], 1 << 17):
+        S[i:i + (1 << 17)] = rows[i:i + (1 << 17)].astype(np.float64) @ q64.T
+    out = []
+    for j in range(q64.shape[0]):
+        cand = np.argpartition(-S[:, j], 4 * k)[:4 * k]
+        order = np.lexsort((cand, -S[cand, j]))[:k]
+        out.append((cand[order], S[cand[order], j]))
+    return out
+
+
+def _check_exact(index, rows, names, queries, k=10):
+    """The card's exact top-k of `queries` (photo rows) against the
+    float64 host ranking: names equal (a difference only where float64
+    says the scores are within 1e-6), and each planted copy right after
+    its photo's own row."""
+    got = index.query(queries, k=k)
+    want = _float64_topk(rows, queries, k)
+    plants = _plant_rows()
+    near_ties = 0
+    for j, (g, (idx, sc)) in enumerate(zip(got, want)):
+        gn = [n for n, _ in g]
+        wn = [names[i] for i in idx]
+        if gn != wn:
+            bad = [p for p in range(k) if gn[p] != wn[p]]
+            if any(abs(sc[p] - sc[min(p + 1, k - 1)]) > 1e-6
+                   and abs(sc[p] - sc[max(p - 1, 0)]) > 1e-6 for p in bad):
+                raise AssertionError("exact search query %d: %s != %s"
+                                     % (j, gn, wn))
+            near_ties += 1
+        if j < SEARCH_PLANTS:
+            twin = "r%07d" % plants[j]
+            if gn[:2] != [names[j], twin] or g[0][1] != g[1][1]:
+                raise AssertionError("query %d: the planted twin %s did not "
+                                     "follow its row: %s" % (j, twin, g[:3]))
+        if not np.allclose([s for _, s in g], sc, atol=1e-5):
+            raise AssertionError("exact scores %s vs float64 %s"
+                                 % ([s for _, s in g], sc))
+    return {"queries": len(got), "names_equal_float64": True,
+            "near_ties_reordered": near_ties,
+            "planted_twins_lower_index_first": SEARCH_PLANTS}
+
+
+def _check_pq_against_cpu(index, rows):
+    """PQ_CHECK_ROWS rows encoded again on the CPU with the card's
+    codebooks: codes equal but where float64 puts the two centroids within
+    1e-5; the ADC scan of those codes on the card within 1e-5 of the CPU
+    scan, its top-10 names equal but at float32 near-ties."""
+    from gandtr_tpu_torch.serving.index import exact_topk
+    from gandtr_tpu_torch.serving.pq import encode_chunked
+    m, dsub = index.m, index.dim // index.m
+    sub = rows[:PQ_CHECK_ROWS]
+    card = np.concatenate(index._codes, 0)[:PQ_CHECK_ROWS].astype(np.int64)
+    cpu = encode_chunked(torch.from_numpy(index.codebooks), sub, m)
+    diff = np.argwhere(card != cpu)
+    C64 = index.codebooks.astype(np.float64)
+    gaps = []
+    for r, mi in diff:
+        x = sub[r, mi * dsub:(mi + 1) * dsub].astype(np.float64)
+        d = ((x - C64[mi, card[r, mi]]) ** 2).sum() - \
+            ((x - C64[mi, cpu[r, mi]]) ** 2).sum()
+        gaps.append(abs(d))
+    if gaps and max(gaps) > 1e-5:
+        raise AssertionError("PQ codes card vs CPU: %d differ, gaps up to %g"
+                             % (len(gaps), max(gaps)))
+    q = sub[:SEARCH_QUERIES]
+    codes_t = torch.from_numpy(np.ascontiguousarray(card.T.astype(np.uint8)))
+    with torch.inference_mode():
+        s_card = index.scan(codes_t.cuda(), torch.from_numpy(
+            index.codebooks).cuda(), torch.from_numpy(q).cuda())
+        s_cpu = index.scan(codes_t, torch.from_numpy(index.codebooks),
+                           torch.from_numpy(q))
+        d = float((s_card.cpu() - s_cpu).abs().max())
+        vg, ig = exact_topk(s_card, 10)
+        vc, ic = exact_topk(s_cpu, 10)
+    if d > 1e-5:
+        raise AssertionError("PQ scan card vs CPU: %g" % d)
+    reordered = int((ig.cpu() != ic).any(dim=1).sum())
+    if reordered and float((vg.cpu() - vc).abs().max()) > 1e-5:
+        raise AssertionError("PQ top-10 card vs CPU differ beyond near-ties")
+    return {"rows": PQ_CHECK_ROWS, "codes_differing": len(gaps),
+            "max_gap_where_differing": max(gaps) if gaps else 0.0,
+            "scan_max_abs_err": d, "topk_rows_reordered_at_ties": reordered}
+
+
+def _held_k1(calls):
+    """Each distinct K1 call the served rounds recorded, bit-equal to the
+    plain version on the same input."""
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.ops.clahe import clahe_u8_plain
+    seen = {}
+    with torch.inference_mode():
+        for args, kwargs in calls:
+            seen.setdefault((tuple(args[0].shape),) + tuple(args[1:]),
+                            (args, kwargs))
+        for key, (args, kwargs) in seen.items():
+            if not torch.equal(kclahe.clahe_u8_cuda(*args, **kwargs),
+                               clahe_u8_plain(*args, **kwargs)):
+                raise AssertionError("K1 in the artifact differs from its "
+                                     "plain version at %s" % (key,))
+    return [list(k[0]) for k in seen]
+
+
+def _timed(fn, reps=5):
+    """Host milliseconds of one fn() that ends in a synchronisation."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def search_timings(exact, pq, rows):
+    """Card times of a query's parts at Nq = 1 and 16 (CUDA events): the
+    float32 matmul over the whole database and the exact top-k of its
+    scores (the recursive chunked form; one torch.topk beside it), the
+    PQ scan and its top-k; and each index's whole query() on the host
+    clock."""
+    from gandtr_tpu_torch.serving.index import exact_topk
+    exact.build()
+    pq.build()
+    (_, db), = exact._shards
+    (_, codes_t, C), = pq._shards
+    out = {}
+    with torch.inference_mode():
+        for nq in (1, SEARCH_QUERIES):
+            q = torch.from_numpy(rows[:nq]).cuda()
+            s = torch.matmul(q, db.T)
+            ps = pq.scan(codes_t, C, q)
+            out["nq%d" % nq] = {
+                "matmul_ms": cuda_ms(lambda: torch.matmul(q, db.T)),
+                "topk_ms": cuda_ms(lambda: exact_topk(s, 10)),
+                "one_torch_topk_ms": cuda_ms(lambda: torch.topk(s, 10)),
+                "pq_scan_ms": cuda_ms(lambda: pq.scan(codes_t, C, q)),
+                "pq_topk_ms": cuda_ms(lambda: exact_topk(ps, 100)),
+                "exact_query_host_ms": _timed(
+                    lambda: exact.query(rows[:nq], k=10)),
+                "pq_query_host_ms": _timed(
+                    lambda: pq.query(rows[:nq], k=10)),
+            }
+            del s, ps
+    return out
+
+
+def _search_answers(answers, index, direct, k=10):
+    """Each :search answer equals index.query on the direct call's
+    descriptor."""
+    for i, (ctype, body) in enumerate(answers):
+        got = json.loads(body)["results"]
+        want = index.query(direct[i][None], k=k)[0]
+        if ctype != "application/json" or [r["name"] for r in got] != \
+                [n for n, _ in want] or not np.allclose(
+                    [r["score"] for r in got], [s for _, s in want],
+                    atol=1e-6):
+            raise AssertionError(":search answer %d %s != %s"
+                                 % (i, got[:3], want[:3]))
+    return [json.loads(b)["results"] for _, b in answers]
+
+
+def run_search(dev):
+    """Retrieval search and deployment on the card (the module docstring's
+    item 14): build_index and export through the scenario stages, the
+    1,001,001-row database, the exact and PQ indexes, `:search` and the
+    generator artifact on one serve_http, each check, the times."""
+    import pickle
+    import shutil
+    import tempfile
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import resblock as kres
+    from gandtr_tpu_torch.scenarios import run as srun
+    from gandtr_tpu_torch.serving import load_index
+    from gandtr_tpu_torch.serving.export import (Servable, export_hub_model,
+                                                 load_artifact)
+    from gandtr_tpu_torch.serving.pq import PQRetrievalIndex
+    from gandtr_tpu_torch.serving.service import encode_png, serve_http
+    from PIL import Image
+    tmp = tempfile.mkdtemp(prefix="search_", dir=os.environ.get("TMPDIR"))
+    old_root = os.environ.get("GANDTR_ROOT")
+    os.environ["GANDTR_ROOT"] = tmp
+    out = {"launches": dict.fromkeys(("K1", "K2", "K3", "K4"), 0), "s": {}}
+    t_phase = time.perf_counter()
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        out["s"][name] = time.perf_counter() - t0
+
+    try:
+        t0 = time.perf_counter()
+        names, photos = make_search_photos(tmp)
+        lw = seeded_lw()
+        with open(os.path.join(tmp, "lw.pkl"), "wb") as f:
+            pickle.dump(lw, f)
+        seeded = hub.gem_vgg16_hedngan(pretrained=False, device="cpu")
+        torch.save({"model_state": seeded.net.module.state_dict(),
+                    "network_params": {"model": CIRNET_VGG16, "runtime": {
+                        "data": dict(seeded.net.data_params)}}},
+                   os.path.join(tmp, "net.pth"))
+        del seeded
+        # eval.yml's network form, path only: the model and its data
+        # params (CLAHE) from the checkpoint, Lw then 3 scales
+        network = {"path": "net.pth", "runtime": {"wrappers": {"eval": {
+            "0_cirwhiten": {"whitening": "lw.pkl", "dimensions": None},
+            "1_cirmultiscale": {"scales": True}}}}}
+        lap("data", t0)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        res = srun.run_target({"t": {
+            "1_index": {"__function__": "gandtr_tpu.stages.build_index",
+                        "network": network,
+                        "data": {"image_dir": "photos",
+                                 "loader": {"batch_size": 8}},
+                        "index": {"path": "index/photos.npz"}},
+            "2_export": {"__function__": "gandtr_tpu.stages.export",
+                         "network": network,
+                         "export": {"directory": "artifacts/gem",
+                                    "image_hw": list(HW),
+                                    "batch_buckets": [1, 4, 8]}}}},
+            "t", "search", stdin_data=names)
+        lap("build_index_and_export", t0)
+        stage_launches = launches()
+        if res["1_index"]["count"] != SEARCH_PHOTOS or \
+                stage_launches["K1"] < 1:
+            raise AssertionError("build_index: %s, launches %s"
+                                 % (res["1_index"], stage_launches))
+        out["stages"] = {k: {kk: vv for kk, vv in v.items()}
+                         for k, v in res.items()}
+
+        t0 = time.perf_counter()
+        gen = hub.cyclegan(pretrained=False)
+        gen.net.compute_dtype = torch.bfloat16
+        gen_dir = os.path.join(tmp, "artifacts", "gen")
+        export_hub_model(gen, gen_dir, HW, batch_buckets=(1, 4, 8))
+        lap("generator_export", t0)
+        out["artifact_mb"] = {
+            d: sum(os.path.getsize(os.path.join(tmp, "artifacts", d, f))
+                   for f in os.listdir(os.path.join(tmp, "artifacts", d)))
+            / 1e6 for d in ("gem", "gen")}
+
+        # ---- the artifacts against the in-memory servables
+        t0 = time.perf_counter()
+        art = load_artifact(res["2_export"]["directory"])
+        gen_art = load_artifact(gen_dir)
+        mem = Servable(hub.gem_vgg16_hedngan(
+            pretrained=True, checkpoint=os.path.join(tmp, "net.pth"),
+            whitening=os.path.join(tmp, "lw.pkl")), HW)
+        direct = art(photos[:N_REQ])
+        d_mem = float(np.abs(direct - mem(photos[:N_REQ])).max())
+        photo_index = load_index(os.path.join(tmp, "index", "photos.npz"))
+        with np.load(os.path.join(tmp, "index", "photos.npz")) as z:
+            photo_rows = z["vecs"]
+        d_index = float(np.abs(direct - photo_rows[:N_REQ]).max())
+        gen_direct = gen_art(photos[:N_REQ])
+        gen_mem = Servable(gen, HW)(photos[:N_REQ])
+        lap("artifact_checks", t0)
+        if d_mem > 1e-5 or d_index > 1e-4:
+            raise AssertionError("artifact descriptors vs in-memory %g, vs "
+                                 "build_index rows %g" % (d_mem, d_index))
+        if not np.array_equal(gen_direct, gen_mem):
+            raise AssertionError("generator artifact differs from the "
+                                 "in-memory path")
+        out["artifact_vs_in_memory_max_abs"] = d_mem
+        out["artifact_vs_index_rows_max_abs"] = d_index
+        del mem
+
+        # ---- the database: the photos' rows + the R1M-size distractors,
+        # made on the card, with photo rows planted among them
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(13)
+        X = torch.randn((SEARCH_DB, 512), generator=g, device=dev)
+        X /= torch.linalg.vector_norm(X, dim=1, keepdim=True)
+        distractors = X.cpu().numpy()
+        del X
+        for i, r in enumerate(_plant_rows()):
+            distractors[r] = photo_rows[i]
+        d_names = ["r%07d" % i for i in range(SEARCH_DB)]
+        lap("distractors", t0)
+        exact = photo_index          # the build_index file, on the card
+        exact.add(d_names, distractors)
+        t0 = time.perf_counter()
+        exact.build()
+        lap("exact_upload_2GB", t0)
+        all_rows = np.concatenate([photo_rows, distractors], 0)
+        all_names = names + d_names
+        t0 = time.perf_counter()
+        out["exact_check"] = _check_exact(exact, all_rows, all_names,
+                                          photo_rows[:SEARCH_QUERIES])
+        lap("exact_check_float64", t0)
+
+        # ---- the PQ index on the same rows
+        t0 = time.perf_counter()
+        pq = PQRetrievalIndex(512, m=PQ_CFG["m"], ksub=PQ_CFG["ksub"],
+                              rerank=PQ_CFG["rerank"])
+        train = all_rows[np.random.RandomState(0).permutation(
+            all_rows.shape[0])[:PQ_CFG["train_size"]]]
+        pq.fit(train, iters=PQ_CFG["iters"])
+        lap("pq_kmeans", t0)
+        t0 = time.perf_counter()
+        pq.add(all_names, all_rows)
+        lap("pq_encode", t0)
+        out["pq_rows_per_s"] = {
+            "kmeans": PQ_CFG["train_size"] * PQ_CFG["iters"]
+            / out["s"]["pq_kmeans"],
+            "encode": all_rows.shape[0] / out["s"]["pq_encode"]}
+        t0 = time.perf_counter()
+        pq.build()
+        lap("pq_upload", t0)
+        t0 = time.perf_counter()
+        out["pq_check"] = _check_pq_against_cpu(pq, all_rows)
+        lap("pq_check_cpu", t0)
+        out["times"] = search_timings(exact, pq, all_rows)
+
+        # ---- one serve_http: :search with the exact and the PQ index,
+        # :predict with the generator artifact
+        server = serve_http({"exact": art, "pq": art, "gen": gen_art},
+                            indices={"exact": exact, "pq": pq},
+                            max_wait_ms=1000.0, block=False)
+        k1_calls, k3_calls = [], []
+        restore = _recording_calls(kclahe, "clahe_u8_cuda", k1_calls)
+        k3_kernel = kres.fused_resblock_cuda
+
+        def k3_recording(x, wmat1, b1, wmat2, b2, eps=1e-5):
+            y = k3_kernel(x, wmat1, b1, wmat2, b2, eps)
+            C = x.shape[-1]
+            k3_calls.append(((x, wmat1.view(3, 3, C, C), b1,
+                              wmat2.view(3, 3, C, C), b2), y))
+            del k3_calls[:-9]          # the last batch's block calls
+            return y
+        kres.fused_resblock_cuda = k3_recording
+        try:
+            base = "http://127.0.0.1:%d" % server.server_address[1]
+            timing = {}
+            reset_launches()
+            b0 = server.models["exact"].batcher.batches
+            ex_answers, timing["exact"] = serve_rounds(
+                base, "exact", photos, ":search?k=10")
+            ex_launches = launches()
+            ex_batches = server.models["exact"].batcher.batches - b0
+            del k1_calls[:-4]
+            reset_launches()
+            pq_answers, timing["pq"] = serve_rounds(base, "pq", photos,
+                                                    ":search?k=10")
+            pq_launches = launches()
+            reset_launches()
+            b0 = server.models["gen"].batcher.batches
+            gen_answers, timing["gen"] = serve_rounds(base, "gen", photos)
+            gen_launches = launches()
+            gen_batches = server.models["gen"].batcher.batches - b0
+        finally:
+            restore()
+            kres.fused_resblock_cuda = k3_kernel
+            server.close()
+        for counts in (stage_launches, ex_launches, pq_launches,
+                       gen_launches):
+            for k, v in counts.items():
+                out["launches"][k] += v
+        out["serving"] = timing
+        if ex_launches["K1"] < ex_batches or ex_launches["K3"]:
+            raise AssertionError("descriptor artifact: %s launches for %d "
+                                 "batches" % (ex_launches, ex_batches))
+        if gen_launches["K3"] != 9 * gen_batches or not gen_batches:
+            raise AssertionError("generator artifact: K3 %d for %d batches"
+                                 % (gen_launches["K3"], gen_batches))
+        got = _search_answers(ex_answers, exact, direct)
+        for i, r in enumerate(got):
+            if r[0]["name"] != names[i] or r[1]["name"] != "r%07d" % \
+                    _plant_rows()[i] or r[0]["score"] != r[1]["score"]:
+                raise AssertionError(":search %d: %s" % (i, r[:3]))
+        _search_answers(pq_answers, pq, direct)
+        for i, (ctype, body) in enumerate(gen_answers):
+            if ctype != "image/png" or body != encode_png(gen_direct[i]):
+                raise AssertionError("generator PNG %d differs" % i)
+        out["k1_held"] = _held_k1(k1_calls)
+        errs = _k3_held(k3_calls)
+        if len(k3_calls) != 9 or max(e[1] for e in errs) >= K3_MEAN or \
+                not all(e[3] for e in errs):
+            raise AssertionError("K3 in the generator artifact: %s" % errs)
+        out["k3_held"] = {"block_calls": len(k3_calls),
+                          "max_abs_err": max(e[0] for e in errs),
+                          "mean_abs_err": max(e[1] for e in errs)}
+        out["served_launches"] = {"exact": ex_launches, "pq": pq_launches,
+                                  "gen": gen_launches,
+                                  "exact_batches": ex_batches,
+                                  "gen_batches": gen_batches}
+        del art, gen_art, gen, exact, pq, photo_index, server
+        del distractors, all_rows, k1_calls, k3_calls
+    finally:
+        if old_root is None:
+            os.environ.pop("GANDTR_ROOT", None)
+        else:
+            os.environ["GANDTR_ROOT"] = old_root
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["s"]["phase"] = time.perf_counter() - t_phase
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4537,6 +5026,13 @@ def main():
     # ---- HED-GAN, RCF-GAN, RCF^N-GAN and CUT training through the CLI
     torch.cuda.empty_cache()
     fams = run_gan_families(dev)
+
+    # ---- retrieval search and deployment: build_index, export, the
+    # 1,001,001-row exact and PQ indexes, :search, the artifacts' kernels
+    torch.cuda.empty_cache()
+    srch = run_search(dev)
+    print("search (%d photos + %d distractor rows, %s): %s"
+          % (SEARCH_PHOTOS, SEARCH_DB, card, json.dumps(srch)))
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
                    "finetune_loop": loop["launches"][k],
@@ -4544,7 +5040,8 @@ def main():
                    "r101": r101["launches"][k],
                    "gan_train": gan["launches"][k],
                    "scenario": scen["launches"][k],
-                   "gan_families": fams["launches"][k]}
+                   "gan_families": fams["launches"][k],
+                   "search": srch["launches"][k]}
                for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{

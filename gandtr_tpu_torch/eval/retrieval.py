@@ -52,6 +52,38 @@ def configdataset(dataset, dir_main):
     return cfg
 
 
+def configdataset_tsv(dataset):
+    """A test-set config from the reference's tsv dataset form {name,
+    queries, db, imgdir} (cirscore.py:26-40): the db file's `identifier`
+    column gives the database order; the queries file has `query`, `bbx`,
+    `ok` and `junk` columns, the last three JSON lists in brackets. Read
+    through utils/file_readers.py (tsv, csv, pkl, h5, lst, json)."""
+    from gandtr_tpu_torch.data.datasets import path_join
+    from gandtr_tpu_torch.utils.file_readers import initialize_file_reader
+    from gandtr_tpu_torch.utils.io import resolve_path
+
+    if dataset.keys() != {"name", "queries", "db", "imgdir"}:
+        raise ValueError("a tsv dataset takes exactly name, queries, db and "
+                         "imgdir, got %s" % sorted(dataset))
+    imgdir = dataset["imgdir"]
+    with initialize_file_reader(resolve_path(dataset["db"]),
+                                keys=["identifier"]) as reader:
+        identifiers = reader.get()["identifier"]
+    images = [path_join(imgdir, x) for x in identifiers]
+    mapping = {x: i for i, x in enumerate(identifiers)}
+    with initialize_file_reader(resolve_path(dataset["queries"]),
+                                keys=["query", "bbx", "ok", "junk"]) as reader:
+        data = reader.get()
+    qimages = [path_join(imgdir, x) for x in data["query"]]
+    bbxs = [tuple(x) if x else None for x in data["bbx"]]
+    gnd = [{"ok": [mapping[x] for x in ok],
+            "junk": [mapping[x] for x in junk]}
+           for ok, junk in zip(data["ok"], data["junk"])]
+    return {"dataset": dataset["name"], "im_paths": images,
+            "qim_paths": qimages, "bbxs": bbxs, "gnd": gnd,
+            "n": len(images), "nq": len(qimages)}
+
+
 def im_fname(cfg, i):
     if "im_paths" in cfg:
         return cfg["im_paths"][i]

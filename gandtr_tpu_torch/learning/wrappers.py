@@ -109,6 +109,8 @@ class CirtorchWhiten(Wrapper):
         self.dimensions = dimensions or self.P.shape[0]
 
     def post(self, y, ctx, meta):
+        if self.P.device != y.device:   # built on the host by a net config
+            self.P, self.m = self.P.to(y.device), self.m.to(y.device)
         X = (y - self.m[None, :]) @ self.P[:self.dimensions, :].T
         return X / (torch.linalg.vector_norm(X, dim=-1, keepdim=True) + 1e-6)
 

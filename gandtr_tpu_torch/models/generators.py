@@ -101,12 +101,17 @@ class ResnetBlock(nn.Module):
 
     def _fused_weights(self, c1, c2):
         """Both conv weights as bf16 HWIO-contiguous (3, 3, C, C), the
-        layout K3 reads; remade only when a weight changes."""
+        layout K3 reads; remade only when a weight changes. Under
+        `torch.export` the weights are traced values with no storage, so
+        the exported program makes the layout itself on each call."""
+        def hwio():
+            return tuple(c.weight.detach().permute(2, 3, 1, 0)
+                         .to(torch.bfloat16).contiguous() for c in (c1, c2))
+        if torch.compiler.is_exporting():
+            return hwio()
         key = tuple(tensor_key(c.weight) for c in (c1, c2))
         if self._hwio is None or self._hwio[0] != key:
-            self._hwio = (key, tuple(
-                c.weight.detach().permute(2, 3, 1, 0).to(torch.bfloat16)
-                .contiguous() for c in (c1, c2)))
+            self._hwio = (key, hwio())
         return self._hwio[1]
 
     def forward(self, x, ms=None):

@@ -19,7 +19,9 @@ LAB-CLAHE (clip 1.0, grid 8x8). Algorithm (OpenCV clahe.cpp semantics):
 
 `clahe_u8` dispatches by the tensor's device: a CUDA tensor goes to the
 hand-written kernel K1 (kernels/clahe.py), a CPU tensor to
-`clahe_u8_plain`. Both take a whole batch (N, H, W) at once.
+`clahe_u8_plain`. Both take a whole batch (N, H, W) at once. The dispatch
+is the custom op `gandtr::clahe_u8` (ops/library.py), so `torch.export`
+traces it as one node.
 
 The masked form (`clahe_u8_masked`, counterpart of the JAX package's
 `clahe_u8_masked`) runs on a padded bucket (N, H, W) with each image's
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from gandtr_tpu_torch.ops import colorspace as cs
+from gandtr_tpu_torch.ops import library
 
 
 def _grid(grid_size):
@@ -149,12 +152,11 @@ def clahe_u8_plain(img, clip_limit=4.0, grid_size=(8, 8)):
 
 
 def clahe_u8(img, clip_limit=4.0, grid_size=(8, 8)):
-    """Dispatch by device: the K1 kernel for a CUDA tensor, the plain
-    version for a CPU tensor. img: (N, H, W) or (H, W) uint8."""
-    if img.device.type == "cpu":
-        return clahe_u8_plain(img, clip_limit, grid_size)
-    from gandtr_tpu_torch.kernels.clahe import clahe_u8_cuda
-    return clahe_u8_cuda(img, clip_limit, grid_size)
+    """Dispatch by device through the custom op `gandtr::clahe_u8`
+    (ops/library.py): the K1 kernel for a CUDA tensor, the plain version
+    for a CPU tensor. img: (N, H, W) or (H, W) uint8."""
+    ty, tx = _grid(grid_size)
+    return library.clahe_u8(img, float(clip_limit), ty, tx)
 
 
 def masked_geometry(hw, clip_limit, grid_size):

@@ -6,7 +6,9 @@ gandtr_tpu/ops/resblock_pallas.py).
 
 in bf16 with float32 statistics. `fused_resblock` dispatches by the
 tensor's device: a CPU tensor takes `fused_resblock_plain`, a CUDA tensor
-launches K3 (kernels/resblock.py, csrc/resblock.cu) or raises.
+launches K3 (kernels/resblock.py, csrc/resblock.cu) or raises. The
+dispatch is the custom op `gandtr::fused_resblock` (ops/library.py), so
+`torch.export` traces it as one node.
 
 Both versions round where the JAX kernel does (resblock_pallas.py:65-160):
 each conv takes bf16 operands and accumulates in float32, its result is
@@ -20,6 +22,8 @@ formula).
 """
 import torch
 import torch.nn.functional as F
+
+from gandtr_tpu_torch.ops import library
 
 BF16 = torch.bfloat16
 
@@ -67,12 +71,8 @@ def eligible(x_shape, dtype, *, train, use_dropout, padding_type, norm_type,
 
 
 def fused_resblock(x, w1, b1, w2, b2, eps=1e-5):
-    """Dispatch by device. On CUDA, x must be NHWC-contiguous bf16 and the
+    """Dispatch by device through the custom op `gandtr::fused_resblock`
+    (ops/library.py). On CUDA, x must be NHWC-contiguous bf16 and the
     weights bf16 HWIO-contiguous (prepared once by the caller: nothing is
     transposed per call)."""
-    if x.device.type == "cpu":
-        return fused_resblock_plain(x, w1, b1, w2, b2, eps)
-    from gandtr_tpu_torch.kernels.resblock import fused_resblock_cuda
-    C = x.shape[-1]
-    return fused_resblock_cuda(x, w1.view(9 * C, C), b1, w2.view(9 * C, C),
-                               b2, eps)
+    return library.fused_resblock(x, w1, b1, w2, b2, float(eps))

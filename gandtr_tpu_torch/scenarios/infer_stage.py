@@ -5,6 +5,7 @@ stages/infer.py and data/output.py).
     (meta,) = infer(params, (names,))                  # on cuda
     meta["vecs"]     # embedding output: (D, N) float32, in `names` order
     meta["count"]    # image output: the images written
+    infer_incrementally(params, (ids, values, new_ids))  # only the new ones
 
 The `embedding` output runs the images through the validate stage's
 extractor (with `data.shape_bucket`, padded buckets and masked CLAHE, K4
@@ -345,3 +346,33 @@ def _load_network(net_cfg, device):
     net.module.to(device).eval()
     net.loaded_model_cfg = dict(net_cfg.get("model") or {})
     return net
+
+
+def infer_incrementally(params, data, device=None):
+    """Infer only the identifiers missing from an existing (identifier,
+    value) store and merge (the reference's infer.py:69-84): data =
+    (identifier_existing, value_existing, identifier_new); returns
+    (metadata, identifier_new, value_new), the values one row an
+    identifier (a numpy array where value_existing is one). Runs on cuda
+    unless `device="cpu"`."""
+    if len(data) != 3:
+        raise ValueError(
+            "infer_incrementally needs (identifier_existing, value_existing, "
+            "identifier_new): it is a programmatic API (no scenario step "
+            "passes it stdin data, as in the reference), got %d data "
+            "item(s)" % len(data))
+    identifier_existing, value_existing, identifier_new = data
+    existing = dict(zip(identifier_existing, list(value_existing)))
+    for_inference = [x for x in identifier_new if x not in existing]
+
+    (metadata,) = infer(dict(params), (for_inference,), device=device)
+    added = {}
+    if "vecs" in metadata:  # the embedding output: (D, N) columns -> rows
+        added = dict(zip(for_inference,
+                         list(np.asarray(metadata["vecs"]).T)))
+
+    value_new = [existing[x] if x in existing else added[x]
+                 for x in identifier_new]
+    if isinstance(value_existing, np.ndarray):
+        value_new = np.array(value_new)
+    return (metadata, identifier_new, value_new)

@@ -77,15 +77,9 @@ def _download(name):
     return run
 
 
-def _not_ported(name):
-    def run(params, data, device):
-        raise NotImplementedError("the %s stage is not ported yet (ROADMAP "
-                                  "A.6)" % name)
-    return run
-
-
 _TRAIN = _on_device("train_stage", "train")
 _INFER = _on_device("infer_stage", "infer")
+_INCREMENTAL = _on_device("infer_stage", "infer_incrementally")
 _VALIDATE = _on_device("validate_stage", "validate")
 _WHITENING = _on_device("multistep_stage", "infer_and_learn_whitening")
 _RSFM120K = _download("rsfm120k")
@@ -101,12 +95,11 @@ FUNCTIONS = {
     "mdir.stages.train.train": _TRAIN,
     "mdir.stages.validate.validate": _VALIDATE,
     "mdir.stages.infer.infer": _INFER,
-    "gandtr_tpu.stages.infer_incrementally":
-        _not_ported("infer_incrementally"),
-    "gandtr_tpu.stages.export": _not_ported("export"),
-    "gandtr_tpu.stages.build_index": _not_ported("build_index"),
-    "mdir.stages.infer.infer_incrementally":
-        _not_ported("infer_incrementally"),
+    "gandtr_tpu.stages.infer_incrementally": _INCREMENTAL,
+    "gandtr_tpu.stages.export": _on_device("export_stage", "export"),
+    "gandtr_tpu.stages.build_index": _on_device("index_stage",
+                                                "build_index"),
+    "mdir.stages.infer.infer_incrementally": _INCREMENTAL,
     "mdir.stages.multistep.infer_and_learn_whitening": _WHITENING,
     "gandtr_tpu.stages.multistep.infer_and_learn_whitening": _WHITENING,
     "gandtr_tpu.utils.download.rsfm120k": _RSFM120K,

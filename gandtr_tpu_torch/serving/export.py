@@ -1,20 +1,42 @@
-"""Serving a hub model (counterpart of gandtr_tpu/serving/export.py).
+"""Serving artifacts of hub models (counterpart of
+gandtr_tpu/serving/export.py).
 
-`Servable(model, image_hw)` is the in-memory form of the JAX package's
-serving artifact, with the same `meta` keys: uint8 (N, H, W, 3) images in,
-the device preprocessing (/255, CLAHE, normalize) inside the forward, and
-requests padded up to a batch bucket and the outputs sliced (exact: every
-step is per image). An embedding model answers (N, D) float32 descriptors;
-a generator answers uint8 (N, H, W, 3) images, quantized on the device
-(`device_quantize_rgb`). Serializing it (`torch.export`) is not ported yet.
+`export_hub_model` traces a model's serving forward (uint8 images in, the
+device preprocessing, /255, CLAHE and normalize, inside; the weights baked
+in) with `torch.export` and writes it as a directory:
+
+    meta.json   the JAX package's keys (kind, input spec, batch buckets,
+                transform provenance), with `torch_version` and `device`
+                (the device type the program was exported for) where it
+                has `jax_version`
+    b<N>.pt2    one exported program a batch bucket
+
+A request batch is padded up to the next bucket and the outputs sliced;
+that is exact, since every serving graph works image by image (instance
+norm, GeM, CLAHE), and a fixed shape a bucket keeps the programs free of
+symbolic sizes. K1 and K3 are custom operators (ops/library.py), so an
+exported program calls the kernels on the card and the plain versions on
+the CPU, and the kernels' launch counts see the calls.
+
+`Servable(model, image_hw)` is the same forward in memory, the form an
+exported program is checked against; `load_artifact(path)` loads a
+directory into an `ArtifactServable`. Both take numpy (N, H, W, 3) images
+of the artifact's input dtype (and with `with_mask`, (N, H, W) masks) and
+return numpy: (N, D) float32 descriptors, or uint8 (N, H, W, 3) images
+for a generator (quantized on the device), or with `from_uint8=False`
+its normalized float32 output.
 """
+import glob
+import json
+import os
+
 import numpy as np
 import torch
 
 from gandtr_tpu_torch.data.transforms import (device_quantize_rgb,
                                               split_device_transform)
-from gandtr_tpu_torch.learning.wrappers import CirtorchWhiten
-from gandtr_tpu_torch.models.generators import ResnetGenerator
+from gandtr_tpu_torch.device import resolve_device, upload
+from gandtr_tpu_torch.ops import library  # noqa: F401  (registers the ops)
 
 FORMAT_VERSION = 1
 
@@ -26,91 +48,273 @@ def _artifact_kind(model):
     return "embedding" if "pooling" in model.meta else "generator"
 
 
-def _export_forward(model, kind):
-    """(transforms, mean_std, forward) of a uint8-input model: forward((N,
-    H, W, 3) uint8 tensor on the model's device) -> (N, D) descriptors, or
-    uint8 (N, H, W, 3) images for a generator."""
-    data_params = dict(model.net.data_params)
-    mean_std = data_params["mean_std"]
-    tf_str = data_params["transforms"]
-    _, device_pre = split_device_transform(tf_str, mean_std)
-    if device_pre is None:
-        raise ValueError("serving needs a device-splittable transform "
-                         "pipeline; got %r" % tf_str)
+def _export_forward(model, from_uint8, kind, with_mask=False):
+    """(transforms, mean_std, forward): the one definition of an artifact's
+    provenance and forward body, in memory and exported. forward(x[,
+    mask]) takes a (N, H, W, 3) tensor on the model's device: uint8 with
+    `from_uint8` (the device preprocessing runs inside; a generator's
+    output is quantized to uint8 there too), else the normalized float32
+    batch."""
+    data_params = dict(getattr(model.net, "data_params", None) or {})
+    mean_std = data_params.get("mean_std", [[0.5] * 3, [0.5] * 3])
+    tf_str = data_params.get("transforms", "pil2np | totensor | normalize")
+    device_pre = None
+    if from_uint8:
+        _, device_pre = split_device_transform(tf_str, mean_std)
+        if device_pre is None:
+            raise ValueError(
+                "from_uint8=True needs a device-splittable transform "
+                "pipeline; got %r" % tf_str)
     ctx = {"msp": model.meta.get("msp", 1.0)}
 
-    def forward(x):
-        x = device_pre(x.to(torch.float32) / 255.0)
-        y = model.net.apply(x, ctx=ctx)
+    def forward(x, *extra):
+        if from_uint8:
+            x = device_pre(x.to(torch.float32) / 255.0)
+        kw = {"mask": extra[0]} if with_mask else {}
+        y = model.net.apply(x, ctx=ctx, **kw)
         if kind == "generator":
-            y = device_quantize_rgb(y, mean_std)
+            y = device_quantize_rgb(y, mean_std) if from_uint8 else y.float()
         return y
 
     return tf_str, mean_std, forward
 
 
-def _descriptor_dim(model):
-    for w in model.net.wrappers_eval:
-        if isinstance(w, CirtorchWhiten):
-            return int(w.dimensions)
-    return int(model.meta["out_channels"])
+def _check_mask(model, kind, with_mask):
+    """JAX's refusals: a mask only for an embedding model without eval
+    wrappers (they do not thread masks)."""
+    if not with_mask:
+        return
+    if kind != "embedding":
+        raise ValueError("with_mask only applies to embedding models")
+    if model.net.wrappers_eval:
+        raise ValueError(
+            "with_mask requires an eval-wrapper-free net (wrappers "
+            "don't thread masks); got %r" % model.net.wrappers_eval)
 
 
-def _output_shape(model, kind, h, w):
-    if kind == "generator":
-        return list(ResnetGenerator.output_hw(h, w)) + [
-            int(model.meta["out_channels"])]
-    return [_descriptor_dim(model)]
+def _buckets(batch_buckets):
+    buckets = sorted(set(int(b) for b in batch_buckets))
+    if not buckets or buckets[0] < 1:
+        raise ValueError("batch buckets must be >= 1: %r" % (batch_buckets,))
+    return buckets
 
 
-class Servable:
-    """`servable(images)` on a numpy uint8 (N, H, W, 3) array -> numpy
-    (N, D) float32 descriptors, or uint8 (N, H, W, 3) images for a
-    generator, computed on `model.device`."""
+def _base_meta(model, kind, hw, buckets, from_uint8, with_mask, out_spec,
+               tf_str, mean_std, device):
+    return {
+        "format_version": FORMAT_VERSION,
+        "kind": kind,
+        "image_hw": [int(hw[0]), int(hw[1])],
+        "batch_buckets": list(buckets),
+        "input_dtype": "uint8" if from_uint8 else "float32",
+        "with_mask": bool(with_mask),
+        "output_shape_per_item": out_spec,
+        "transforms": tf_str,
+        "mean_std": [list(map(float, mean_std[0])),
+                     list(map(float, mean_std[1]))],
+        "model_meta": {k: v for k, v in model.meta.items()
+                       if isinstance(v, (int, float, str, bool))},
+        "torch_version": torch.__version__,
+        "device": torch.device(device).type,
+    }
 
-    def __init__(self, model, image_hw, batch_buckets=(1, 4, 8)):
-        kind = _artifact_kind(model)
-        self.model = model
-        self.device = model.device
-        self.buckets = sorted(set(int(b) for b in batch_buckets))
-        if not self.buckets or self.buckets[0] < 1:
-            raise ValueError("batch buckets must be >= 1: %r" % batch_buckets)
-        tf_str, mean_std, self._forward = _export_forward(model, kind)
-        h, w = int(image_hw[0]), int(image_hw[1])
-        self.meta = {
-            "format_version": FORMAT_VERSION,
-            "kind": kind,
-            "image_hw": [h, w],
-            "batch_buckets": list(self.buckets),
-            "input_dtype": "uint8",
-            "with_mask": False,
-            "output_shape_per_item": _output_shape(model, kind, h, w),
-            "transforms": tf_str,
-            "mean_std": [list(map(float, mean_std[0])),
-                         list(map(float, mean_std[1]))],
-            "model_meta": {k: v for k, v in model.meta.items()
-                           if isinstance(v, (int, float, str, bool))},
-            "torch_version": torch.__version__,
-            "device": str(self.device),
-        }
 
-    @torch.inference_mode()
-    def _run_chunk(self, x):
+class _Program(torch.nn.Module):
+    """The serving forward as a module for `torch.export`: it holds the
+    module the forward runs (the net's compute-dtype copy, or the net's
+    own module), so the weights export as the program's parameters."""
+
+    def __init__(self, model, forward):
+        super().__init__()
+        self.net = model.net.compute_module()
+        self._forward = forward
+
+    def forward(self, x, *extra):
+        return self._forward(x, *extra)
+
+
+def _example_inputs(b, h, w, from_uint8, with_mask, device):
+    x = torch.zeros((b, h, w, 3), dtype=torch.uint8 if from_uint8
+                    else torch.float32, device=device)
+    return (x, torch.ones((b, h, w), device=device)) if with_mask else (x,)
+
+
+def export_hub_model(model, path, image_hw, batch_buckets=(1, 4, 8),
+                     from_uint8=True, with_mask=False, platforms=None,
+                     kind=None):
+    """Export a hub model (`.net`, `.meta`, `.device`; its net's
+    `data_params` give the transforms) into a serving artifact directory at
+    `path`, for the device type the model lives on. Returns the meta.
+
+    - `image_hw`: the fixed (H, W) the programs take.
+    - `batch_buckets`: the batch sizes exported; a request pads up to the
+      next bucket.
+    - `from_uint8`: the device preprocessing inside (uint8 RGB input); a
+      generator also quantizes its output to uint8 inside. With False the
+      program takes the normalized float32 batch.
+    - `with_mask`: a (N, H, W) float32 valid-pixel input for aspect-
+      preserving serving through masked GeM; an embedding model without
+      eval wrappers only. CLAHE runs static over the padded image, as in
+      the JAX package.
+    - `platforms`: the JAX package's list of target platforms; here it may
+      only name the model's device type."""
+    kind = kind or _artifact_kind(model)
+    dev = torch.device(model.device)
+    if platforms is not None and list(platforms) != [dev.type]:
+        raise ValueError("an artifact runs on the device type its model "
+                         "lives on (%s); platforms=%r" % (dev.type,
+                                                          platforms))
+    h, w = int(image_hw[0]), int(image_hw[1])
+    buckets = _buckets(batch_buckets)
+    _check_mask(model, kind, with_mask)
+    tf_str, mean_std, forward = _export_forward(model, from_uint8, kind,
+                                                with_mask=with_mask)
+    program = _Program(model, forward)
+    os.makedirs(path, exist_ok=True)
+    out_spec = None
+    for b in buckets:
+        with torch.no_grad():
+            ep = torch.export.export(
+                program, _example_inputs(b, h, w, from_uint8, with_mask,
+                                         dev), strict=False)
+        out_node = next(n for n in ep.graph.nodes if n.op == "output")
+        out_spec = list(out_node.args[0][0].meta["val"].shape[1:])
+        torch.export.save(ep, os.path.join(path, "b%d.pt2" % b))
+    meta = _base_meta(model, kind, (h, w), buckets, from_uint8, with_mask,
+                      out_spec, tf_str, mean_std, dev)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1, sort_keys=True)
+    return meta
+
+
+def export_sharded_model(*args, **kwargs):
+    """One SPMD program over several cards is not ported (ROADMAP A.6)."""
+    raise NotImplementedError(
+        "export_sharded_model (one program batch-sharded over several "
+        "cards) is not ported yet (ROADMAP A.6)")
+
+
+class _Bucketed:
+    """Pads and chunks as the JAX package's Servable: requests above the
+    largest bucket are cut into chunks of it, a partial chunk is padded
+    (edge rows) up to the next bucket and the outputs sliced. A subclass
+    gives `meta`, `device`, `buckets` and `_program(bucket)`."""
+
+    def _run_chunk(self, x, mask):
         n = x.shape[0]
         bucket = next((b for b in self.buckets if b >= n), self.buckets[-1])
         if bucket > n:
-            x = np.pad(x, [(0, bucket - n)] + [(0, 0)] * 3, mode="edge")
-        xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        return self._forward(xt)[:n].cpu().numpy()
+            x = np.pad(x, [(0, bucket - n)] + [(0, 0)] * (x.ndim - 1),
+                       mode="edge")
+            if mask is not None:
+                mask = np.pad(mask, [(0, bucket - n), (0, 0), (0, 0)],
+                              mode="edge")
+        args = [upload(x, self.device)]
+        if mask is not None:
+            args.append(upload(mask, self.device))
+        with torch.inference_mode():
+            return self._program(bucket)(*args)[:n].cpu().numpy()
 
-    def __call__(self, images):
+    def __call__(self, images, masks=None):
         x = np.asarray(images)
         h, w = self.meta["image_hw"]
         if x.ndim == 3:
             x = x[None]
-        if x.dtype != np.uint8 or x.shape[1:] != (h, w, 3):
-            raise ValueError("input must be uint8 (N, %d, %d, 3), got %s %s"
-                             % (h, w, x.dtype, x.shape))
+        dtype = np.dtype(self.meta["input_dtype"])
+        if x.dtype != dtype or x.shape[1:] != (h, w, 3):
+            raise ValueError("input must be %s (N, %d, %d, 3), got %s %s"
+                             % (dtype, h, w, x.dtype, x.shape))
+        if self.meta["with_mask"]:
+            if masks is None:
+                masks = np.ones(x.shape[:3], np.float32)
+            else:
+                masks = np.asarray(masks, np.float32)
+                if masks.ndim == 2:  # one image, as x = x[None]
+                    masks = masks[None]
+        elif masks is not None:
+            raise ValueError("artifact was exported without mask input")
         cap = self.buckets[-1]
-        return np.concatenate([self._run_chunk(x[i:i + cap])
-                               for i in range(0, x.shape[0], cap)], 0)
+        return np.concatenate([
+            self._run_chunk(x[i:i + cap],
+                            None if masks is None else masks[i:i + cap])
+            for i in range(0, x.shape[0], cap)], 0)
+
+
+class Servable(_Bucketed):
+    """A hub model's serving forward in memory, on `model.device`, with the
+    meta an exported artifact of it would carry."""
+
+    def __init__(self, model, image_hw, batch_buckets=(1, 4, 8),
+                 from_uint8=True, with_mask=False, kind=None):
+        kind = kind or _artifact_kind(model)
+        _check_mask(model, kind, with_mask)
+        self.model = model
+        self.device = torch.device(model.device)
+        self.buckets = _buckets(batch_buckets)
+        tf_str, mean_std, self._forward = _export_forward(
+            model, from_uint8, kind, with_mask=with_mask)
+        h, w = int(image_hw[0]), int(image_hw[1])
+        self.meta = _base_meta(model, kind, (h, w), self.buckets, from_uint8,
+                               with_mask, _output_shape(model, kind, h, w),
+                               tf_str, mean_std, self.device)
+
+    def _program(self, bucket):
+        return self._forward
+
+
+def _output_shape(model, kind, h, w):
+    """The per-item output shape, from the net's own sizes."""
+    if kind == "generator":
+        from gandtr_tpu_torch.models.generators import ResnetGenerator
+        return list(ResnetGenerator.output_hw(h, w)) + [
+            int(model.meta["out_channels"])]
+    from gandtr_tpu_torch.learning.wrappers import CirtorchWhiten
+    for wr in model.net.wrappers_eval:
+        if isinstance(wr, CirtorchWhiten):
+            return [int(wr.dimensions)]
+    return [int(model.meta["out_channels"])]
+
+
+class ArtifactServable(_Bucketed):
+    """A loaded serving artifact (the JAX package's `Servable`): each
+    bucket's exported program is loaded at its first call."""
+
+    def __init__(self, path, device=None):
+        self.device = resolve_device(device)
+        with open(os.path.join(path, "meta.json")) as f:
+            self.meta = json.load(f)
+        if glob.glob(os.path.join(path, "b*.jaxexp")) or (
+                "jax_version" in self.meta
+                and "torch_version" not in self.meta):
+            raise ValueError(
+                "%s is an artifact of the JAX package (b<N>.jaxexp); this "
+                "package loads torch.export programs (b<N>.pt2): export the "
+                "model with gandtr_tpu_torch.serving.export_hub_model" % path)
+        if self.meta.get("format_version") != FORMAT_VERSION:
+            raise ValueError("Unsupported artifact format_version %r"
+                             % self.meta.get("format_version"))
+        if self.meta.get("sharded"):
+            raise NotImplementedError("sharded artifacts are not ported yet "
+                                      "(ROADMAP A.6)")
+        if self.meta["device"] != self.device.type:
+            raise ValueError(
+                "artifact %s was exported for %s and cannot run on %s: "
+                "export it again from a model on %s"
+                % (path, self.meta["device"], self.device.type,
+                   self.device.type))
+        self.path = path
+        self.buckets = list(self.meta["batch_buckets"])
+        self._programs = {}
+
+    def _program(self, bucket):
+        if bucket not in self._programs:
+            ep = torch.export.load(os.path.join(self.path,
+                                                "b%d.pt2" % bucket))
+            self._programs[bucket] = ep.module()
+        return self._programs[bucket]
+
+
+def load_artifact(path, device=None):
+    """Load an artifact directory to run on `device` (cuda by default),
+    which must be the device type it was exported for."""
+    return ArtifactServable(path, device=device)

@@ -6,16 +6,22 @@ gandtr_tpu/serving/service.py).
 `serve_http` is a stdlib ThreadingHTTPServer: npy, JPEG or PNG image in;
 out, a JSON descriptor from an embedding model or an `image/png` from a
 generator. Endpoints: GET /healthz, GET /v1/models,
-POST /v1/models/<name>:predict. (`:search` and the native decoder are not
-ported yet.)
+POST /v1/models/<name>:predict and, for an embedding model with an index
+(`indices[name]`, a RetrievalIndex or PQRetrievalIndex),
+POST /v1/models/<name>:search?k=10 (image in, the top k {name, score}
+out). A model is an artifact directory, a loaded artifact or an
+in-memory `Servable`. (The JAX package's native decoder is not ported:
+PIL decodes.)
 """
 import io
 import json
+import os
 import queue
 import threading
 import time
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs
 
 import numpy as np
 import torch
@@ -149,13 +155,39 @@ def encode_png(img):
     return buf.getvalue()
 
 
-def _fit_to_servable(img, meta):
-    """Resize a decoded uint8 image to the servable's fixed (H, W)."""
-    h, w = meta["image_hw"]
-    if img.shape[:2] == (h, w):
-        return img
+def _fit_to_artifact(img, meta):
+    """A decoded uint8 image fitted to the artifact's fixed (H, W) ->
+    (image, mask or None).
+
+    A masked artifact keeps the aspect ratio: the image scales to fit,
+    its bottom and right are padded with edge pixels, and the mask marks
+    the valid rows and columns (masked GeM leaves the padding out). An
+    unmasked artifact takes the image resized to exactly (H, W)."""
     from PIL import Image
-    return np.asarray(Image.fromarray(img).resize((w, h), Image.BILINEAR))
+    h, w = meta["image_hw"]
+    if not meta["with_mask"]:
+        if img.shape[:2] == (h, w):
+            return img, None
+        return np.asarray(Image.fromarray(img).resize((w, h),
+                                                      Image.BILINEAR)), None
+    pil = Image.fromarray(img)
+    scale = min(h / pil.height, w / pil.width)
+    nh = max(1, min(h, round(pil.height * scale)))
+    nw = max(1, min(w, round(pil.width * scale)))
+    small = np.asarray(pil.resize((nw, nh), Image.BILINEAR))
+    out = np.pad(small, [(0, h - nh), (0, w - nw), (0, 0)], mode="edge")
+    mask = np.zeros((h, w), np.float32)
+    mask[:nh, :nw] = 1.0
+    return out, mask
+
+
+def _quantize_on_host(out, meta):
+    """A float32 generator output (an artifact with from_uint8=False) ->
+    uint8, the host form of device_quantize_rgb."""
+    mean = np.asarray(meta["mean_std"][0], np.float32)
+    std = np.asarray(meta["mean_std"][1], np.float32)
+    rgb = np.clip(out * std + mean, 0, 1)
+    return np.floor(rgb * 255.0).astype(np.uint8)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -189,34 +221,71 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(404, {"error": "not found"})
 
     def do_POST(self):
-        path = self.path.partition("?")[0]
-        if not (path.startswith("/v1/models/") and path.endswith(":predict")):
+        path, _, qs = self.path.partition("?")
+        action = next((a for a in (":predict", ":search")
+                       if path.startswith("/v1/models/")
+                       and path.endswith(a)), None)
+        if action is None:
             return self._send(404, {"error": "not found"})
-        name = path[len("/v1/models/"):-len(":predict")]
+        name = path[len("/v1/models/"):-len(action)]
         entry = self.server.models.get(name)
         if entry is None:
             return self._send(404, {"error": "unknown model %r" % name})
-        try:  # client-side problems: undecodable or malformed body
+        if action == ":search" and entry.index is None:
+            return self._send(404, {"error": "model %r has no search index"
+                                    % name})
+        try:  # client-side problems: a bad k, an undecodable body
+            if action == ":search":
+                k = int(parse_qs(qs).get("k", ["10"])[0])
+                if k < 1:
+                    raise ValueError("k must be >= 1, got %d" % k)
             body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
             img = _decode_image_bytes(body,
                                       self.headers.get("Content-Type", ""))
-            x = _fit_to_servable(img, entry.meta)
+            x, mask = _fit_to_artifact(img, entry.meta)
+            x = entry.prepare(x)
         except Exception as e:
             return self._send(400, {"error": "%s: %s" % (type(e).__name__, e)})
-        try:  # server-side problems: device or batcher failures are 5xx
-            out = entry.batcher.submit(x).result(timeout=600)
+        try:  # server-side problems: device, batcher or index failures
+            args = (x,) if mask is None else (x, mask)
+            out = entry.batcher.submit(*args).result(timeout=600)
+            if action == ":search":
+                results = entry.index.query(np.asarray(out)[None], k=k)[0]
         except Exception as e:
             return self._send(500, {"error": "%s: %s" % (type(e).__name__, e)})
+        if action == ":search":
+            return self._send(200, {"results": [{"name": n, "score": s}
+                                                for n, s in results]})
         if entry.meta["kind"] == "embedding":
             return self._send(200, {"descriptor": [float(v) for v in out]})
+        out = np.asarray(out)
+        if out.dtype != np.uint8:
+            out = _quantize_on_host(out, entry.meta)
         self._send(200, encode_png(out), ctype="image/png")
 
 
 class _ModelEntry:
-    def __init__(self, servable, max_batch, max_wait_ms):
+    def __init__(self, servable, max_batch, max_wait_ms, index=None):
         self.meta = servable.meta
+        self.index = index
         self.batcher = BatchingService(servable, max_batch=max_batch,
                                        max_wait_ms=max_wait_ms)
+        # an artifact with from_uint8=False takes the normalized float32
+        # image: the host pipeline is rebuilt from the artifact's own
+        # provenance (its transforms and mean_std)
+        self._host_tf = None
+        if self.meta["input_dtype"] == "float32":
+            from gandtr_tpu_torch.data.transforms import initialize_transforms
+            self._host_tf = initialize_transforms(self.meta["transforms"],
+                                                  self.meta["mean_std"])
+
+    def prepare(self, img_u8):
+        """A decoded, fitted uint8 (H, W, 3) -> the artifact's input."""
+        if self._host_tf is None:
+            return img_u8
+        from PIL import Image
+        return np.asarray(self._host_tf(Image.fromarray(img_u8)),
+                          np.float32)
 
 
 class _Server(ThreadingHTTPServer):
@@ -237,20 +306,35 @@ class _Server(ThreadingHTTPServer):
 
 
 def serve_http(models, host="127.0.0.1", port=0, max_batch=None,
-               max_wait_ms=5.0, block=True, device=None):
-    """Serve `models` ({name: Servable}) over HTTP.
+               max_wait_ms=5.0, block=True, device=None, indices=None):
+    """Serve `models` ({name: artifact directory, loaded artifact or
+    in-memory Servable}) over HTTP, with `indices` ({name: index}) behind
+    `:search` for embedding models.
 
-    Runs on `cuda` unless `device="cpu"`; every servable must live on that
-    device. With block=False returns the started server (`.server_address`,
-    `.close()`); its batchers are in `.models`."""
+    Runs on `cuda` unless `device="cpu"`; an artifact path loads there, and
+    every servable must live on that device. With block=False returns the
+    started server (`.server_address`, `.close()`); its batchers are in
+    `.models`."""
+    from gandtr_tpu_torch.serving.export import load_artifact
     dev = resolve_device(device)
+    indices = dict(indices or {})
+    unknown = sorted(set(indices) - set(models))
+    if unknown:
+        raise ValueError("indices for unknown models %s" % unknown)
     entries = {}
     for name, servable in models.items():
+        if isinstance(servable, (str, os.PathLike)):
+            servable = load_artifact(os.fspath(servable), device=dev)
         if servable.device.type != dev.type:
             raise ValueError("model %r lives on %s, the server on %s"
                              % (name, servable.device, dev))
+        if name in indices and servable.meta["kind"] != "embedding":
+            raise ValueError("model %r is a %s: only an embedding model "
+                             "takes a search index"
+                             % (name, servable.meta["kind"]))
         cap = max_batch or servable.buckets[-1]
-        entries[name] = _ModelEntry(servable, cap, max_wait_ms)
+        entries[name] = _ModelEntry(servable, cap, max_wait_ms,
+                                    index=indices.get(name))
 
     server = _Server((host, port), entries, dev)
     if not block:

@@ -624,3 +624,51 @@ def test_patch_positions_same_on_card_and_cpu(cuda):
     _, b = pf([feats[0].to(cuda)], 64,
               generator=torch.Generator().manual_seed(5))
     assert b[0].device.type == "cuda" and torch.equal(a[0], b[0].cpu())
+
+
+def test_k1_and_k3_from_a_loaded_artifact(cuda, tmp_path):
+    """The descriptor and bf16 generator artifacts exported on the card:
+    the loaded programs launch K1 once and K3 once a block a batch (the
+    wrappers' counts), and give the direct op call's values bit for bit."""
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import resblock as kres
+    from gandtr_tpu_torch.serving.export import (Servable, export_hub_model,
+                                                 load_artifact)
+    hw = (96, 128)
+    img = np.random.RandomState(8).randint(0, 256, (2,) + hw + (3,),
+                                           dtype=np.uint8)
+    emb = hub.gem_vgg16_hedngan(pretrained=False)
+    export_hub_model(emb, str(tmp_path / "emb"), hw, batch_buckets=(2,))
+    gen = hub.cyclegan(pretrained=False)
+    gen.net.compute_dtype = torch.bfloat16
+    export_hub_model(gen, str(tmp_path / "gen"), hw, batch_buckets=(2,))
+    for name, model, mod, per_batch in (("emb", emb, kclahe, 1),
+                                        ("gen", gen, kres, 9)):
+        art = load_artifact(str(tmp_path / name))
+        before = mod.LAUNCHES
+        got = art(img)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == before + per_batch, name
+        want = Servable(model, hw, batch_buckets=(2,))(img)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_exact_topk_ties_on_card(cuda):
+    """Duplicated database rows on the card: the exact index returns them
+    lower index first, as on the CPU and as lax.top_k."""
+    from gandtr_tpu_torch.serving.index import RetrievalIndex, exact_topk
+    rng = np.random.RandomState(9)
+    base = rng.randn(300, 32).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    X = np.tile(base, (70, 1))                       # 21,000 rows
+    q = base[[3, 17, 250]]
+    s = torch.from_numpy(q @ X.T)
+    v_cpu, i_cpu = exact_topk(s, 20)
+    v_gpu, i_gpu = exact_topk(s.to(cuda), 20)
+    assert torch.equal(i_gpu.cpu(), i_cpu) and torch.equal(v_gpu.cpu(), v_cpu)
+    index = RetrievalIndex(32, devices=[cuda, cuda])
+    index.add([str(i) for i in range(len(X))], X)
+    for qi, row in zip(q, (3, 17, 250)):
+        names = [int(n) for n, _ in index.query(qi, k=70)[0]]
+        assert names == [row + 300 * r for r in range(70)]

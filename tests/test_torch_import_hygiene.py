@@ -28,7 +28,9 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "scenarios.build", "scenarios.train_stage", "scenarios.engine",
           "scenarios.run", "scenarios.stages", "utils.download",
           "utils.stats", "learning.image_pool", "models.rcf",
-          "models.patchsample")
+          "models.patchsample", "ops.library", "serving.index",
+          "serving.pq", "scenarios.index_stage", "scenarios.export_stage",
+          "utils.file_readers")
 
 torch.set_num_threads(1)
 
@@ -73,7 +75,9 @@ def test_no_source_file_names_jax():
                                    "gem_resnet101_hedngan", "infer",
                                    "infer_and_learn_whitening", "train",
                                    "gan_build", "infer_image",
-                                   "run_target"])
+                                   "run_target", "load_artifact",
+                                   "build_index", "export_stage",
+                                   "retrieval_index", "pq_index"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from gandtr_tpu_torch import hub
@@ -107,6 +111,23 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
             run_target({"t": {"1_v": {"__function__": "mdir.stages.validate"
                                       ".validate", "network": {},
                                       "validation": {}}}}, "t", "s")
+        elif entry == "load_artifact":
+            from gandtr_tpu_torch.serving import load_artifact
+            load_artifact("no_such_artifact")
+        elif entry == "build_index":
+            from gandtr_tpu_torch.scenarios.index_stage import build_index
+            build_index({"network": {}, "index": {
+                "path": "no_such_index.npz", "skip_if_exists": False}},
+                ([],))
+        elif entry == "export_stage":
+            from gandtr_tpu_torch.scenarios.export_stage import export
+            export({"network": {}, "export": {}}, ())
+        elif entry == "retrieval_index":
+            from gandtr_tpu_torch.serving import RetrievalIndex
+            RetrievalIndex(8)
+        elif entry == "pq_index":
+            from gandtr_tpu_torch.serving import PQRetrievalIndex
+            PQRetrievalIndex(8, m=2)
         elif entry == "infer_and_learn_whitening":
             from gandtr_tpu_torch.scenarios.multistep_stage import \
                 infer_and_learn_whitening
