@@ -224,7 +224,37 @@
    stages' seconds, artifact sizes, upload, k-means and encoding rows/s,
    the matmul, top-k and PQ scan ms at Nq 1 and 16 (CUDA events) beside
    one torch.topk, each query's host ms, and :search requests/s.
-15. Stage breakdowns of one batch of each served path, the `{"kernels":
+15. The training options (`run_training_options`), at full width:
+   (a) HED^N-GAN of train_hedngan.yml (GAN_TRAIN, batch 10 of 256²,
+   seeded weights; the path reaches no kernel): `concat_student` from a
+   state after 2 separate steps, the E step's ms both ways (CUDA events)
+   and, at batch 2 and 128², the student's E-step gradient with the knob
+   on the card within twice the CPU float32's distance from the float64
+   CPU gradient, both routed by float64's ReLU and max-pool decisions
+   (the unrouted distances and the gates set the other way printed);
+   `cache_teacher_targets` fed 4 loader batches 3 times:
+   4 misses, 8 hits, bit-equal to the plain build's run, ms of a hit and
+   a miss; `device_scalecrop` against the host chain through the loader
+   and `Training.run` (one epoch of 8 steps): equal crop boxes, the
+   staged batch within 1e-5, host ms, bytes, ms a step and busy share
+   each way; SGD (momentum 0.9) on the detector in a rotation of 2
+   steps a member for 6 steps: only the active member moves, and a
+   resume after step 3 repeats steps 4 to 6 bit for bit; a `path:`
+   generator from the device run's generator_X_last.ckpt, equal to the
+   file before its step. (b) The fine-tune loop of (9) with a seeded val
+   split of 180 JPEGs (query_size 20, pool_size 150), the validation every
+   epoch, TensorBoard, and a ScoreValidation over (8)'s seeded set at
+   exact shapes; 2 epochs with every launch count set to 0 just before:
+   finite validation losses, val tuples mined with each epoch's weights,
+   `_best` at the lower loss, the JAX score keys, the TensorBoard file's
+   CRCs and epoch scalars equal to the events; K4 and K2 in the loss
+   validation and K1 in the score eval, their recorded calls (4 an input
+   shape) held against the plain versions; one validation's tuples,
+   mined once, scored with K2 and with the plain versions: within 1%; a
+   triplet step (margin 0.1) finite and within 1% of
+   its plain-kernel step. Printed: the numbers of each part and the
+   phase's seconds.
+16. Stage breakdowns of one batch of each served path, the `{"kernels":
    [...]}` line (each kernel with its launches by path, K1 and K4 with
    their times at the eval's geometry and the r101 inputs), the card's
    line again, and last `{"ok": true, "device": {...}}`.
@@ -4857,6 +4887,717 @@ def run_search(dev):
     return out
 
 
+# ---- the training options: HED^N-GAN's knobs, SGD and the
+# optimizer rotation, a warm start, the fine-tune's validations
+
+OPT_DRIFT = 2            # separate steps before concat_student is compared
+OPT_CACHE_BATCHES = 4    # the cache's fixed batches, fed 3 times
+OPT_DSC_PAIRS = 80       # one epoch of 8 steps at batch 10
+OPT_ROTATION = {"alternate_iteration": 2,
+                "order": "generator_X,discriminator_Y,detector"}
+OPT_SGD = {"algorithm": "sgd", "lr": 1e-6, "momentum": 0.9,
+           "weight_decay": 0.0002}
+OPT_VAL_CUTS = {"query_size": 20, "pool_size": 150}
+OPT_RECORD_CAP = 4       # kernel calls kept a distinct input shape
+OPT_SCORE_SIZE = 1024    # eval.yml's image_size for the score eval
+
+
+def _gan_snapshot(exp):
+    """Every net's state dict, on the host."""
+    return {n: {k: v.detach().cpu().clone() for k, v in
+                m.module.state_dict().items()}
+            for n, m in exp["models"].items()}
+
+
+def _gan_load(exp, snap):
+    for n, sd in snap.items():
+        exp["models"][n].module.load_state_dict(sd)
+
+
+def _nets_differ(a, b):
+    """The state-dict entries in which two experiments' nets differ."""
+    sa, sb = _gan_snapshot(a), _gan_snapshot(b)
+    return ["%s.%s" % (n, k) for n in sa for k in sa[n]
+            if not torch.equal(sa[n][k], sb[n][k])]
+
+
+def _seeded_gan_batches(n, batch, hw, seed):
+    rs = np.random.RandomState(seed)
+    return [tuple(rs.uniform(-1, 1, (batch, hw, hw, 3)).astype(np.float32)
+                  for _ in range(2)) for _ in range(n)]
+
+
+def _opt_cfg(root, lists, **knobs):
+    """gan_train_config with epoch_iteration knobs."""
+    cfg = gan_train_config(root, lists)
+    cfg["learning"]["training"]["epoch_iteration"].update(knobs)
+    return cfg
+
+
+def student_gates(net, into, force=None, concat=False):
+    """Forward hooks on the HED student's ReLUs and max-pools for the E
+    step's forwards (its first two calls, real then fake; the one call
+    on both with `concat`): each gate's decision, a ReLU's output > 0 or
+    a max-pool's argmax, goes into `into` under "real:<module>" and
+    "fake:<module>". With `force` (another run's decisions under the same
+    keys) each gate routes by those instead, so two runs' gradients
+    differ by their arithmetic alone. Returns the hook handles."""
+    import torch.nn.functional as F
+    from gandtr_tpu_torch.models.hed import MaxPool
+    handles = []
+    for name, mod in net.named_modules():
+        if not isinstance(mod, (torch.nn.ReLU, MaxPool)):
+            continue
+
+        def hook(mod, inp, out, name=name, seen=[0]):
+            k, seen[0] = seen[0], seen[0] + 1
+            if k >= (1 if concat else 2):
+                return None
+            parts = ("real", "fake") if concat else (("real", "fake")[k],)
+            x, pool = inp[0], isinstance(mod, MaxPool)
+            nchw = x.permute(0, 3, 1, 2)
+            got = (F.max_pool2d(nchw.detach(), 2, 2, return_indices=True)[1]
+                   if pool else out.detach() > 0).cpu()
+            for part, g in zip(parts, got.chunk(len(parts))):
+                into["%s:%s" % (part, name)] = g
+            if force is None:
+                return None
+            want = torch.cat([force["%s:%s" % (p, name)] for p in parts]
+                             ).to(x.device)
+            if not pool:
+                return x * want.to(x.dtype)
+            n, ch = want.shape[:2]
+            y = nchw.reshape(n, ch, -1).gather(2, want.reshape(n, ch, -1))
+            return y.reshape(want.shape).permute(0, 2, 3, 1)
+        handles.append(mod.register_forward_hook(hook))
+    return handles
+
+
+def _opt_concat(dev, root, lists):
+    """concat_student at batch 10, 256²: the E step's ms both ways (CUDA
+    events, gan_step_breakdown) from the same state after OPT_DRIFT
+    separate steps. At batch 2, 128², from those drifted weights: the
+    student's E-step gradient with the knob on the card and on the CPU
+    (float32) against the float64 CPU gradient without it (the same
+    math), each routed by float64's ReLU and max-pool decisions: the
+    card's within twice the CPU's distance (PERF.md §2). Printed beside
+    them, unrouted: the distances and the gates each float32 run sets
+    the other way from float64 (a gate near its switching point sends
+    one element's whole gradient elsewhere; scripts/
+    torch_e_grad_layers.py reads them layer by layer), and the card
+    without the knob."""
+    import copy
+    from gandtr_tpu_torch.learning import gan_steps
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    cfg = gan_train_config(root, lists)
+    cfg.pop("data")
+    exp = build_gan_experiment(cfg, device=dev)
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b)
+               for b in _seeded_gan_batches(OPT_DRIFT + 1, 10, 256, 11)]
+    for X, Y in batches[:OPT_DRIFT]:
+        exp["step"](exp["state"], X, Y)
+    snap, opt_snap = _gan_snapshot(exp), copy.deepcopy(
+        exp["state"].state_dict())
+    weights = cfg["learning"]["training"]["criterion"]["weights"]
+    concat = gan_steps.build_hedngan_step(exp["models"], exp["optimizers"],
+                                          weights, concat_student=True)
+    X, Y = batches[-1]
+    out = {}
+    for name, step in (("separate", exp["step"]), ("concat", concat)):
+        _gan_load(exp, snap)
+        exp["state"].load_state_dict(copy.deepcopy(opt_snap))
+        _, m, _ = step(exp["state"], X, Y)
+        out["E_real_" + name] = float(m["E_real"])
+        _gan_load(exp, snap)
+        bd = gan_step_breakdown(dict(exp, step=step), X, Y)
+        out["e_step_ms_" + name] = bd["e_step"]
+        out["step_ms_" + name] = bd["total"]
+    del exp, concat
+    torch.cuda.empty_cache()
+
+    # parity at batch 2, 128², from the drifted weights
+    X, Y = (torch.from_numpy(a)
+            for a in _seeded_gan_batches(1, 2, 128, 12)[0])
+    ccfg = copy.deepcopy(cfg)
+    ccfg["learning"]["training"]["epoch_iteration"]["concat_student"] = True
+    torch.set_num_threads(os.cpu_count() or 1)
+    g64 = {}
+
+    def e_grad(where, c, dtype, gates, force=None):
+        e = build_gan_experiment(c, device=where)
+        _gan_load(e, snap)
+        if dtype == torch.float64:
+            for net in e["models"].values():
+                net.module.double()
+        hooks = student_gates(e["models"]["detector"].module, gates, force,
+                              concat=c is ccfg)
+        got = _grab_grads(e, ("detector",))
+        _, m, _ = e["step"](e["state"], X.to(where, dtype),
+                            Y.to(where, dtype))
+        for h in hooks:
+            h.remove()
+        return _flat(got["detector"]).double(), [float(m["E_real"]),
+                                                 float(m["E_fake"])]
+    ref, out["E_128_float64_cpu"] = e_grad("cpu", cfg, torch.float64, g64)
+    rel, flips = {}, {}
+    for tag, where, c, force in (("cpu", "cpu", ccfg, g64),
+                                 ("card", dev, ccfg, g64),
+                                 ("cpu_unrouted", "cpu", ccfg, None),
+                                 ("card_unrouted", dev, ccfg, None),
+                                 ("card_separate_unrouted", dev, cfg, None)):
+        gates = {}
+        grad, m = e_grad(where, c, torch.float32, gates, force)
+        rel[tag] = _rel(grad, ref)
+        flips[tag] = {k: int((v != g64[k]).sum())
+                      for k, v in gates.items() if (v != g64[k]).any()}
+        if force is None:
+            out["E_128_" + tag] = m
+    out["e_grad_rel_to_float64"] = rel
+    out["gates_other_way"] = flips
+    if rel["card"] > 2 * rel["cpu"] or not out["E_real_separate"] > 0:
+        raise AssertionError("concat_student: %s" % json.dumps(out))
+    return out
+
+
+def _opt_cache(dev, root, lists):
+    """The build's teacher cache (`cache_teacher_targets`) and the plain
+    build from the same seeded weights, fed OPT_CACHE_BATCHES batches of
+    the domain loader three times in order: misses on the first pass,
+    hits after, and the two runs bit-equal (nets and the three Adams).
+    Host-clock ms of a miss and of a hit (synchronised), and of the plain
+    step."""
+    from gandtr_tpu_torch.data import transforms as T
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    plain = build_gan_experiment(gan_train_config(root, lists), device=dev)
+    cfg = _opt_cfg(root, lists, cache_teacher_targets=True)
+    cfg.pop("data")
+    cached = build_gan_experiment(cfg, device=dev)
+    if _nets_differ(plain, cached):
+        raise AssertionError("the two builds start apart")
+    T.seed_transforms(0)
+    np.random.seed(0)
+    plain["loader"].dataset.prepare_epoch()
+    it = iter(plain["loader"])
+    batches = [next(it) for _ in range(OPT_CACHE_BATCHES)]
+    del it
+    times = {"miss": [], "hit": [], "plain": []}
+    step = cached["step"]
+    for _ in range(3):
+        for b in batches:
+            for tag, fn in (("plain", lambda: plain["step"](
+                    plain["state"], *(_upload(a, dev) for a in b[:2]))),
+                            ("cached", lambda: step(
+                                cached["state"], *step.batch_to_args(b)))):
+                hits = step.hits
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                if tag == "plain":
+                    times["plain"].append(ms)
+                else:
+                    times["hit" if step.hits > hits else "miss"].append(ms)
+    diff = _nets_differ(plain, cached)
+    for name, opt in plain["state"].optimizers.items():
+        want = opt.state_dict()["state"]
+        got = cached["state"].optimizers[name].state_dict()["state"]
+        diff += ["%s moment %s.%s" % (name, i, k) for i, s in want.items()
+                 for k, v in s.items() if not torch.equal(v, got[i][k])]
+    out = {"hits": step.hits, "misses": step.misses,
+           "bit_equal_to_uncached": not diff,
+           "miss_ms": float(np.median(times["miss"])),
+           "hit_ms": float(np.median(times["hit"][1:])),
+           "plain_ms": float(np.median(times["plain"][1:]))}
+    if diff or (step.hits, step.misses) != (2 * OPT_CACHE_BATCHES,
+                                            OPT_CACHE_BATCHES):
+        raise AssertionError("teacher cache: %s; differs: %s"
+                             % (json.dumps(out), diff[:8]))
+    return out
+
+
+def _upload(arr, dev):
+    from gandtr_tpu_torch.device import upload
+    return upload(arr, dev)
+
+
+def _opt_dsc(dev, root, lists):
+    """The published `scalecrop:256_256:0.8_1` chain through the build's
+    loader and `Training.run` (one epoch of OPT_DSC_PAIRS pairs, batch 10,
+    a directory, the visual validation off), without and with
+    `device_scalecrop`, from the same seed: the crop boxes equal, the first
+    batch staged on the card within 1e-5 of the host chain's; the loader
+    threads' host ms a step (the batches' making), the bytes uploaded a
+    step, the epoch's ms a step and the card's busy share over it
+    (torch.profiler), both ways. Returns (numbers, the device run's
+    directory)."""
+    from torch.profiler import ProfilerActivity, profile
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    out, first, boxes = {}, {}, {}
+    for knob in (False, True):
+        tag = "device" if knob else "host"
+        cfg = gan_train_config(root, lists)
+        cfg["learning"]["checkpoints"]["directory"] = os.path.join(
+            root, "dsc_" + tag)
+        cfg["learning"]["training"]["epochs"] = 1
+        cfg["data"]["train"]["dataset"]["size"] = OPT_DSC_PAIRS
+        cfg["data"]["train"]["device_scalecrop"] = knob
+        cfg["learning"]["validation"]["visual"]["frequency"] = 0
+        directory = cfg["learning"]["checkpoints"]["directory"]
+        exp = build_gan_experiment(cfg, directory=directory, device=dev)
+        loader, loop = exp["loader"], exp["training"].loop
+        ds = loader.dataset
+        rec = {"host_s": 0.0, "bytes": 0, "steps": 0, "boxes": []}
+        lock = threading.Lock()
+        make_batch, draw = loader._batch, ds.transform.draw
+        to_args, run_epoch = loop.batch_to_args, loop.run_epoch
+
+        def timed_batch(idxs, _make=make_batch, _rec=rec):
+            t0 = time.perf_counter()
+            batch = _make(idxs)
+            with lock:
+                _rec["host_s"] += time.perf_counter() - t0
+            return batch
+
+        def profiled_epoch(state, epoch, _run=run_epoch, _rec=rec):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state = _run(state, epoch)
+                torch.cuda.synchronize()
+                _rec["wall"] = time.perf_counter() - t0
+            _rec["busy_us"] = sum(
+                e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+            return state
+
+        def recording_draw(sizes, _draw=draw, _rec=rec, _knob=knob):
+            d = _draw(sizes)
+            _rec["boxes"].append(d if _knob else d[1])
+            return d
+
+        def counting_args(batch, _rec=rec, _to=to_args, _tag=tag):
+            _rec["bytes"] += sum(np.asarray(a).nbytes for a in batch)
+            _rec["steps"] += 1
+            first.setdefault(_tag, [np.asarray(a).copy() for a in batch])
+            return _to(batch)
+        loader._batch = timed_batch
+        ds.transform.draw = recording_draw
+        loop.batch_to_args = counting_args
+        loop.run_epoch = profiled_epoch
+        t0 = time.perf_counter()
+        exp["training"].run(exp["state"])
+        torch.cuda.synchronize()
+        steps = rec["steps"]
+        out[tag] = {"loader_host_ms_per_step": 1e3 * rec["host_s"] / steps,
+                    "bytes_uploaded_per_step": rec["bytes"] / steps,
+                    "loop_ms_per_step": 1e3 * rec["wall"] / steps,
+                    "busy_share": rec["busy_us"] / 1e6 / rec["wall"],
+                    "run_s": time.perf_counter() - t0, "steps": steps}
+        boxes[tag] = rec["boxes"]
+        if tag == "device":
+            stage = exp["step"].stage
+            staged = [stage(_upload(first[tag][i], dev),
+                            _upload(first[tag][i + 1], dev)).cpu().numpy()
+                      for i in (0, 2)]
+            dsc_dir = directory
+        del exp
+    d = max(float(np.abs(s - h).max())
+            for s, h in zip(staged, first["host"][:2]))
+    out["staged_vs_host_max"] = d
+    out["boxes_equal"] = (
+        [(list(map(int, o)), list(map(int, c))) for o, c in boxes["host"]]
+        == [(list(map(int, o)), list(map(int, c))) for o, c in
+            boxes["device"]])
+    if not out["boxes_equal"] or d > 1e-5 or not (
+            out["host"]["steps"] == out["device"]["steps"] == 8):
+        raise AssertionError("device scalecrop: %s" % json.dumps(out))
+    return out, dsc_dir
+
+
+def _opt_rotation(dev, root, lists):
+    """`composition: OPT_ROTATION` with the detector on SGD (momentum
+    0.9): 6 steps at batch 10, 256², each moving exactly the active
+    member's parameters (the others bit-unchanged); a build resumed from
+    the nets and the state after step 3 repeats steps 4 to 6 bit for
+    bit."""
+    import copy
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    cfg = gan_train_config(root, lists)
+    cfg.pop("data")
+    opt = cfg["learning"]["training"]["optimizer"]
+    opt["detector"] = dict(OPT_SGD)
+    opt["composition"] = dict(OPT_ROTATION)
+    order = OPT_ROTATION["order"].split(",")
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b)
+               for b in _seeded_gan_batches(6, 10, 256, 13)]
+    exp = build_gan_experiment(cfg, device=dev)
+    moved, saved = [], None
+    for t, (X, Y) in enumerate(batches):
+        before = {n: [p.detach().clone() for p in
+                      exp["models"][n].module.parameters()] for n in order}
+        _, m, _ = exp["step"](exp["state"], X, Y)
+        moved.append({n: sum(not torch.equal(a, p) for a, p in zip(
+            before[n], exp["models"][n].module.parameters()))
+            for n in order})
+        if not all(np.isfinite(float(v)) for v in m.values()):
+            raise AssertionError("rotation step %d: %s" % (t, m))
+        if t == 2:
+            saved = (_gan_snapshot(exp),
+                     copy.deepcopy(exp["state"].state_dict()))
+    for t, mv in enumerate(moved):
+        active = order[(t // 2) % 3]
+        if any(mv[n] for n in order if n != active) or not mv[active]:
+            raise AssertionError("rotation step %d moved %s (active %s)"
+                                 % (t, mv, active))
+    again = build_gan_experiment(cfg, device=dev)
+    _gan_load(again, saved[0])
+    again["state"].load_state_dict(saved[1])
+    for X, Y in batches[3:]:
+        again["step"](again["state"], X, Y)
+    diff = _nets_differ(exp, again)
+    if diff:
+        raise AssertionError("rotation resume differs: %s" % diff[:8])
+    return {"moved_per_step": moved, "resume_steps_4_to_6_bit_equal": True,
+            "detector_optimizer": type(
+                exp["optimizers"]["detector"].optimizer).__name__}
+
+
+def _opt_warm_start(dev, root, lists, dsc_dir):
+    """A build whose generator_X is a `path:` member on the device
+    scalecrop run's generator_X_last.ckpt: its weights are the file's
+    before the first step, and the step runs."""
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    path = os.path.join(dsc_dir, "epochs", "generator_X_last.ckpt")
+    cfg = gan_train_config(root, lists)
+    cfg.pop("data")
+    cfg["network"]["generator_X"] = {"type": "SingleNetwork", "path": path}
+    exp = build_gan_experiment(cfg, device=dev)
+    want = torch.load(path, map_location="cpu",
+                      weights_only=False)["model_state"]
+    got = exp["models"]["generator_X"].module.state_dict()
+    diff = [k for k, v in want.items() if not torch.equal(got[k].cpu(), v)]
+    X, Y = (torch.from_numpy(a).to(dev)
+            for a in _seeded_gan_batches(1, 10, 256, 14)[0])
+    _, m, _ = exp["step"](exp["state"], X, Y)
+    if diff or set(want) != set(got) or not np.isfinite(float(m["total"])):
+        raise AssertionError("warm start: %d entries differ, total %s"
+                             % (len(diff), float(m["total"])))
+    return {"weights_equal_file": True, "step_total": float(m["total"])}
+
+
+def _capped_recording(module, name, calls, cap=OPT_RECORD_CAP):
+    """_recording_calls keeping at most `cap` calls an input shape (the
+    tensors by reference); returns the function that puts it back."""
+    original = getattr(module, name)
+    seen = {}
+
+    def recording(*args, **kwargs):
+        key = tuple(args[0].shape)
+        seen[key] = seen.get(key, 0) + 1
+        if seen[key] <= cap:
+            calls.append((args, kwargs))
+        return original(*args, **kwargs)
+    setattr(module, name, recording)
+    return lambda: setattr(module, name, original)
+
+
+def _hold_clahe(calls, kernel, plain):
+    """Each recorded CLAHE call's kernel bit-equal to its plain version."""
+    for args, kwargs in calls:
+        got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+        if not torch.equal(got, want):
+            raise AssertionError("%s on %s: %d levels from its plain version"
+                                 % (kernel.__name__, tuple(args[0].shape),
+                                    int((got.int() - want.int()).abs()
+                                        .max())))
+    return len(calls)
+
+
+def _plain_k2_k4():
+    """Swap K2 and K4 for their plain versions; returns the function that
+    puts them back."""
+    from gandtr_tpu_torch.ops import clahe as clahe_ops
+    from gandtr_tpu_torch.ops import vggconv
+    k2, k4 = vggconv.conv3x3_same, clahe_ops.clahe_u8_masked
+    vggconv.conv3x3_same = (lambda x, w, b=None, relu=False, out_dtype=None:
+                            vggconv.conv3x3_same_plain(x, w, b, relu,
+                                                       out_dtype))
+    clahe_ops.clahe_u8_masked = clahe_ops.clahe_u8_masked_plain
+
+    def restore():
+        vggconv.conv3x3_same, clahe_ops.clahe_u8_masked = k2, k4
+    return restore
+
+
+def _val_loss_now(val, state):
+    """One validation's tuples mined once with `state`'s weights and the
+    kernels, then scored with the kernels and with K2 and K4 swapped for
+    their plain versions, on the same host batches: {variant: (mean loss,
+    launches)}, and the launches of the mining."""
+    reset_launches()
+    val.on_validate(state)
+    val.loader.dataset.prepare_epoch()
+    out = {"mining": launches()}
+    batches = list(val.loader)
+    for name in ("kernels", "plain"):
+        restore = _plain_k2_k4() if name == "plain" else (lambda: None)
+        try:
+            reset_launches()
+            with torch.no_grad():
+                losses = [float(val.loss_fn(state, *val.batch_to_args(b)))
+                          for b in batches]
+            out[name] = (float(np.mean(losses)), launches())
+        finally:
+            restore()
+    return out
+
+
+def _triplet_step(dev):
+    """One fine-tune step of finetune.yml with `criterion: {loss: triplet,
+    margin: 0.1}` (T=2, bf16 embed), with the kernels and with K2 and K4
+    swapped for their plain versions: finite, the losses within 1%."""
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
+    import copy
+    batch = finetune_batch(dev, T=2, seed=3)
+    cfg = finetune_config()
+    cfg["learning"]["training"]["criterion"] = {"loss": "triplet",
+                                                "margin": 0.1}
+    exp = build_finetune_experiment(cfg, device=dev)
+    embed = exp["models"]["embed"].module
+    start = copy.deepcopy(embed.state_dict())
+    res = {}
+    for name in ("kernels", "plain"):
+        embed.load_state_dict(start)
+        restore = _plain_k2_k4() if name == "plain" else (lambda: None)
+        try:
+            reset_launches()
+            _, m = exp["step"](exp["state"], *batch)
+            res[name] = (float(m["total"]), launches())
+        finally:
+            restore()
+    (lk, ck), (lp, cp) = res["kernels"], res["plain"]
+    rel = abs(lk - lp) / max(abs(lp), 1e-12)
+    if not (np.isfinite(lk) and rel <= 1e-2 and ck["K2"] and ck["K4"]
+            and not cp["K2"] and not cp["K4"]):
+        raise AssertionError("triplet step: kernels %r %s, plain %r %s"
+                             % (lk, ck, lp, cp))
+    return {"loss": lk, "loss_plain": lp, "rel": rel, "launches": ck}
+
+
+def _opt_finetune(dev, root):
+    """The fine-tune loop of finetune_loop_config (make_tuple_set's set) with
+    a seeded val split of its own, a `learning.validation` section
+    (frequency 1), `output.learning.tensorboard`, and a ScoreValidation
+    over make_eval_set's roxford5k-style set (exact shapes: K1) appended to
+    the training's validations; 2 epochs, every launch count set to 0
+    just before the run. Checks: finite validation losses; the val
+    tuples mined with each epoch's weights; `_best` at the lower loss;
+    the score events under the JAX keys; the TensorBoard file's CRCs and
+    its epoch scalars equal to the events' history; K4 and K2 launched by
+    the loss validation and K1 by the score eval, each recorded call
+    (OPT_RECORD_CAP an input shape) held against its plain version; one
+    validation's tuples, mined once with the kernels (K4, K2), scored
+    with K2 and with plain K2 and K4 on the same batches: the losses
+    within 1%; the triplet step."""
+    import pickle
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.learning.tensorboard import (read_records,
+                                                       read_scalar_events)
+    from gandtr_tpu_torch.learning.training import ScoreValidation
+    from gandtr_tpu_torch.ops.clahe import clahe_u8_plain
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
+    train_root, val_root = (os.path.join(root, d) for d in ("ft", "ftval"))
+    with open(make_tuple_set(train_root), "rb") as f:
+        train_db = pickle.load(f)["train"]
+    with open(make_tuple_set(val_root, seed=1), "rb") as f:
+        val_db = pickle.load(f)["train"]
+    pkl = os.path.join(root, "tuples.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"train": train_db, "val": val_db}, f)
+    eval_root = os.path.join(root, "evalset")
+    make_eval_set(eval_root)
+    cfg = finetune_loop_config(pkl, os.path.join(train_root, "ims"))
+    cfg["data"]["val"] = {"dataset": dict(
+        OPT_VAL_CUTS, name="CirTuples", split="val", neg_num=5,
+        image_dir=os.path.join(val_root, "ims"))}
+    cfg["learning"]["validation"] = {"type": "SingleValidation",
+                                     "frequency": 1}
+    cfg["output"]["learning"]["tensorboard"] = {}
+    directory = os.path.join(root, "ftexp")
+    exp = build_finetune_experiment(cfg, directory, device=dev)
+    training = exp["training"]
+    (val,) = training.validations
+    score = ScoreValidation(exp["models"]["embed"], "roxford5k", eval_root,
+                            image_size=OPT_SCORE_SIZE)
+    training.validations.append(score)
+
+    rec = {"counts": {"val": [], "score": []}, "seconds": {"val": [],
+                                                           "score": []},
+           "mined_with": [], "state_at_val": []}
+    calls = {"K4": [], "K2": [], "K1": []}
+
+    def fingerprint(state):
+        with torch.no_grad():
+            return float(sum(float(p.double().sum()) for p in
+                             state.models["embed"].module.parameters()))
+
+    def counted(tag, fn):
+        def run(state, epoch, events):
+            before = launches()
+            fn(state, epoch, events)
+            after = launches()
+            rec["counts"][tag].append({k: after[k] - before[k]
+                                       for k in after})
+            rec["seconds"][tag].append(fn.last_seconds)
+        return run
+    extract = val.loader.dataset.extract_fn
+
+    def recording_extract(idxs, label="anc-mine"):
+        rec["mined_with"].append(fingerprint(extract.holder["state"]))
+        return extract(idxs, label)
+    recording_extract.holder = extract.holder
+    val.loader.dataset.extract_fn = recording_extract
+    on_validate = val.on_validate
+
+    def recording_on_validate(state):
+        rec["state_at_val"].append(fingerprint(state))
+        on_validate(state)
+    val.on_validate = recording_on_validate
+    training.validations = [counted("val", val), counted("score", score)]
+    restore = [_capped_recording(kmasked, "clahe_u8_masked_cuda",
+                                 calls["K4"]),
+               _capped_recording(kvgg, "conv3x3_same_cuda", calls["K2"]),
+               _capped_recording(kclahe, "clahe_u8_cuda", calls["K1"])]
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = training.run(exp["state"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        for r in restore:
+            r()
+    hist = exp["events"].history
+    vloss = [h["metrics"]["val/learning/loss:total"] for h in hist]
+    head = "val/validation/roxford5k/"
+    score_keys = sorted(k for k in hist[-1]["metrics"] if k.startswith(head))
+    out = {"run_s": wall, "val_loss": vloss,
+           "best_epoch": exp["events"].metadata.best_epoch(),
+           "validation_s": rec["seconds"]["val"],
+           "score_s": rec["seconds"]["score"],
+           "val_launches": rec["counts"]["val"],
+           "score_launches": rec["counts"]["score"],
+           "launches": counts, "score_keys": score_keys,
+           "map_medium": [h["metrics"].get(head + "score_avg:map_medium")
+                          for h in hist]}
+    # each epoch's validation mined with that epoch's weights
+    mined = rec["mined_with"]
+    per = len(mined) // max(len(rec["state_at_val"]), 1)
+    mined_ok = per > 0 and all(
+        m == rec["state_at_val"][i // per] for i, m in enumerate(mined)) \
+        and rec["state_at_val"][0] != rec["state_at_val"][-1]
+    logdir = os.path.join(directory, "epochs", "tensorboard")
+    (tb_name,) = os.listdir(logdir)
+    tb_path = os.path.join(logdir, tb_name)
+    n_records = len(read_records(tb_path))
+    tb = {}
+    for tag, value, step in read_scalar_events(tb_path):
+        tb.setdefault(tag, []).append((step, value))
+    tb_ok = all(_close([v for _, v in tb.get(k, [])],
+                       [h["metrics"][k] for h in hist])
+                for k in ("val/learning/loss:total",
+                          head + "score_avg:map_medium"))
+    out.update(mined_with_epoch_weights=mined_ok, tensorboard_records=n_records,
+               tensorboard_scalars_equal_history=tb_ok)
+    want_keys = {head + "dataset:eval", head + "score_avg:map_medium",
+                 head + "score:ap_medium"}
+    if not (all(np.isfinite(vloss)) and len(vloss) == 2 and mined_ok
+            and tb_ok and want_keys <= set(score_keys)
+            and out["best_epoch"] == int(np.argmin(vloss)) + 1
+            and all(c["K4"] and c["K2"] for c in rec["counts"]["val"])
+            and all(c["K1"] for c in rec["counts"]["score"])):
+        raise AssertionError("fine-tune validations: %s" % json.dumps(out))
+    held = check_recorded_k2_k4({"K4": calls["K4"], "K2": calls["K2"]})
+    held["K1"] = {"calls": _hold_clahe(calls["K1"], kclahe.clahe_u8_cuda,
+                                       clahe_u8_plain)}
+    out["held_against_plain"] = held
+    del calls
+    now = _val_loss_now(val, state)
+    (lk, ck), (lp, cp) = now["kernels"], now["plain"]
+    out["val_loss_kernels_vs_plain"] = {"kernels": lk, "plain": lp,
+                                        "rel": abs(lk - lp) / abs(lp),
+                                        "launches": ck,
+                                        "mining_launches": now["mining"]}
+    if abs(lk - lp) > 1e-2 * abs(lp) or cp["K2"] or cp["K4"] \
+            or not (ck["K2"] and now["mining"]["K2"]
+                    and now["mining"]["K4"]):
+        raise AssertionError("validation loss kernels vs plain: %s"
+                             % json.dumps(now))
+    del exp, state, training, val, score
+    torch.cuda.empty_cache()
+    out["triplet_step"] = _triplet_step(dev)
+    return out
+
+
+def _close(got, want, rel=1e-6):
+    """Float32 readings `got` of the values `want`."""
+    return len(got) == len(want) and all(
+        abs(a - b) <= rel * max(abs(b), 1e-30) for a, b in zip(got, want))
+
+
+def run_training_options(dev):
+    """The training options (item 15 of the docstring), at full width:
+    (a) HED^N-GAN (train_hedngan.yml, GAN_TRAIN through gan_train_config,
+    batch 10 of 256², seeded HED): concat_student, the teacher cache, the
+    device scalecrop, SGD with the optimizer rotation, a warm start;
+    (b) the fine-tune loop with its validations, TensorBoard and a
+    ScoreValidation, and a triplet step. Every launch count of (b) is set
+    to 0 just before its run; (a) reaches no kernel."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="opts_", dir=os.environ.get("TMPDIR"))
+    out, t_all = {}, time.perf_counter()
+    try:
+        lists = make_domain_set(tmp)
+        reset_launches()
+        for name, fn in (("concat_student", _opt_concat),
+                         ("teacher_cache", _opt_cache)):
+            t0 = time.perf_counter()
+            out[name] = fn(dev, tmp, lists)
+            out[name]["phase_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["device_scalecrop"], dsc_dir = _opt_dsc(dev, tmp, lists)
+        out["device_scalecrop"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["rotation"] = _opt_rotation(dev, tmp, lists)
+        out["warm_start"] = _opt_warm_start(dev, tmp, lists, dsc_dir)
+        out["rotation"]["phase_s"] = time.perf_counter() - t0
+        gan_counts = launches()
+        if any(gan_counts.values()):
+            raise AssertionError("HED^N-GAN launched %s" % gan_counts)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["finetune"] = _opt_finetune(dev, tmp)
+        out["finetune"]["phase_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_all
+    # the main path's counts: the fine-tune run with its validations (the
+    # GAN parts reach no kernel)
+    out["launches"] = dict(out["finetune"]["launches"])
+    print("training options (%s): %s" % (card_line(), json.dumps(out)))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5033,6 +5774,11 @@ def main():
     srch = run_search(dev)
     print("search (%d photos + %d distractor rows, %s): %s"
           % (SEARCH_PHOTOS, SEARCH_DB, card, json.dumps(srch)))
+
+    # ---- the training options: HED^N-GAN's knobs, SGD and the rotation,
+    # a warm start, the fine-tune's validations with TensorBoard
+    torch.cuda.empty_cache()
+    opts = run_training_options(dev)
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
                    "finetune_loop": loop["launches"][k],
@@ -5041,7 +5787,8 @@ def main():
                    "gan_train": gan["launches"][k],
                    "scenario": scen["launches"][k],
                    "gan_families": fams["launches"][k],
-                   "search": srch["launches"][k]}
+                   "search": srch["launches"][k],
+                   "training_options": opts["launches"][k]}
                for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{

@@ -3,7 +3,8 @@ gandtr_tpu/data/transforms.py), for the descriptor pipeline
 `pil2np | apply_clahe:<clip>[:<grid>[:<space>]] | totensor | normalize`
 and the GAN pipelines `pil2np | scalecrop:<w>_<h>:<lo>_<hi> | totensor |
 normalize` (training pairs) and `pil2np | downscale:<side> | totensor |
-normalize` (visual validation).
+normalize` (visual validation). `DeviceScalecrop` is the scalecrop chain's
+host half when its resize runs on the device (`device_scalecrop`).
 
 A Compose takes one image or several (`compose(x, y)` -> [x', y']): a
 random transform draws once for all of them, as the reference's variadic
@@ -199,6 +200,77 @@ class RandomScaleCrop:
         w, h = self.size
         return [torch.from_numpy(resize_linear(p[y:y + ch, x:x + cw], w, h))
                 for p in pics]
+
+    def crop_only(self, *pics, draws=None):
+        """The crops of `joint` without the resize: the same draws, made
+        the same way when `draws` is None. Returns (crops, (w, h)), or
+        (pics, None) where `joint` passes the images through."""
+        pics = [_as_array(p) for p in pics]
+        if draws is None:
+            draws = self.draw([p.shape[:2] for p in pics])
+        if draws is None:
+            return pics, None
+        (y, x), (ch, cw) = draws
+        return [p[y:y + ch, x:x + cw] for p in pics], tuple(self.size)
+
+    @property
+    def max_crop_side(self):
+        """The longest crop side any draw can make: ceil(size / lo)."""
+        return int(np.max(np.ceil(self.size[::-1] / self.scale[0])))
+
+
+class DeviceScalecrop:
+    """The host half of `data.train.device_scalecrop`: each image's crop
+    from the draws of `sc` (a RandomScaleCrop; the loader plans them as
+    for the host chain, so both chains cut the same boxes), as uint8 in
+    the top-left corner of a zero (pad, pad, 3) buffer with pad =
+    `sc.max_crop_side`, followed by its (h, w). The /255, the resize to
+    the scalecrop's size and the normalization run on the device
+    (ops/resize.py::dynamic_bilinear_resize_u8). Returns [img_u8, hw, ...]
+    for each input image."""
+
+    def __init__(self, sc):
+        self.sc = sc
+        self.pad = sc.max_crop_side
+
+    def draw(self, sizes):
+        return self.sc.draw(sizes)
+
+    def __call__(self, *pics, draws=None):
+        arrs = []
+        for p in pics:
+            a = np.asarray(p.convert("RGB")) if isinstance(p, Image.Image) \
+                else np.asarray(p)
+            if a.dtype != np.uint8:
+                raise ValueError("device scalecrop takes decoded uint8 "
+                                 "images, got %s" % a.dtype)
+            arrs.append(a)
+        crops, _ = self.sc.crop_only(*arrs, draws=draws)
+        out = []
+        for c in crops:
+            h, w = min(c.shape[0], self.pad), min(c.shape[1], self.pad)
+            buf = np.zeros((self.pad, self.pad, 3), np.uint8)
+            buf[:h, :w] = c[:h, :w]
+            out.extend([buf, np.asarray([h, w], np.int32)])
+        return out
+
+
+def parse_device_scalecrop(transforms_str, mean_std):
+    """The pieces of the device scalecrop for exactly `pil2np |
+    scalecrop:SIZE[:SCALE] | totensor | normalize` (the GAN train chain):
+    {"sc": its RandomScaleCrop, "out_hw", "mean", "std"}; None for any
+    other chain."""
+    parts = [p.strip() for p in str(transforms_str or "").split("|")]
+    if len(parts) != 4 or parts[0] != "pil2np" or parts[2] != "totensor" \
+            or parts[3] != "normalize":
+        return None
+    bits = parts[1].split(":")
+    if bits[0] != "scalecrop" or len(bits) < 2:
+        return None
+    sc = RandomScaleCrop(*bits[1:])
+    return {"sc": sc, "out_hw": (int(sc.size[1]), int(sc.size[0])),
+            "mean": torch.tensor(mean_std[0], dtype=torch.float32),
+            "std": torch.tensor(mean_std[1], dtype=torch.float32)}
 
 
 class Downscale:

@@ -417,10 +417,10 @@ class EventBroker:
 
 def initialize_processor(params, directory=None, decisive_criterion=None):
     """An EventBroker from a reference-style output config ({progress:
-    {print_each: ...}, htmlreport: {}}). With a directory, `htmlreport`
-    adds the HTML report sink; the TensorBoard writer is not ported yet,
-    and asking for it there raises. Without a directory both are dropped,
-    as in the JAX package."""
+    {print_each: ...}, htmlreport: {}, tensorboard: {}}). With a
+    directory, `htmlreport` adds the HTML report sink and `tensorboard`
+    the event-file writer (learning/tensorboard.py). Without a directory
+    both are dropped, as in the JAX package."""
     params = dict(params or {})
     broker_type = params.pop("type", "EventBroker")
     if broker_type != "EventBroker":
@@ -439,8 +439,8 @@ def initialize_processor(params, directory=None, decisive_criterion=None):
         from gandtr_tpu_torch.learning.html_report import HtmlReport
         sinks.append(HtmlReport(directory))
     if "tensorboard" in params and directory:
-        raise NotImplementedError("event processor 'tensorboard' is not "
-                                  "ported yet")
+        from gandtr_tpu_torch.learning.tensorboard import TensorboardWriter
+        streamers.append(TensorboardWriter(directory))
     params.pop("htmlreport", None)
     params.pop("tensorboard", None)
     if params:  # unknown processors fail, as in the reference

@@ -26,10 +26,19 @@ losses), `D_real`, `D_fake`, `G_gan`, `G_hed`, `E_real`, `E_fake` as 0-dim
 tensors on the device, and the last sample of the batch's images and edge
 maps for the event blobs. Nothing is read back to the host.
 
+`build_hedngan_step`'s opt-in knobs (off by default, as in the JAX
+package): `concat_student` runs (3)'s two student forwards as one forward
+of the batch [real_X; fake_Y.detach()], split after; `external_targets`
+makes the step take target_M as a fourth argument and skip the teacher;
+`emit_targets` returns target_M in `debug` (learning/teacher_cache.py
+uses the last two). With `concat_student` the student-equals-teacher tie
+of the first steps is not guaranteed: a batch of 2N may take other
+convolution algorithms, so real_M may differ from target_M by rounding
+and the L1 takes a +-1 subgradient where the separate forwards take 0.
+
 `build_hedgan_step`, `build_cut_step` and `build_cyclegan_step` (the
 latter with its image pools, learning/image_pool.py) are the other
-families' steps (below). The JAX package's opt-in knobs `concat_student`
-and `cache_teacher_targets` are ROADMAP A.2.
+families' steps (below).
 """
 import contextlib
 from dataclasses import dataclass, field
@@ -111,11 +120,14 @@ def _d_step(D, opt, real, fake, w_adv):
     return loss.detach(), loss_real.detach(), loss_fake.detach()
 
 
-def build_hedngan_step(models, optimizers, weights):
+def build_hedngan_step(models, optimizers, weights, concat_student=False,
+                       external_targets=False, emit_targets=False):
     """step(state, real_X, real_Y) -> (state, metrics, debug) for `models`
     {generator_X, discriminator_Y, detector, detector_frozen} (WrappedNets)
     and an optimizer for each of the first three. `weights` are the
-    criterion's {adversarial, edge, hed} (1, 5, 1 as published)."""
+    criterion's {adversarial, edge, hed} (1, 5, 1 as published). With
+    `external_targets` the step is step(state, real_X, real_Y, target_M);
+    the knobs are the module docstring's."""
     w_adv = float(weights.get("adversarial", 1.0))
     w_edge = float(weights.get("edge", 5.0))
     w_hed = float(weights.get("hed", 1.0))
@@ -124,7 +136,10 @@ def build_hedngan_step(models, optimizers, weights):
     opt_g, opt_d = optimizers["generator_X"], optimizers["discriminator_Y"]
     opt_e = optimizers["detector"]
 
-    def step(state, real_X, real_Y):
+    def step(state, real_X, real_Y, *ext):
+        if len(ext) != int(external_targets):
+            raise TypeError("the step takes target_M exactly when built "
+                            "with external_targets")
         # (1) the one generator forward
         fake_Y = G.apply(real_X, train=True)
         fake_sg = fake_Y.detach()
@@ -133,11 +148,20 @@ def build_hedngan_step(models, optimizers, weights):
         d_loss, d_real, d_fake = _d_step(D, opt_d, real_Y, fake_sg, w_adv)
 
         # (3) E step: the student distilled on the frozen teacher
-        with torch.no_grad():
-            target_M = H_t.apply(real_X, train=False, no_sigmoid=True)
+        if external_targets:
+            target_M = ext[0].detach()
+        else:
+            with torch.no_grad():
+                target_M = H_t.apply(real_X, train=False, no_sigmoid=True)
         opt_e.zero_grad(set_to_none=True)
-        real_M = H_s.apply(real_X, train=False, no_sigmoid=True)
-        fake_M = H_s.apply(fake_sg, train=False, no_sigmoid=True)
+        if concat_student:
+            both_M = H_s.apply(torch.cat([real_X, fake_sg]), train=False,
+                               no_sigmoid=True)
+            real_M, fake_M = both_M[:real_X.shape[0]], \
+                both_M[real_X.shape[0]:]
+        else:
+            real_M = H_s.apply(real_X, train=False, no_sigmoid=True)
+            fake_M = H_s.apply(fake_sg, train=False, no_sigmoid=True)
         e_real = w_hed * L.l1_loss(real_M, target_M)
         e_fake = w_hed * L.l1_loss(fake_M, target_M)
         (e_real + e_fake).backward()
@@ -167,6 +191,8 @@ def build_hedngan_step(models, optimizers, weights):
                  "fake_Y": fake_sg[-1], "real_E": real_E[-1],
                  "fake_E": fake_E.detach()[-1],
                  "real_E_check": real_E_check}
+        if emit_targets:
+            debug["target_M"] = target_M
         return state, metrics, debug
 
     return step

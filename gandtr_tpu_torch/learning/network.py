@@ -18,7 +18,8 @@ JAX package, and a float input is cast likewise.
 
 `build_network_set` is the NetworkSet of the GAN configs (network.py:
 167-253): named WrappedNets, each with its `runtime.frozen`, and the
-`initialize` spec of each.
+`initialize` spec of each. A member given by `path:` (a warm start) is
+rewritten before, by scenarios/build.py::adopt_path_members.
 """
 import copy
 from dataclasses import dataclass, field
@@ -205,12 +206,14 @@ def build_network_set(config, device="cpu"):
             raise NotImplementedError("NetworkSet member %s of type %s is "
                                       "not ported yet" % (name, kind))
         if sub.get("path"):
-            raise NotImplementedError(
-                "NetworkSet member %s: a `path` member (warm start from a "
-                "checkpoint) is not ported yet" % name)
+            raise ValueError("NetworkSet member %s: a `path` member is "
+                             "adopted before the set is built "
+                             "(scenarios/build.py::adopt_path_members)"
+                             % name)
         sub.pop("path", None)
         spec = sub.pop("initialize", None)
         nets[name] = build_single_net(sub, device=device)
         if spec:
             init_specs[name] = dict(spec)
     return nets, init_specs
+

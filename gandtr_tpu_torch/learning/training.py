@@ -17,8 +17,18 @@ sets how far the loader prefetches and how often the host waits.
 
 `VisualValidation` (the GAN configs' visual criterion, inside a
 `MultiCriterialValidation`) runs the generator in eval mode over fixed
-validation images and logs its outputs as blobs.
+validation images and logs its outputs as blobs. `LossValidation` is the
+fine-tune's validation loss over val tuples mined with the current
+weights, `ScoreValidation` a retrieval eval (mAP) of the embed on a test
+set during training.
+
+`profile_dir` (`output.learning.profile`) writes a torch.profiler Chrome
+trace of epoch min(2, epochs) into that directory (the JAX package writes
+a jax.profiler trace of the same epoch).
 """
+import os
+import time
+
 import numpy as np
 import torch
 
@@ -94,7 +104,7 @@ class Training:
                  checkpoints=None, frozen=(), batch_to_args=None,
                  state_hook=None, config_snapshot=None, chunk=0,
                  net_params=None, validations=(), mean_std=None,
-                 rng_states=None):
+                 rng_states=None, profile_dir=None):
         self.loop = EpochLoop(step_fn, loader, events,
                               batch_to_args=batch_to_args, chunk=chunk)
         self.epochs = epochs
@@ -112,6 +122,7 @@ class Training:
         self.validations = list(validations)
         self.mean_std = mean_std or ([0.5] * 3, [0.5] * 3)
         self.rng_states = dict(rng_states or {})
+        self.profile_dir = profile_dir
 
     def _apply_schedules(self, state, epoch):
         """This epoch's learning rate: base_lr x each group's multiplier x
@@ -143,7 +154,10 @@ class Training:
             T.seed_transforms(self.seed + epoch - 1)
             np.random.seed(self.seed + epoch - 1)
             self._apply_schedules(state, epoch)
-            state = self.loop.run_epoch(state, epoch)
+            if self.profile_dir and epoch == min(2, self.epochs):
+                state = self._profiled_epoch(state, epoch)
+            else:
+                state = self.loop.run_epoch(state, epoch)
             debug = getattr(self.loop, "last_debug", None)
 
             if self.events:
@@ -179,6 +193,23 @@ class Training:
                     is_last=(epoch == self.epochs))
             if self.state_hook:
                 self.state_hook(state, epoch)
+        return state
+
+    def _profiled_epoch(self, state, epoch):
+        """The epoch under torch.profiler (the card's kernels too where
+        the state lives there), its Chrome trace written to
+        `<profile_dir>/epoch_<epoch>.trace.json`."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            state = self.loop.run_epoch(state, epoch)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.profile_dir, "epoch_%02d.trace.json" % epoch))
         return state
 
     def _log_weight_norms(self, state, epoch):
@@ -328,3 +359,136 @@ class MultiCriterialValidation:
     def __call__(self, state, epoch, events):
         for child in self.children.values():
             child(state, epoch, events)
+
+
+class LossValidation:
+    """The reference's SingleValidation (validation.py:60-118): the
+    criterion's loss over a validation loader every `frequency` epochs,
+    its mean logged under `key`. `on_validate(state)` runs first, before
+    the dataset's `prepare_epoch`, so the validation tuples are mined with
+    the current weights (validation.py:87). A sum-reduced criterion
+    (`criterion_mean_reduction=False`) is divided by the batch's tuples
+    (validation.py:99-101). `loss_fn(state, *batch_to_args(batch))`
+    returns a 0-dim tensor; the losses are read back once, at the end."""
+
+    def __init__(self, loss_fn, loader, frequency=1,
+                 key="val/learning/loss:total", batch_to_args=None,
+                 criterion_mean_reduction=True, on_validate=None):
+        self.loss_fn = loss_fn
+        self.loader = loader
+        self.frequency = frequency
+        self.key = key
+        self.batch_to_args = batch_to_args or (lambda batch: batch)
+        self.criterion_mean_reduction = criterion_mean_reduction
+        self.on_validate = on_validate
+        self.last_seconds = None
+
+    def __call__(self, state, epoch, events):
+        if not should_validate(self.frequency, epoch):
+            return
+        t0 = time.perf_counter()
+        if self.on_validate is not None:
+            self.on_validate(state)
+        if hasattr(self.loader.dataset, "prepare_epoch"):
+            self.loader.dataset.prepare_epoch()
+        losses = []
+        with torch.no_grad():
+            for batch in self.loader:
+                loss = self.loss_fn(state, *self.batch_to_args(batch))
+                if not self.criterion_mean_reduction:
+                    loss = loss / max(len(batch[0]), 1)
+                losses.append(loss.float())
+        values = torch.stack(losses).cpu().tolist() if losses else []
+        self.last_seconds = time.perf_counter() - t0
+        if events and values:
+            events.logger("", epoch)(self.key, float(np.mean(values)),
+                                     "scalar/loss")
+
+
+class ScoreValidation:
+    """The reference's CirDatasetAp (optim/score/cirscore.py:51-83): every
+    `frequency` epochs, the retrieval eval of the state's `net_name`
+    network (`embed_net` for a state without models) on a test set,
+    logged as `<key_prefix>/<dataset>/dataset:eval` (seconds),
+    `.../score_avg:<m>` for each mAP and `.../score:<m>` for each query's
+    AP (`iteration` its index). `dataset` is a name under `dir_main`
+    (eval/retrieval.py::configdataset) or the reference's tsv form {name,
+    queries, db, imgdir}, parsed once.
+
+    `transform` is a host transform (a callable), or a transform string
+    split as the validate stage splits it (`pil2np [| apply_clahe] |
+    totensor | normalize`: decoding on the host, CLAHE and the
+    normalization on the network's device, with the `mean_std` of its
+    `data` params); None takes the network's own `data` params. Each
+    image is embedded at its own shape. No build key makes it: append it
+    to a Training's `validations`."""
+
+    def __init__(self, embed_net, dataset, dir_main, image_size=1024,
+                 transform=None, frequency=1, net_name="embed",
+                 key_prefix="val/validation"):
+        self.embed_net = embed_net
+        self.dataset = dataset
+        self.dir_main = dir_main
+        self.image_size = image_size
+        self.transform = transform
+        self.frequency = frequency
+        self.net_name = net_name
+        self.key_prefix = key_prefix
+        self._cfg = None
+        self.last_seconds = None
+
+    def _dataset_cfg(self):
+        if self._cfg is None:
+            from gandtr_tpu_torch.eval.retrieval import (configdataset,
+                                                         configdataset_tsv)
+            self._cfg = (configdataset_tsv(self.dataset)
+                         if isinstance(self.dataset, dict)
+                         else configdataset(self.dataset, self.dir_main))
+        return self._cfg
+
+    def _extractor(self, net):
+        """(ShapeCachedExtractor on the network's device, host
+        transform)."""
+        from gandtr_tpu_torch.eval.retrieval import ShapeCachedExtractor
+        transform, device_pre = self.transform, None
+        if transform is None or isinstance(transform, str):
+            data = net.data_params or {}
+            tf_str = transform or data.get("transforms")
+            mean_std = data.get("mean_std")
+            transform, device_pre = T.split_device_transform(tf_str, mean_std)
+            if device_pre is None:
+                transform = T.initialize_transforms(tf_str, mean_std)
+
+        def forward(x):
+            if device_pre is not None:
+                xf = x.float() / 255.0 if x.dtype == torch.uint8 \
+                    else x.float()
+                x = device_pre(xf, None)
+            return net.apply(x, train=False)
+        device = next(net.module.parameters()).device
+        return ShapeCachedExtractor(forward, device=device), transform
+
+    def __call__(self, state, epoch, events):
+        if not should_validate(self.frequency, epoch):
+            return
+        from gandtr_tpu_torch.eval.retrieval import evaluate_dataset
+        models = getattr(state, "models", None) or {}
+        net = models.get(self.net_name, self.embed_net)
+        cfg = self._dataset_cfg()
+        t0 = time.perf_counter()
+        extractor, transform = self._extractor(net)
+        metrics, aps, _, _ = evaluate_dataset(extractor, cfg, self.image_size,
+                                              transform)
+        self.last_seconds = time.perf_counter() - t0
+        if not events:
+            return
+        nq = len(next(iter(aps.values()))) if aps else 0
+        logger = events.logger("", epoch, epoch_size=nq)
+        head = "%s/%s" % (self.key_prefix, cfg["dataset"])
+        logger(head + "/dataset:eval", self.last_seconds, "scalar/time")
+        for mk, mv in metrics.items():
+            logger("%s/score_avg:%s" % (head, mk), float(mv), "scalar/score")
+        for mk, mv in aps.items():
+            for i, v in enumerate(np.asarray(mv).tolist()):
+                logger("%s/score:%s" % (head, mk), float(v), "scalar/score",
+                       iteration=i)

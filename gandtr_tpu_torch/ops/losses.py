@@ -1,8 +1,8 @@
-"""Losses (counterpart of gandtr_tpu/ops/losses.py): the contrastive loss
-over (D, N) descriptor columns, the reference's layout, the GAN losses
-with the reference's inverted adversarial targets (real -> 0, fake -> 1,
-compound_losses.py:47-50), and CUT's PatchNCE (compound_losses.py:
-113-173)."""
+"""Losses (counterpart of gandtr_tpu/ops/losses.py): the contrastive and
+triplet losses over (D, N) descriptor columns, the reference's layout,
+the GAN losses with the reference's inverted adversarial targets (real ->
+0, fake -> 1, compound_losses.py:47-50), and CUT's PatchNCE
+(compound_losses.py:113-173)."""
 import torch
 
 
@@ -21,6 +21,18 @@ def contrastive_loss(x, label, num_tuples, margin=0.7, eps=1e-6):
     y = 0.5 * lbl * dist ** 2 \
         + 0.5 * (1 - lbl) * torch.clamp(margin - dist, min=0.0) ** 2
     return y.sum()
+
+
+def triplet_loss(x, label, num_tuples, margin=0.1):
+    """Triplet loss over tuple columns, sum reduction (the reference's
+    cirtorch functional.py:160-173). x: (D, N); each tuple is (anchor,
+    positive, S-2 negatives); `label` only fixes the layout."""
+    D, N = x.shape
+    S = N // num_tuples
+    x = x.T.reshape(num_tuples, S, D)
+    dist_pos = ((x[:, :1, :] - x[:, 1:2, :]) ** 2).sum(dim=-1)
+    dist_neg = ((x[:, :1, :] - x[:, 2:, :]) ** 2).sum(dim=-1)
+    return torch.clamp(dist_pos - dist_neg + margin, min=0.0).sum()
 
 
 def l1_loss(x, target):

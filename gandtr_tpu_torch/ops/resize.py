@@ -11,6 +11,9 @@ products with interpolation matrices made on the host from the JAX
 coordinates. Its backward is two matrix products too, so it sums in a
 fixed order on the card, where the CUDA backward of `F.interpolate` adds
 with atomics.
+
+`dynamic_bilinear_resize_u8` is the device half of the GAN train chain's
+scalecrop (`device_scalecrop`): a per-image resize of padded uint8 crops.
 """
 import numpy as np
 import torch
@@ -52,6 +55,40 @@ def bilinear_resize(x, out_h, out_w):
     y = torch.matmul(ah, x.permute(0, 3, 1, 2))       # (N, C, out_h, W)
     y = torch.matmul(y, aw.T)                          # (N, C, out_h, out_w)
     return y.permute(0, 2, 3, 1)
+
+
+def dynamic_bilinear_resize_u8(imgs_u8, hws, out_h, out_w):
+    """Each image's valid top-left (h, w) rectangle of a padded uint8
+    batch, /255 in float32 and resized to (out_h, out_w) with half-pixel
+    bilinear taps (cv2.resize's INTER_LINEAR formula and clamping), the
+    rows first, then the columns, as the JAX package's
+    `dynamic_bilinear_resize_u8`. imgs_u8: (N, Hp, Wp, C) uint8; hws: (N,
+    2) integer valid sizes on the same device. The taps stay inside [0,
+    h) x [0, w), so the pad never enters. Gathers and lerps: no host
+    value is read."""
+    x = imgs_u8.to(torch.float32) / 255.0
+    hws = hws.to(device=x.device, dtype=torch.int64)
+
+    def coords(out_n, in_n):
+        """(N, out_n) taps i0, i1 and the weight of i1."""
+        scale = in_n.to(torch.float32)[:, None] / out_n
+        src = (torch.arange(out_n, dtype=torch.float32, device=x.device)
+               + 0.5)[None] * scale - 0.5
+        src = torch.clamp(src, min=0.0)
+        top = (in_n - 1)[:, None]
+        i0 = torch.minimum(torch.floor(src).to(torch.int64), top)
+        i1 = torch.minimum(i0 + 1, top)
+        frac = torch.clamp(src - i0.to(torch.float32), 0.0, 1.0)
+        return i0, i1, frac
+
+    n = torch.arange(x.shape[0], device=x.device)[:, None]
+    y0, y1, wy = coords(out_h, hws[:, 0])
+    x0, x1, wx = coords(out_w, hws[:, 1])
+    wy = wy[:, :, None, None]
+    rows = x[n, y0] * (1 - wy) + x[n, y1] * wy          # (N, out_h, Wp, C)
+    wx = wx[:, None, :, None]
+    return (rows[n, :, x0].permute(0, 2, 1, 3) * (1 - wx)
+            + rows[n, :, x1].permute(0, 2, 1, 3) * wx)
 
 
 def scale_resize(x, scale):

@@ -33,10 +33,27 @@ state is saved with each training file, so a resumed run repeats the
 straight run bit for bit.
 
 `dispatch_chunk: K` is the loop's `chunk`: the same steps in the same
-order, the metrics read back once a chunk. Not ported (ROADMAP A.2, A.7):
-`concat_student`, `cache_teacher_targets`, `device_scalecrop`,
-`alternate_iteration` other than 1, path-form members, and data
-parallelism.
+order, the metrics read back once a chunk.
+
+The JAX package's opt-in knobs, each off by default under the same key:
+
+- `epoch_iteration.concat_student` (HED^N-GAN): the E step's two student
+  forwards as one (learning/gan_steps.py);
+- `epoch_iteration.cache_teacher_targets: true | {max_items}` (HED^N-GAN):
+  the teacher's targets cached across epochs (learning/teacher_cache.py);
+  the step is then the cache, `dispatch_chunk` is off, and it cannot be
+  combined with `device_scalecrop`;
+- `data.train.device_scalecrop`: the loader ships uint8 crops and the
+  resize and normalization run on the device; the chain must be `pil2np
+  | scalecrop:... | totensor | normalize`, else the build raises (the JAX
+  package warns and trains without the knob);
+- `optimizer.composition: {alternate_iteration: n, order: a,b,...}`: the
+  round robin of learning/optimizers.py::AlternationGate;
+- a member `path:` (a warm start): its model config, runtime and weights
+  from a local network file (`adopt_path_members`), loaded strictly in
+  place of the seeded weights and of `pretrained:`.
+
+Not ported: data-parallel training (ROADMAP A.6).
 """
 import copy
 import os
@@ -46,20 +63,25 @@ import torch
 
 from gandtr_tpu_torch.data.datasets import (InferImageListDataset, Loader,
                                             initialize_dataset_loader)
-from gandtr_tpu_torch.data.transforms import initialize_transforms
+from gandtr_tpu_torch.data.transforms import (DeviceScalecrop,
+                                              initialize_transforms,
+                                              parse_device_scalecrop)
 from gandtr_tpu_torch.device import resolve_device, upload
-from gandtr_tpu_torch.hub import _init_random
+from gandtr_tpu_torch.hub import _checkpoint_net_state, _init_random
 from gandtr_tpu_torch.learning import gan_steps
 from gandtr_tpu_torch.learning.checkpoints import Checkpoints
 from gandtr_tpu_torch.learning.criteria import check_criterion_losses
 from gandtr_tpu_torch.learning.events import initialize_processor
 from gandtr_tpu_torch.learning.image_pool import ImagePool
 from gandtr_tpu_torch.learning.network import build_network_set
-from gandtr_tpu_torch.learning.optimizers import initialize_optimizer
+from gandtr_tpu_torch.learning.optimizers import (alternate,
+                                                  initialize_optimizer)
 from gandtr_tpu_torch.learning.schedules import initialize_schedule
+from gandtr_tpu_torch.learning.teacher_cache import TeacherTargetCachingStep
 from gandtr_tpu_torch.learning.training import (MultiCriterialValidation,
                                                 Training, VisualValidation)
 from gandtr_tpu_torch.models.init import initialize_weights
+from gandtr_tpu_torch.ops.resize import dynamic_bilinear_resize_u8
 from gandtr_tpu_torch.utils.io import resolve_path
 from gandtr_tpu_torch.utils.weights import load_pretrained
 
@@ -76,29 +98,70 @@ GAN_MEAN_STD = [[0.5, 0.5, 0.5], [0.5, 0.5, 0.5]]
 VISUAL_IMAGES = 4   # the first images of the validation directory
 
 
-def _refuse_opt_in(it_cfg, data_cfg, train_cfg, opt_cfg):
-    for knob in ("concat_student", "cache_teacher_targets"):
-        if it_cfg.get(knob):
-            raise NotImplementedError(
-                "epoch_iteration.%s is an opt-in knob of the JAX package that "
-                "is not ported yet (ROADMAP A.2)" % knob)
-    if (data_cfg.get("train") or {}).get("device_scalecrop"):
-        raise NotImplementedError("data.train.device_scalecrop is not ported "
-                                  "yet (ROADMAP A.2)")
-    composition = dict(opt_cfg.get("composition") or {})
-    if composition.get("alternate_iteration", 1) not in (None, 0, 1):
-        raise NotImplementedError(
-            "optimizer composition with alternate_iteration %r is not ported "
-            "yet (ROADMAP A.2)" % composition["alternate_iteration"])
+def _refuse_data_parallel(train_cfg):
     par = train_cfg.get("parallel", True)
     if isinstance(par, dict) and int(par.get("devices", 1) or 1) > 1:
         raise NotImplementedError("data-parallel GAN training is not ported "
-                                  "yet (ROADMAP A.7)")
+                                  "yet (ROADMAP A.6)")
 
 
-def _init_nets(nets, init_specs, net_cfg, seed, device):
-    """Seed, load and place every member; the teacher copies the student."""
+def adopt_path_members(config):
+    """Rewrite the path-form members of a NetworkSet config in place, as
+    the reference's network.py:165-186 (the JAX package's
+    `_adopt_path_members`): the member's `model` becomes its file's
+    `network_params.model` (a `model` given too must equal it), its
+    `runtime` the file's where it says `load_from_checkpoint` (the
+    default), and its `initialize` is dropped. The file is a local
+    reference `.pth` or one of the port's `Checkpoints` files; the path
+    resolves under $GANDTR_ROOT, and a URL raises. Returns {name:
+    model_state}."""
+    states = {}
+    for name, sub in list(config.items()):
+        if not isinstance(sub, dict) or not sub.get("path"):
+            continue
+        path = resolve_path(str(sub["path"]))
+        if "://" in path:
+            raise NotImplementedError(
+                "NetworkSet member %s path %r: only local files load (this "
+                "package downloads nothing)" % (name, path))
+        net = _checkpoint_net_state(torch.load(path, map_location="cpu",
+                                               weights_only=False))
+        saved = dict(net.get("network_params") or {})
+        if not saved.get("model"):
+            raise ValueError("NetworkSet member %s: %r holds no "
+                             "network_params.model" % (name, path))
+        sub = dict(sub)
+        sub.pop("path")
+        runtime = sub.get("runtime", "load_from_checkpoint")
+        saved_rt = dict(saved.get("runtime") or {})
+        if runtime == "load_from_checkpoint":
+            runtime = copy.deepcopy(saved_rt)
+        else:
+            runtime = {k: (copy.deepcopy(saved_rt.get(k))
+                           if v == "load_from_checkpoint" else v)
+                       for k, v in dict(runtime).items()}
+        if "model" in sub and sub["model"] != saved["model"]:
+            raise ValueError("NetworkSet member %s: model %r differs from "
+                             "its file's %r" % (name, sub["model"],
+                                                saved["model"]))
+        sub["model"] = copy.deepcopy(dict(saved["model"]))
+        sub["runtime"] = runtime
+        sub.pop("initialize", None)
+        states[name] = {k: torch.as_tensor(v)
+                        for k, v in net["model_state"].items()}
+        config[name] = sub
+    return states
+
+
+def _init_nets(nets, init_specs, net_cfg, seed, device, path_states):
+    """Seed, load and place every member; a path member takes its file's
+    weights; the teacher copies the student."""
     for i, (name, net) in enumerate(nets.items()):
+        if name in path_states:
+            # the file covers every parameter: its weights stand in for the
+            # seeded ones and for any `pretrained:` of its model config
+            net.module.load_state_dict(path_states[name], strict=True)
+            continue
         spec = init_specs.get(name)
         if spec:
             initialize_weights(net.module, spec.get("weights", "normal_p2p"),
@@ -201,21 +264,24 @@ def build_gan_experiment(params, directory=None, device=None):
     family = EPOCH_ITERATION_FAMILIES[it_cfg.get("type",
                                                  "SupervisedHEDNGANEpoch")]
     opt_cfg = dict(train_cfg.get("optimizer") or {})
-    _refuse_opt_in(it_cfg, data_cfg, train_cfg, opt_cfg)
+    _refuse_data_parallel(train_cfg)
     crit = dict(train_cfg.get("criterion") or {})
     check_criterion_losses(crit, family)
     seed = int(train_cfg.get("seed", 0))
 
     net_cfg.pop("type", None)
+    path_states = adopt_path_members(net_cfg)
     nets, init_specs = build_network_set({"type": "NetworkSet", **net_cfg})
+    gen_data = nets["generator_X"].data_params or {}
+    dsc = _device_scalecrop(data_cfg, gen_data, it_cfg)
     step_options, rngs = {}, {}
     if family == "cut":
         step_options = _nce_options(crit)
         _create_featdown(nets, step_options["nce_layers"])
         rngs = {"patches": torch.Generator().manual_seed(seed)}
-    _init_nets(nets, init_specs, net_cfg, seed, dev)
+    _init_nets(nets, init_specs, net_cfg, seed, dev, path_states)
 
-    opt_cfg.pop("composition", None)
+    composition = opt_cfg.pop("composition", None)
     optimizers, base_lr = {}, {}
     for name, cfg in opt_cfg.items():
         if cfg is None:
@@ -224,6 +290,7 @@ def build_gan_experiment(params, directory=None, device=None):
             .get("architecture", "")
         optimizers[name], base_lr[name] = initialize_optimizer(
             dict(cfg), nets[name].module.named_parameters(), arch)
+    optimizers = alternate(optimizers, composition)
     epochs = int(train_cfg.get("epochs", 1))
     sched_cfg = dict(train_cfg.get("scheduler") or {})
     sched_cfg.pop("composition", None)
@@ -238,19 +305,40 @@ def build_gan_experiment(params, directory=None, device=None):
         # each generator's loss has its own weights
         weights = [(crit.get(k) or {}).get("weights")
                    for k in ("loss_G_X", "loss_G_Y")]
-    step = gan_steps.GAN_STEPS[family](nets, optimizers,
-                                       *(dict(w or {}) for w in weights),
+    cache_cfg = it_cfg.get("cache_teacher_targets") \
+        if family == "hedngan" else None
+    if family == "hedngan":
+        step_options = {"concat_student":
+                        bool(it_cfg.get("concat_student", False)),
+                        "emit_targets": bool(cache_cfg)}
+    weights = [dict(w or {}) for w in weights]
+    step = gan_steps.GAN_STEPS[family](nets, optimizers, *weights,
                                        **step_options)
+    batch_to_args = lambda b: (upload(b[0], dev), upload(b[1], dev))  # noqa
+    if cache_cfg:
+        step = TeacherTargetCachingStep(
+            step, gan_steps.build_hedngan_step(
+                nets, optimizers, *weights,
+                concat_student=step_options["concat_student"],
+                external_targets=True),
+            dev, max_items=(cache_cfg.get("max_items", 64)
+                            if isinstance(cache_cfg, dict) else 64))
+        batch_to_args = step.batch_to_args
+    elif dsc is not None:
+        step = _device_scalecrop_step(step, dsc)
+        batch_to_args = lambda b: tuple(upload(a, dev) for a in b)  # noqa
     state = gan_steps.make_gan_state(nets, optimizers, pools, rngs)
 
     loader = None
-    gen_data = nets["generator_X"].data_params or {}
     if data_cfg.get("train"):
         dp = copy.deepcopy(data_cfg["train"])
         dp.setdefault("transforms", gen_data.get("transforms"))
         dp.setdefault("mean_std", gen_data.get("mean_std"))
         dp.pop("device_scalecrop", None)
         loader = initialize_dataset_loader([], dp, {"shuffle": True})
+        if dsc is not None:
+            # the host half of the chain; the device half is in `step`
+            loader.dataset.transform = DeviceScalecrop(dsc["sc"])
 
     out_cfg = (params.get("output") or {}).get("learning", {})
     val_cfg = learn_cfg.get("validation") or {}
@@ -268,7 +356,8 @@ def build_gan_experiment(params, directory=None, device=None):
     frozen = tuple(name for name, net in nets.items() if net.frozen)
     validations = _visual_validation(val_cfg)
 
-    chunk = int(train_cfg.get("dispatch_chunk", 0) or 0)
+    # the cache decides on the host, batch by batch, which step runs
+    chunk = 0 if cache_cfg else int(train_cfg.get("dispatch_chunk", 0) or 0)
     training = None
     if loader is not None:
         if chunk > 1:
@@ -277,15 +366,15 @@ def build_gan_experiment(params, directory=None, device=None):
             step_fn=step, loader=loader, epochs=epochs, seed=seed,
             optimizers_base_lr=base_lr, schedules=schedules, events=events,
             checkpoints=checkpoints, frozen=frozen, validations=validations,
-            batch_to_args=lambda b: (upload(b[0], dev), upload(b[1], dev)),
-            mean_std=(data_cfg.get("train") or {}).get(
+            batch_to_args=batch_to_args, mean_std=(data_cfg.get("train") or {}).get(
                 "mean_std", gen_data.get("mean_std")),
             config_snapshot=config_snapshot, chunk=chunk,
             net_params={name: {"model": (net_cfg[name] or {}).get("model"),
                                "runtime": (net_cfg[name] or {})
                                .get("runtime")}
                         for name in nets},
-            rng_states={"loader": loader.rng})
+            rng_states={"loader": loader.rng},
+            profile_dir=out_cfg.get("profile"))
 
     return {"models": nets,
             "variables": {k: n.module.state_dict() for k, n in nets.items()},
@@ -293,3 +382,41 @@ def build_gan_experiment(params, directory=None, device=None):
             "training": training, "loader": loader, "events": events,
             "checkpoints": checkpoints, "schedules": schedules,
             "base_lr": base_lr, "family": family}
+
+
+def _device_scalecrop(data_cfg, gen_data, it_cfg):
+    """The pieces of `data.train.device_scalecrop` (None when it is off):
+    the train chain must be `pil2np | scalecrop:... | totensor |
+    normalize`, and the teacher cache must be off."""
+    train = data_cfg.get("train") or {}
+    if not train.get("device_scalecrop"):
+        return None
+    tstr = train.get("transforms", gen_data.get("transforms"))
+    dsc = parse_device_scalecrop(tstr, train.get(
+        "mean_std", gen_data.get("mean_std", GAN_MEAN_STD)))
+    if dsc is None:
+        raise ValueError("data.train.device_scalecrop needs the chain "
+                         "'pil2np | scalecrop:... | totensor | normalize', "
+                         "got %r" % tstr)
+    if it_cfg.get("cache_teacher_targets"):
+        raise NotImplementedError(
+            "device_scalecrop is incompatible with cache_teacher_targets "
+            "(the cache keys and uploads two float batches)")
+    return dsc
+
+
+def _device_scalecrop_step(inner, dsc):
+    """step(state, x_u8, x_hw, y_u8, y_hw): the device half of the
+    scalecrop chain (/255, the resize, the normalization), then `inner`."""
+    oh, ow = dsc["out_hw"]
+
+    def stage(imgs_u8, hws):
+        mean = dsc["mean"].to(imgs_u8.device)
+        std = dsc["std"].to(imgs_u8.device)
+        return (dynamic_bilinear_resize_u8(imgs_u8, hws, oh, ow) - mean) / std
+
+    def step(state, x_u8, x_hw, y_u8, y_hw):
+        return inner(state, stage(x_u8, x_hw), stage(y_u8, y_hw))
+
+    step.stage = stage
+    return step

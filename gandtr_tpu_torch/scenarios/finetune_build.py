@@ -21,8 +21,19 @@ experiment has no loader and no training; its `step` still takes batches:
     state, metrics = exp["step"](exp["state"], imgs_u8, hws, labels, pmask)
 
 imgs_u8 (T, S, H, W, 3) uint8, hws (T, S, 2) int32, labels (T, S) float,
-pmask (T, S) bool, all on the experiment's device. The validations of the
-JAX package (a `learning.validation` section) are not ported yet.
+pmask (T, S) bool, all on the experiment's device.
+
+A `learning.validation` section with a `data.val` split adds the
+validation loss (`LossValidation`, every `frequency` epochs, 5 by
+default): val tuples mined with the current weights through the train
+chain's augment + embed (`shuffle` off), staged as uint8 like the train
+tuples, and scored, as the JAX package scores them, by the embed on the
+generator-normalized images (the augment chain left out) with the
+contrastive loss at the criterion's margin. `val/learning/loss:total` is
+then the decisive criterion: `_best` follows the lowest validation loss.
+A pickle without the val split warns and validates on the train db (the
+JAX package's fallback); any other failure of the validation's set-up
+raises, where the JAX package warns and trains without it.
 """
 import copy
 import os
@@ -49,10 +60,11 @@ from gandtr_tpu_torch.learning.events import initialize_processor
 from gandtr_tpu_torch.learning.network import build_single_net
 from gandtr_tpu_torch.learning.optimizers import initialize_optimizer
 from gandtr_tpu_torch.learning.schedules import initialize_schedule
-from gandtr_tpu_torch.learning.training import Training
+from gandtr_tpu_torch.learning.training import LossValidation, Training
 from gandtr_tpu_torch.learning.wrappers import (cir_hash_passthrough,
                                                 metadata_name)
 from gandtr_tpu_torch.models.init import initialize_weights
+from gandtr_tpu_torch.ops import losses as L
 from gandtr_tpu_torch.utils.io import resolve_path
 from gandtr_tpu_torch.utils.weights import load_pretrained
 
@@ -179,15 +191,7 @@ def build_finetune_experiment(params, directory=None, db=None, images=None,
             "the augment net's transform %r has no elementwise device part; "
             "the port stages uint8 tuples only" % gen_data.get("transforms"))
 
-    def stage_flat(imgs_u8, hws):
-        """(N, H, W, 3) uint8 + (N, 2) valid sizes -> (images, masks)."""
-        H, W = imgs_u8.shape[1:3]
-        rows = torch.arange(H, device=imgs_u8.device)[None, :, None]
-        cols = torch.arange(W, device=imgs_u8.device)[None, None, :]
-        masks = ((rows < hws[:, 0, None, None])
-                 & (cols < hws[:, 1, None, None])).to(torch.float32)
-        y = dev_fn(imgs_u8.to(torch.float32) / 255.0, mask=masks)
-        return y * masks[..., None], masks
+    stage_flat = _stage_flat(dev_fn)
 
     def stage(imgs_u8, hws):
         """(T, S, H, W, 3) uint8 + (T, S, 2) valid sizes -> the step's
@@ -208,6 +212,8 @@ def build_finetune_experiment(params, directory=None, db=None, images=None,
                                     ds_cfg.get("split", "train"),
                                     ds_cfg.get("image_dir", ""))
     loader = dataset = None
+    ratio, label = _parse_ratio((augment_cfg.get("runtime") or {})
+                                .get("wrappers", ""))
     if db is not None:
         miner = TuplesMiner(
             db, nnum=int(ds_cfg.get("neg_num", 5)),
@@ -220,8 +226,6 @@ def build_finetune_experiment(params, directory=None, db=None, images=None,
             similar_include=ds_cfg.get("similar_include"),
             mark_easy=ds_cfg.get("mark_easy"),
             first_neg=ds_cfg.get("first_neg", "neg"), device=dev)
-        ratio, label = _parse_ratio((augment_cfg.get("runtime") or {})
-                                    .get("wrappers", ""))
         dataset = TupleEpochDataset(db, images, image_size, miner,
                                     augment_ratio=ratio, augment_label=label)
         dataset.extract_fn = _make_extract_fn(
@@ -230,9 +234,12 @@ def build_finetune_experiment(params, directory=None, db=None, images=None,
                         batch_size=int(loader_cfg.get("batch_size", 5)),
                         shuffle=True, drop_last=True,
                         num_workers=int(loader_cfg.get("num_workers", 6)))
+    validations = []
     if learn_cfg.get("validation") and data_cfg.get("val") and db is not None:
-        raise NotImplementedError("the fine-tune's validations are not "
-                                  "ported yet")
+        validations.append(_loss_validation(
+            dict(learn_cfg["validation"]), dict(data_cfg["val"]), ds_cfg, db,
+            images, state, image_size, ratio, label,
+            float(crit.get("margin", 0.75)), dev))
 
     ckpt_cfg = dict(learn_cfg.get("checkpoints") or {})
     checkpoints = Checkpoints(
@@ -241,10 +248,12 @@ def build_finetune_experiment(params, directory=None, db=None, images=None,
         checkpoint_every=ckpt_cfg.get("checkpoint_every", 2) or 0,
         directory_epoch_regex=ckpt_cfg.get("directory_epoch_regex")) \
         if directory else None
-    # no validation: no decisive criterion, so _best follows _last
+    # without a validation there is no decisive criterion: _best follows
+    # _last
+    out_cfg = (params.get("output") or {}).get("learning", {})
     events = initialize_processor(
-        (params.get("output") or {}).get("learning", {}),
-        directory=directory)
+        out_cfg, directory=directory,
+        decisive_criterion="val/learning/loss:total" if validations else None)
 
     # dispatch_chunk: the same steps in the same order; metrics are read
     # back once a chunk, and the loader prefetches past a chunk
@@ -261,6 +270,7 @@ def build_finetune_experiment(params, directory=None, db=None, images=None,
             events=events, checkpoints=checkpoints, frozen=("augment",),
             batch_to_args=lambda b: tuple(upload(a, dev) for a in b),
             config_snapshot=config_snapshot, chunk=chunk,
+            validations=validations, profile_dir=out_cfg.get("profile"),
             net_params={name: {"model": cfg.get("model"),
                                "runtime": cfg.get("runtime")}
                         for name, cfg in (("augment", augment_cfg),
@@ -275,6 +285,69 @@ def build_finetune_experiment(params, directory=None, db=None, images=None,
             "loader": loader, "events": events, "checkpoints": checkpoints,
             "dataset": dataset, "stage": stage, "schedule": schedule,
             "base_lr": base_lr, "bucket": generator_safe_bucket(image_size)}
+
+
+def _stage_flat(dev_fn):
+    """stage_flat((N, H, W, 3) uint8, (N, 2) valid sizes) -> (images,
+    masks): the masks rebuilt from the sizes, /255 and `dev_fn` on the
+    device, the pad band re-zeroed as the host pad does."""
+    def stage_flat(imgs_u8, hws):
+        H, W = imgs_u8.shape[1:3]
+        rows = torch.arange(H, device=imgs_u8.device)[None, :, None]
+        cols = torch.arange(W, device=imgs_u8.device)[None, None, :]
+        masks = ((rows < hws[:, 0, None, None])
+                 & (cols < hws[:, 1, None, None])).to(torch.float32)
+        y = dev_fn(imgs_u8.to(torch.float32) / 255.0, mask=masks)
+        return y * masks[..., None], masks
+    return stage_flat
+
+
+def _loss_validation(val_section, val_data, ds_cfg, db, images, state,
+                     image_size, ratio, label, margin, device):
+    """The LossValidation of a `learning.validation` section over the
+    `data.val` split (the JAX package's finetune_build.py:285-354)."""
+    vds_cfg = dict(val_data.get("dataset") or {})
+    vsplit = vds_cfg.get("split", "val")
+    vpkl = vds_cfg.get("dataset_pkl", ds_cfg.get("dataset_pkl"))
+    vroot = vds_cfg.get("image_dir", ds_cfg.get("image_dir", ""))
+    val_db, val_images = db, images
+    if vpkl and (vsplit != ds_cfg.get("split", "train")
+                 or vpkl != ds_cfg.get("dataset_pkl")):
+        try:
+            val_db, val_images = load_tuples_db(vpkl, vsplit, vroot)
+        except KeyError as exc:
+            warnings.warn("the tuple pickle has no %r split (%s): the "
+                          "validation uses the train db" % (vsplit, exc))
+    miner = TuplesMiner(
+        val_db, nnum=int(vds_cfg.get("neg_num", 5)),
+        qsize=int(min(float(vds_cfg.get("query_size", 200)), 1e6)),
+        poolsize=int(min(float(vds_cfg.get("pool_size", 2000)), 1e6)),
+        shuffle=False, device=device)
+    dataset = TupleEpochDataset(val_db, val_images, image_size, miner,
+                                augment_ratio=0.0)
+    # the JAX package normalizes the val tuples with the generator's
+    # fixed pipeline
+    stage_flat = _stage_flat(split_device_transform(
+        GENERATOR_DATA["transforms"], GENERATOR_DATA["mean_std"])[1])
+
+    # mining goes through the train chain, its augmentation gate included
+    dataset.extract_fn = _make_extract_fn(state, val_images, image_size,
+                                          stage_flat, ratio, label, device)
+
+    def val_loss(st, imgs_u8, hws, labels, pass_mask):
+        x, masks = stage_flat(imgs_u8[0], hws[0])
+        descs = st.models["embed"].apply(x, train=False, mask=masks)
+        return L.contrastive_loss(descs.T, labels[0], num_tuples=1,
+                                  margin=margin)
+
+    return LossValidation(
+        val_loss, Loader(dataset, batch_size=1, num_workers=1),
+        frequency=val_section.get("frequency", 5),
+        batch_to_args=lambda b: tuple(upload(a, device) for a in b),
+        # contrastive is sum-reduced: reported per tuple
+        criterion_mean_reduction=False,
+        on_validate=lambda st: dataset.extract_fn.holder.__setitem__(
+            "state", st))
 
 
 def _make_extract_fn(state, images, image_size, stage_flat, augment_ratio,

@@ -531,6 +531,59 @@ def test_gan_loop_resume_on_card(cuda, tmp_path):
                 assert torch.equal(v, got[i][k]), (name, i, k)
 
 
+def test_teacher_cache_bit_equal_on_card(cuda, tmp_path):
+    """The build's teacher cache on the card: two epochs over the same
+    two batches hit twice, miss twice, and end bit for bit where the plain
+    step ends from the same weights."""
+    import copy
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    cfg = _gan_micro(str(tmp_path))
+    cfg.pop("data")
+    ccfg = copy.deepcopy(cfg)
+    ccfg["learning"]["training"]["epoch_iteration"][
+        "cache_teacher_targets"] = {"max_items": 4}
+    plain = build_gan_experiment(cfg, device=cuda)
+    cached = build_gan_experiment(ccfg, device=cuda)
+    rs = np.random.RandomState(1)
+    batches = [tuple(rs.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+                     for _ in range(2)) for _ in range(2)]
+    ps, cs = plain["state"], cached["state"]
+    for _ in range(2):
+        for X, Y in batches:
+            ps, _, _ = plain["step"](ps, torch.from_numpy(X).to(cuda),
+                                     torch.from_numpy(Y).to(cuda))
+            cs, _, _ = cached["step"](cs,
+                                      *cached["step"].batch_to_args((X, Y)))
+    assert (cached["step"].hits, cached["step"].misses) == (2, 2)
+    for name, net in plain["models"].items():
+        got = cached["models"][name].module.state_dict()
+        for k, v in net.module.state_dict().items():
+            assert torch.equal(got[k], v), (name, k)
+
+
+def test_device_resize_matches_host_chain_on_card(cuda):
+    """The device scalecrop's resize on the card against the host chain's
+    cv2-form resize of the same crops: within 1e-6."""
+    from gandtr_tpu_torch.data.transforms import resize_linear
+    from gandtr_tpu_torch.ops.resize import dynamic_bilinear_resize_u8
+    rs = np.random.RandomState(2)
+    pad, bufs, hws, crops = 320, [], [], []
+    for _ in range(10):
+        h, w = int(rs.randint(256, pad + 1)), int(rs.randint(256, pad + 1))
+        crop = rs.randint(0, 256, (h, w, 3), dtype=np.uint8)
+        buf = np.zeros((pad, pad, 3), np.uint8)
+        buf[:h, :w] = crop
+        bufs.append(buf)
+        hws.append((h, w))
+        crops.append(crop)
+    got = dynamic_bilinear_resize_u8(
+        torch.from_numpy(np.stack(bufs)).to(cuda),
+        torch.tensor(hws).to(cuda), 256, 256).cpu().numpy()
+    for g, crop in zip(got, crops):
+        want = resize_linear(crop.astype(np.float32) / 255.0, 256, 256)
+        np.testing.assert_allclose(g, want, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("no_sigmoid", [False, True])
 def test_rcf_on_card_matches_cpu(cuda, no_sigmoid):
     """RCF (seeded, full width) at 37x45 on the card within 1e-4 of the

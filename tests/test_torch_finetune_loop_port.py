@@ -245,8 +245,9 @@ def test_events_and_histograms_against_jax(tmp_path):
     metadata (best epoch under a loss criterion), histograms, the SVG
     files, and a state_dict round trip; then blobs (an image, a gray map,
     text) and heatmaps (the GAN paths' sample images) written as the same
-    files with the same bytes, and the HTML report (the `htmlreport`
-    processor) with the same document.""" 
+    files with the same bytes, the HTML report (the `htmlreport`
+    processor) with the same document, and the `tensorboard` processor's
+    event file.""" 
     from gandtr_tpu.learning import events as jev
     from gandtr_tpu_torch.learning import events as pev
     rng = np.random.RandomState(2)
@@ -308,9 +309,16 @@ def test_events_and_histograms_against_jax(tmp_path):
                         "index.html").read_text())
     assert reports[1] == reports[0] and "val_visual_v0_epoch_02.jpg" in \
         reports[1]
-    with pytest.raises(NotImplementedError, match="tensorboard"):
-        pev.initialize_processor({"tensorboard": {}},
-                                 directory=str(tmp_path))
+    # the `tensorboard` processor: an event-file writer streaming under
+    # epochs/tensorboard in both (tests/test_torch_finetune_validation.py
+    # holds its records to the JAX writer's)
+    for mod, sub in ((jev, "jt"), (pev, "pt")):
+        b = mod.initialize_processor({"tensorboard": {}},
+                                     directory=str(tmp_path / sub))
+        assert [type(s).__name__ for s in b.streamers] == \
+            ["TensorboardWriter"]
+        assert len(os.listdir(tmp_path / sub / "epochs" / "tensorboard")) \
+            == 1
 
 
 def test_checkpoint_gc_and_adoption_against_jax(tmp_path):

@@ -184,20 +184,26 @@ def _cfg_with(tmp_path, path, value):
 
 
 @pytest.mark.parametrize("path,value,match", [
-    (("learning", "training", "epoch_iteration", "concat_student"), True,
-     "ROADMAP A.2"),
-    (("learning", "training", "epoch_iteration", "cache_teacher_targets"),
-     {"max_items": 8}, "ROADMAP A.2"),
     (("learning", "training", "parallel"), {"devices": 2},
-     "data-parallel GAN training.*ROADMAP A.7"),
-    (("network", "generator_X", "path"), "generator_X.pth",
-     "`path` member.*not ported"),
+     "data-parallel GAN training.*ROADMAP A.6"),
+    (("learning", "training", "parallel"), {"devices": 4},
+     "data-parallel GAN training.*ROADMAP A.6"),
     (("network", "generator_X", "model", "no_antialias"), False,
      "blur-pool.*not ported"),
-    (("learning", "training", "optimizer", "composition"),
-     {"alternate_iteration": 2, "order": "generator_X,discriminator_Y"},
-     "alternate_iteration"),
-    (("data", "train", "device_scalecrop"), True, "device_scalecrop"),
+    (("network", "generator_X", "model", "no_antialias_up"), False,
+     "blur-pool.*not ported"),
+    (("network", "discriminator_Y", "model", "no_antialias"), False,
+     "blur-pool.*not ported"),
+    (("network", "generator_X", "model", "architecture"),
+     "official_p2p_unet_generator", "architecture.*not ported"),
+    (("network", "generator_X", "type"), "MultiheadNetwork",
+     "MultiheadNetwork is not ported"),
+    (("network", "generator_X", "type"), "SingleNetworkLink",
+     "SingleNetworkLink is not ported"),
+    (("learning", "training", "optimizer", "detector", "algorithm"),
+     "rmsprop", "optimizer 'rmsprop' is not ported"),
+    (("data", "train", "dataset", "name"), "PregeneratedImageTuple",
+     "dataset 'PregeneratedImageTuple' is not ported"),
     (("learning", "training", "criterion", "adversarial", "criterion",
       "loss"), "bce", "'bce' is not implemented by the hedngan step"),
 ])

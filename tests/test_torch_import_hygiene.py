@@ -30,7 +30,8 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "utils.stats", "learning.image_pool", "models.rcf",
           "models.patchsample", "ops.library", "serving.index",
           "serving.pq", "scenarios.index_stage", "scenarios.export_stage",
-          "utils.file_readers")
+          "utils.file_readers", "learning.teacher_cache",
+          "learning.tensorboard")
 
 torch.set_num_threads(1)
 

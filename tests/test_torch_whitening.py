@@ -262,16 +262,25 @@ def test_whitening_pickle_path_and_skip(stages):
     assert stages["port"]["meta"]["infer"]["count"] == N_WHITEN
 
 
-def test_without_directory_returns_the_whitening(stages):
+def test_without_directory_returns_the_whitening(stages, monkeypatch):
     """No directory: nothing is written, and the whitening comes back (the
-    Lw of the stage's own descriptors)."""
+    Lw of the stage's own descriptors). The stage's infer hands back the
+    descriptors the module fixture's run of the same stage recorded, and
+    the Lw that run learned from them is the one expected."""
     params = copy.deepcopy(stages["port"]["params"])
     params["whitening"]["directory"] = None
+
+    def recorded_infer(infer_params, data, device=None):
+        assert infer_params["output"]["type"] == "embedding"
+        assert len(data[0]) == stages["port"]["vecs"].shape[1]
+        return ({"vecs": stages["port"]["vecs"].copy(),
+                 "names": list(data[0]), "count": len(data[0])},)
+    monkeypatch.setattr(tmultistep, "infer", recorded_infer)
     (meta,) = tmultistep.infer_and_learn_whitening(params, None,
                                                    device="cpu")
     assert meta["whitening_path"] is None
-    m, P = twhiten.whitenlearn_with_retry(stages["port"]["vecs"], QIDXS,
-                                          PIDXS)
+    # the Lw of those descriptors: the one the fixture's run learned
+    m, P = stages["port"]["lw"]["m"], stages["port"]["lw"]["P"]
     np.testing.assert_allclose(meta["whitening"]["m"], m, atol=1e-10)
     np.testing.assert_allclose(meta["whitening"]["P"], P, atol=1e-10)
     params["whitening"]["type"] = "itq"
