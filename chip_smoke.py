@@ -254,7 +254,38 @@
    triplet step (margin 0.1) finite and within 1% of
    its plain-kernel step. Printed: the numbers of each part and the
    phase's seconds.
-16. Stage breakdowns of one batch of each served path, the `{"kernels":
+16. Every network of the model registry that no phase above runs
+   (`run_architectures`), at full width, in a temp dir set as
+   $GANDTR_ROOT (make_family_data's SfM-120k layout, seeded HED and RCF),
+   each part with every launch count set to 0 just before it and read
+   just after: (b) cut.yml's `train` target through the CLI with upstream
+   CUT's blur-pool sampling on G (no_antialias and no_antialias_up false)
+   and D, cut as in (13) but to 8 pairs an epoch: phase 13's checks,
+   epoch 2 resumed bit for bit, one step at 64² against float64;
+   cyclegan.yml's `train` target with pix2pix's unet_256
+   (`official_unet_generator`, num_downs 8, ngf 64, batch norm) for both
+   generators, 2 epochs of 4 steps at 256², the visual validation off
+   (unet_256 takes 256² only): no launch, epoch 2 resumed bit for bit,
+   one step at 256² against float64 (phase 12's rule); the loops' busy
+   shares are the union of the card's event intervals (`_device_busy_us`,
+   as every GAN loop's since); (a) the blur-pool generator_X of (b) through
+   hub.cyclegan in bf16, served by serve_http to rounds of 8 concurrent
+   768x1024 requests: K3 9 times a batch, PNGs byte-equal to the direct
+   call, within max 0.06 / mean 0.01 of the plain-K3 generator, float32
+   within 1e-4 of the CPU port at 256²; an official_resnet_encoder ->
+   official_resnet_decoder chain (6 + 6 blocks, bf16, kaiming_p2p) on
+   the 8 photos: K3 12 times, each block call held against its plain
+   version by phase 13's rule, the output within mean 0.01 of the plain
+   chain's (its max printed beside a one-level input change's);
+   (c) eval.yml's validate stage at exact shapes (K1) on (8)'s seeded
+   set for regional GeM, R-MAC, cirnet_attention, cirnet_inchan and
+   {type: GeometricMedianWeiszfeld, iterations: 3}: K1 once a photo,
+   unit-norm descriptors, mAPs and images/s, one photo within 1e-4 of
+   the CPU port; (d) finetune.yml's tuple step (T=5, bf16) with a
+   cirnet_inchan embed: K2 10 and K4 5 times a step, the edge filter's p
+   and tau moved, the loss within 1% and descriptors within 5e-3 of the
+   plain-kernel step. Prints the phase's seconds.
+17. Stage breakdowns of one batch of each served path, the `{"kernels":
    [...]}` line (each kernel with its launches by path, K1 and K4 with
    their times at the eval's geometry and the r101 inputs), the card's
    line again, and last `{"ok": true, "device": {...}}`.
@@ -3594,8 +3625,8 @@ def _cli(argv, capture):
 def _instrumented_gan_builds(recs, profile_epoch=2, snapshot=False):
     """Patch the GAN build the train stage calls: each experiment gets
     _instrument_gan with a record of its own (appended to `recs`), with
-    its starting parameters under "start" when `snapshot`. Returns the
-    original, to put back."""
+    its starting parameters under "start" when `snapshot`; `profile_epoch`
+    None profiles no epoch. Returns the original, to put back."""
     from gandtr_tpu_torch.scenarios import build
     orig = build.build_gan_experiment
 
@@ -3616,12 +3647,30 @@ def _instrumented_gan_builds(recs, profile_epoch=2, snapshot=False):
     return orig
 
 
+def _device_busy_us(prof):
+    """The card's busy time in a finished torch.profiler run: the union of
+    its device events' intervals, read from the raw kineto events (kernels
+    that overlap on two streams count once; building the FunctionEvent
+    list of a long trace takes tens of seconds)."""
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
 def _gan_loop_numbers(rec):
     """ms a step in epoch 2 (the profiled epoch) and the card's busy share
-    over its steps."""
+    over its steps (`_device_busy_us`)."""
     prof = rec.pop("prof")
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us = _device_busy_us(prof)
     steps = len(rec["exp"]["loader"])
     epoch = rec.get("profile_epoch", 2)
     return {"steps_an_epoch": steps,
@@ -3802,7 +3851,8 @@ def _cyclegan_step(cfg, where, X, Y, dtype=torch.float32):
             {k: _flat(grads[k]).double() for k in CG_NETS})
 
 
-def _cyclegan_parity(dev):
+def _cyclegan_parity(dev, extra=(), hw=128,
+                     inits=("normal_p2p", "kaiming_p2p")):
     """One step of cyclegan.yml's networks (full width, the shipped
     normal_p2p init) at batch 1 and 128x128, from the same seeded weights,
     in float64 and in float32 on the CPU and in float32 on the card, held
@@ -3813,18 +3863,20 @@ def _cyclegan_parity(dev):
     starting generators' fakes) within twice the CPU float32's distance
     from float64 (L2, relative). As an extra check, with kaiming_p2p
     weights the losses within 1e-3 and the images within 1e-4 of the
-    CPU's float32 (run_gan_train's bounds)."""
+    CPU's float32 (run_gan_train's bounds). `extra`: more key=value
+    overrides; `hw`: the crop; `inits`: the weight schemes run."""
     from gandtr_tpu_torch.scenarios.engine import load_yaml_scenario
-    cfg = load_yaml_scenario([CYCLEGAN_YML] + cyclegan_overrides())
+    cfg = load_yaml_scenario([CYCLEGAN_YML] + cyclegan_overrides()
+                             + list(extra))
     cfg = cfg["train"]["1_train_augment"]
     cfg = {k: v for k, v in cfg.items() if k in ("network", "learning")}
     cfg["learning"]["checkpoints"]["directory"] = None
     rs = np.random.RandomState(9)
-    X, Y = (rs.uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32)
+    X, Y = (rs.uniform(-1, 1, (1, hw, hw, 3)).astype(np.float32)
             for _ in range(2))
     torch.set_num_threads(os.cpu_count() or 1)
     out = {}
-    for init in ("normal_p2p", "kaiming_p2p"):
+    for init in inits:
         for member in cfg["network"].values():
             if isinstance(member, dict) and member.get("initialize"):
                 member["initialize"]["weights"] = init
@@ -3848,12 +3900,13 @@ def _cyclegan_parity(dev):
         out[init] = res
         del cpu, card
     print("CycleGAN step, card vs CPU: %s" % json.dumps(out))
-    n, k = out["normal_p2p"], out["kaiming_p2p"]
+    n, k = out["normal_p2p"], out.get("kaiming_p2p")
     far = [(name, key) for name in ("images", "grads")
            for key, v in n[name + "_rel_to_float64_card"].items()
            if v > 2 * n[name + "_rel_to_float64_cpu"][key]]
-    if far or n["losses_max_rel"] > 1e-3 or k["losses_max_rel"] > 1e-3 \
-            or max(k["images_max_abs"].values()) > 1e-4:
+    if far or n["losses_max_rel"] > 1e-3 or k is not None and (
+            k["losses_max_rel"] > 1e-3
+            or max(k["images_max_abs"].values()) > 1e-4):
         raise AssertionError("CycleGAN card vs CPU (past twice the CPU's "
                              "distance from float64: %s): %s" % (far, out))
     return out
@@ -4188,7 +4241,7 @@ def _family_step(cfg, where, X, Y, dtype=torch.float32):
             {k: _flat(grads[k]).double() for k in names})
 
 
-def _family_parity(family, pth, dev):
+def _family_parity(family, pth, dev, extra=(), tap_strides=(2, 4, 4, 4)):
     """One step of the family's train section at full width on
     FAMILY_PARITY_HW crops (batch 2; CUT batch 1 as shipped), from the same
     seeded weights in float64 and float32 on the CPU and in float32 on the
@@ -4198,12 +4251,14 @@ def _family_parity(family, pth, dev):
     relative). D's and the student's lr are 0 here, so that the G step's
     gradient goes through the starting D and student and depends on the
     starting weights only (Adam's first step would part float64 and
-    float32 by its sign flips); CUT runs on fixed patch positions."""
+    float32 by its sign flips); CUT runs on fixed patch positions, its
+    taps `tap_strides` below the crop. `extra`: more key=value
+    overrides."""
     import functools
     from gandtr_tpu_torch.learning import gan_steps
     from gandtr_tpu_torch.scenarios.engine import load_yaml_scenario
     cfg = load_yaml_scenario([FAMILY_YML[family]]
-                             + family_overrides(family, pth))
+                             + family_overrides(family, pth) + list(extra))
     cfg = cfg["train"]["1_train_augment"]
     cfg = {k: v for k, v in cfg.items() if k in ("network", "learning")}
     cfg["learning"]["checkpoints"]["directory"] = None
@@ -4215,7 +4270,7 @@ def _family_parity(family, pth, dev):
     X, Y = (rs.uniform(-1, 1, (batch, FAMILY_PARITY_HW, FAMILY_PARITY_HW, 3))
             .astype(np.float32) for _ in range(2))
     orig = gan_steps.GAN_STEPS["cut"]
-    sizes = [(FAMILY_PARITY_HW // s) ** 2 for s in (2, 4, 4, 4)]
+    sizes = [(FAMILY_PARITY_HW // s) ** 2 for s in tap_strides]
     gan_steps.GAN_STEPS["cut"] = functools.partial(
         orig, fixed_patch_ids=[rs.permutation(n)[:256] for n in sizes])
     torch.set_num_threads(os.cpu_count() or 1)
@@ -4325,15 +4380,16 @@ def _check_family_run(family, rec, directory):
             "unmovable_in_float32": unmovable}
 
 
-def _family_resume(family, tmp, copy_dir, names, pth):
-    """The train target again on the copy of the directory after epoch 1:
-    epoch 2's files of the networks `names` and the training file's
-    optimizers, generator states, events and epoch bit-equal to the
-    straight run's."""
+def _family_resume(family, tmp, copy_dir, names, pth, extra=()):
+    """The train target (with the `extra` overrides) again on the copy of
+    the directory after epoch 1: epoch 2's files of the networks `names`
+    and the training file's optimizers, generator states, events and epoch
+    bit-equal to the straight run's."""
     recs = []
-    orig_build = _instrumented_gan_builds(recs)
+    orig_build = _instrumented_gan_builds(recs, profile_epoch=None)
     try:
         _cli(["train", FAMILY_YML[family]] + family_overrides(family, pth)
+             + list(extra)
              + ["train.1_train_augment.learning.checkpoints.directory=%s"
                 % json.dumps(copy_dir)], {})
     finally:
@@ -5598,6 +5654,480 @@ def run_training_options(dev):
     return out
 
 
+# ---- every network the model registry builds (run_architectures)
+
+ARCH_PRE = "train.1_train_augment."
+#: upstream CUT's blur-pool sampling on cut.yml's G and D
+ARCH_BLUR = (ARCH_PRE + "network.generator_X.model.no_antialias=false",
+             ARCH_PRE + "network.generator_X.model.no_antialias_up=false",
+             ARCH_PRE + "network.discriminator_Y.model.no_antialias=false")
+#: 8 pairs an epoch (one dispatch chunk), where phase 13's CUT takes 16
+ARCH_CUT_SIZE = ARCH_PRE + "data.train.dataset.size=8"
+#: the blur-pool generator's taps 4, 8, 12, 16 below a crop: a stride-1
+#: conv, one after the first blur, a block, a block
+ARCH_BLUR_TAP_STRIDES = (1, 2, 4, 4)
+#: pix2pix's unet_256 (num_downs 8, ngf 64, batch norm)
+ARCH_UNET = {"architecture": "official_unet_generator", "input_nc": 3,
+             "output_nc": 3, "num_downs": 8, "ngf": 64,
+             "norm_layer": "batch"}
+#: unet_256 takes 256x256 inputs only, and the visual validation's photos
+#: are 362 on their longest side: it runs at the validate stage only
+ARCH_UNET_OVR = tuple("%snetwork.%s.model=%s" % (ARCH_PRE, g,
+                                                 json.dumps(ARCH_UNET))
+                      for g in ("generator_X", "generator_Y")) + (
+    ARCH_PRE + "learning.validation.visual.frequency=null",)
+ARCH_VGG = {"architecture": "cirnet", "cir_architecture": "vgg16",
+            "local_whitening": False, "whitening": False}
+#: eval.yml's network with each descriptor net of the registry the path
+#: had not run
+ARCH_EVAL_NETS = {
+    "regional_gem": dict(ARCH_VGG, pooling="gem", regional=True),
+    "rmac": dict(ARCH_VGG, pooling="rmac", regional=False),
+    "attention": {"architecture": "cirnet_attention",
+                  "cir_architecture": "vgg16", "pooling": "gem",
+                  "attention": {"type": "l2norm"}},
+    "edge_filter": {"architecture": "cirnet_inchan",
+                    "cir_architecture": "vgg16", "pooling": "gem",
+                    "local_whitening": False, "whitening": False,
+                    "inputs": {"preprocessing": {"type": "edgefilter"}}},
+    "geometric_median": dict(ARCH_VGG, pooling={
+        "type": "GeometricMedianWeiszfeld", "iterations": 3}),
+}
+ARCH_EVAL_CPU_PHOTO = 5        # the 600x800 database photo of make_eval_set
+ARCH_FT_STEPS = 3
+
+
+def _arch_cut(dev, tmp, pth):
+    """cut.yml's `train` target through the CLI with ARCH_BLUR, cut as
+    FAMILY_CUTS cuts CUT: run_gan_families' checks, the resume of epoch 2
+    bit for bit, one step against float64 (taps ARCH_BLUR_TAP_STRIDES
+    below the crop). Returns (results, the generator_X_last.ckpt path)."""
+    from gandtr_tpu_torch.scenarios import build
+    recs, cap = [], {}
+    orig_build = _instrumented_gan_builds(recs, snapshot=True)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        _cli(["train", FAMILY_YML["cut"]] + family_overrides("cut", pth)
+             + list(ARCH_BLUR) + [ARCH_CUT_SIZE], cap)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        build.build_gan_experiment = orig_build
+    if any(counts.values()):
+        raise AssertionError("blur-pool CUT training launched %s" % counts)
+    rec, laps = recs[0], {"train_s": time.perf_counter() - t0}
+    gan_dir = os.path.join(tmp, "experiments", "gan", "cut")
+    kinds = {name: [type(m).__name__ for m in net.module.modules()]
+             for name, net in rec["exp"]["models"].items()}
+    blurs = {name: (k.count("BlurDownsample"), k.count("BlurUpsample"))
+             for name, k in kinds.items()}
+    if blurs["generator_X"] != (2, 2) or blurs["discriminator_Y"][0] != 3:
+        raise AssertionError("blur steps %s" % blurs)
+    t1 = time.perf_counter()
+    res = {"seconds": train_s, "launches": counts, "blur_steps": blurs,
+           "step_seconds": cap["step_seconds"],
+           **_check_family_run("cut", rec, gan_dir), "laps": laps}
+    laps["checks_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    res["gan"] = _gan_loop_numbers(rec)
+    laps["numbers_s"] = time.perf_counter() - t1
+    names = list(rec.pop("exp")["models"])
+    del rec["start"]
+    t1 = time.perf_counter()
+    res["resume"] = _family_resume("cut", tmp, rec["copy_dir"], names, pth,
+                                   ARCH_BLUR + (ARCH_CUT_SIZE,))
+    laps["resume_s"] = time.perf_counter() - t1
+    del recs
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    res["parity"] = _family_parity("cut", pth, dev, ARCH_BLUR
+                                   + (ARCH_CUT_SIZE,), ARCH_BLUR_TAP_STRIDES)
+    laps["parity_s"] = time.perf_counter() - t1
+    return res, os.path.join(gan_dir, "epochs", "generator_X_last.ckpt")
+
+
+def _arch_cyclegan_unet(dev, tmp):
+    """cyclegan.yml's `train` target through the CLI with unet_256 for
+    both generators (cyclegan_overrides: 2 epochs of 4 steps at batch 1 of
+    256², no visual validation): finite losses, no launch, the resume of
+    epoch 2 bit for bit, one step at 256² against float64 (normal_p2p as
+    shipped)."""
+    from gandtr_tpu_torch.scenarios import build
+    recs, cap = [], {}
+    orig_build = _instrumented_gan_builds(recs)
+    argv = ["train", CYCLEGAN_YML] + cyclegan_overrides() + list(
+        ARCH_UNET_OVR)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        _cli(argv, cap)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = launches()
+        kinds = {type(recs[0]["exp"]["models"][g].module).__name__
+                 for g in ("generator_X", "generator_Y")}
+        metrics = [float(v) for m in recs[0]["metrics"] for v in m.values()]
+        copy_dir = recs[0]["copy_dir"]
+    finally:
+        build.build_gan_experiment = orig_build
+    t1 = time.perf_counter()
+    resumed = []
+    orig_build = _instrumented_gan_builds(resumed, profile_epoch=None)
+    try:
+        _cli(argv + ["%slearning.checkpoints.directory=%s"
+                     % (ARCH_PRE, json.dumps(copy_dir))], {})
+    finally:
+        build.build_gan_experiment = orig_build
+    laps = {"resume_s": time.perf_counter() - t1}
+    if kinds != {"UnetGenerator"} or not metrics or \
+            not np.isfinite(metrics).all() or any(counts.values()):
+        raise AssertionError("U-Net CycleGAN: %s, launches %s, finite %s"
+                             % (kinds, counts, np.isfinite(metrics).all()))
+    gan_dir = os.path.join(tmp, "experiments", "gan", "cyclegan")
+    for name in CG_NETS:
+        _same_tree(*(torch.load(os.path.join(
+            d, "epochs", "%s_epoch_02.ckpt" % name), weights_only=True)
+            ["model_state"] for d in (gan_dir, copy_dir)), (name,))
+    a, b = (torch.load(os.path.join(d, "epochs", "training_epoch_02.pkl"),
+                       weights_only=True) for d in (gan_dir, copy_dir))
+    for key in ("aux", "events", "rngs", "epoch"):
+        _same_tree(a[key], b[key], (key,))
+    if len(resumed[0]["epochs"]) != 1:
+        raise AssertionError("the resumed U-Net run ran %d epochs"
+                             % len(resumed[0]["epochs"]))
+    t1 = time.perf_counter()
+    out = {"seconds": train_s, "launches": counts,
+           "step_seconds": cap["step_seconds"],
+           "gan": _gan_loop_numbers(recs[0]),
+           "resume_epoch2_bit_equal": True, "laps": laps}
+    laps["numbers_s"] = time.perf_counter() - t1
+    del recs, resumed
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["parity"] = _cyclegan_parity(dev, ARCH_UNET_OVR, hw=256,
+                                     inits=("normal_p2p",))
+    laps["parity_s"] = time.perf_counter() - t1
+    return out
+
+
+def _arch_serve(dev, ckpt):
+    """The blur-pool generator of `ckpt` (cut.yml's generator_X with
+    ARCH_BLUR) through hub.cyclegan in bf16, served by serve_http: rounds
+    of N_REQ concurrent 768x1024 `:predict` requests, K3 9 times a batch,
+    PNGs byte-equal to the direct call; its bf16 output with K3 within
+    max 0.06 / mean 0.01 of the plain-K3 generator's on the 8 photos, and
+    the float32 generator on the card within 1e-4 of the CPU port on one
+    256x256 image."""
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.models.layers import BlurDownsample, BlurUpsample
+    from gandtr_tpu_torch.serving.export import Servable
+    from gandtr_tpu_torch.serving.service import encode_png, serve_http
+    gen = hub.cyclegan(pretrained=True, checkpoint=ckpt)
+    gen.net.compute_dtype = torch.bfloat16
+    kinds = [type(m) for m in gen.net.module.modules()]
+    if kinds.count(BlurDownsample) != 2 or kinds.count(BlurUpsample) != 2:
+        raise AssertionError("the hub did not build the blur-pool generator")
+    images = np.random.RandomState(7).randint(0, 256, (N_REQ,) + HW + (3,),
+                                              dtype=np.uint8)
+    t0 = time.perf_counter()
+    servable = Servable(gen, HW)
+    server = serve_http({"blur": servable}, port=0, block=False,
+                        max_wait_ms=1000.0)
+    try:
+        base = "http://127.0.0.1:%d" % server.server_address[1]
+        reset_launches()
+        batches0 = server.models["blur"].batcher.batches
+        answers, timing = serve_rounds(base, "blur", images)
+        counts = launches()
+        batches = server.models["blur"].batcher.batches - batches0
+        direct = servable(images)
+    finally:
+        server.close()
+    if counts["K3"] != 9 * batches or batches < 1:
+        raise AssertionError("blur-pool generator: K3 %s for %d batches"
+                             % (counts, batches))
+    for i, (ctype, body) in enumerate(answers):
+        if ctype != "image/png" or body != encode_png(direct[i]):
+            raise AssertionError("served PNG %d differs from the direct "
+                                 "call" % i)
+    laps = {"serve_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    x = torch.from_numpy(images).to(dev).float() / 127.5 - 1.0
+    mx, mean, nudge = _k3_vs_plain(gen, x)
+    laps["k3_vs_plain_s"] = time.perf_counter() - t0
+    xs = torch.from_numpy(np.ascontiguousarray(images[:1, :256, :256]))
+    xs = xs.float() / 127.5 - 1.0
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = hub.cyclegan(pretrained=True, checkpoint=ckpt, device="cpu")
+    with torch.inference_mode():
+        d32 = float((gen.net.module(xs.to(dev)).cpu()
+                     - cpu.net.module(xs)).abs().max())
+    res = {"launches": counts, "batches": batches, **timing,
+           "k3_vs_plain_max": mx, "k3_vs_plain_mean": mean,
+           "one_level_nudge_max": nudge, "f32_card_vs_cpu_max": d32,
+           "laps": laps}
+    if mx >= K3_MAX or mean >= K3_MEAN or d32 > 1e-4:
+        raise AssertionError("blur-pool generator: %s" % res)
+    del gen, servable, x
+    torch.cuda.empty_cache()
+    return res, images
+
+
+def _arch_encoder_decoder(dev, images):
+    """official_resnet_encoder -> official_resnet_decoder (6 + 6 blocks,
+    instance norm, kaiming_p2p weights) in bf16 on the N_REQ photos at
+    768x1024: K3 12 times, each block call held against K3's plain version
+    on the same inputs by `_k3_on`'s rule (`_k3_held`); the chain's output
+    within mean 0.01 of the chain with K3's plain version, its largest
+    difference printed beside the plain chain's own change when one input
+    value moves by one uint8 level (as generator_parity holds the served
+    normal_p2p generator: twelve chained random blocks amplify a block's
+    one-step roundings); ms of each (cuda_ms)."""
+    from gandtr_tpu_torch.learning.network import WrappedNet
+    from gandtr_tpu_torch.models import initialize_model
+    from gandtr_tpu_torch.models.init import initialize_weights
+    from gandtr_tpu_torch.ops import resblock
+    nets = []
+    for i, half in enumerate(("encoder", "decoder")):
+        m = initialize_model({"architecture": "official_resnet_%s" % half,
+                              "n_blocks": 6, "norm_type": "instance"})
+        initialize_weights(m, "kaiming_p2p", seed=i)
+        nets.append(WrappedNet(module=m.to(dev).eval(),
+                               compute_dtype=torch.bfloat16))
+    x = torch.from_numpy(images).to(dev).float() / 127.5 - 1.0
+
+    def chain(inp=x):
+        return nets[1].apply(nets[0].apply(inp))
+    calls, kernel = [], resblock.fused_resblock
+
+    def recording(*args, **kwargs):
+        out = kernel(*args, **kwargs)
+        calls.append((args, out))
+        return out
+    with torch.inference_mode():
+        chain()
+        torch.cuda.synchronize()
+        resblock.fused_resblock = recording
+        reset_launches()
+        try:
+            y = chain().float()
+            torch.cuda.synchronize()
+        finally:
+            resblock.fused_resblock = kernel
+        counts = launches()
+        ms = cuda_ms(chain, reps=3)
+        resblock.fused_resblock = resblock.fused_resblock_plain
+        try:
+            y_plain = chain().float()
+            plain_ms = cuda_ms(chain, reps=3)
+            x1 = x.clone()
+            x1[0, HW[0] // 2, HW[1] // 2, 0] += 2.0 / 255
+            nudge = float((chain(x1).float() - y_plain).abs().max())
+        finally:
+            resblock.fused_resblock = kernel
+    errs = _k3_held(calls)
+    del calls
+    d = (y - y_plain).abs()
+    res = {"launches": counts, "shape": list(y.shape), "ms": ms,
+           "plain_ms": plain_ms, "max_abs_err": float(d.max()),
+           "mean_abs_err": float(d.mean()), "one_level_nudge_max": nudge,
+           "block_calls_max_abs_err": max(e[0] for e in errs),
+           "block_calls_mean_abs_err": max(e[1] for e in errs),
+           "block_calls_past_bound": sum(e[5]["past_bound"] for e in errs)}
+    if counts["K3"] != 12 or len(errs) != 12 or \
+            not all(e[3] for e in errs) or \
+            res["block_calls_mean_abs_err"] >= K3_MEAN or \
+            res["mean_abs_err"] >= K3_MEAN or \
+            not bool(torch.isfinite(y).all()):
+        raise AssertionError("encoder -> decoder: %s" % res)
+    del nets, x, y, y_plain, d
+    torch.cuda.empty_cache()
+    return res
+
+
+def _arch_eval(dev, root):
+    """eval.yml's validate stage at exact shapes (`shape_bucket: null`,
+    K1) on make_eval_set's photos, at image size 1024 with 3 scales and
+    the seeded Lw, for each ARCH_EVAL_NETS net (seeded weights), every
+    launch count set to 0 just before each: K1 once a photo and no K4,
+    descriptors finite and of unit norm, the mAPs and images/s printed,
+    and one photo's descriptor within 1e-4 of the CPU port."""
+    import pickle
+    from gandtr_tpu_torch.eval import retrieval as R
+    from gandtr_tpu_torch.scenarios import validate_stage
+    db_paths = make_eval_set(root)
+    lw_path = os.path.join(root, "lw.pkl")
+    with open(lw_path, "wb") as f:
+        pickle.dump(seeded_lw(), f)
+    n_img = EVAL_DB + EVAL_Q
+    out, total = {}, dict.fromkeys(("K1", "K2", "K3", "K4"), 0)
+    for name, model in ARCH_EVAL_NETS.items():
+        params = eval_params(root, lw_path, None)
+        params["network"]["model"] = dict(model)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        (res,), rec = _recorded(validate_stage, lambda: validate_stage
+                                .validate(params, None))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        metrics, _, vecs, qvecs = rec[0]
+        for v in (vecs, qvecs):
+            norms = np.linalg.norm(v, axis=0)
+            if not np.isfinite(v).all() or v.shape[0] != 512 or \
+                    np.abs(norms - 1).max() > 1e-5:
+                raise AssertionError("%s: descriptors %s %s"
+                                     % (name, v.shape, norms))
+        if counts["K1"] != n_img or counts["K4"] != 0:
+            raise AssertionError("%s launched %s for %d photos"
+                                 % (name, counts, n_img))
+        torch.set_num_threads(os.cpu_count() or 1)
+        t0 = time.perf_counter()
+        cpu = validate_stage.build_eval(params, torch.device("cpu"))
+        photo = db_paths[ARCH_EVAL_CPU_PHOTO]
+        cpu_vec = R.extract_vectors(cpu["extractor"], [photo], 1024,
+                                    cpu["transform"])
+        cpu_s = time.perf_counter() - t0
+        d_cpu = float(np.abs(cpu_vec[:, 0]
+                             - vecs[:, ARCH_EVAL_CPU_PHOTO]).max())
+        if d_cpu > 1e-4:
+            raise AssertionError("%s card vs CPU port: %g" % (name, d_cpu))
+        out[name] = {"launches": counts, "wall_s": wall,
+                     "images_per_s": n_img / wall, "mAP": metrics,
+                     "card_vs_cpu": d_cpu, "cpu_s": cpu_s}
+        for k, v in counts.items():
+            total[k] += v
+        print("architectures eval %s (exact, 1024, 3 scales): %s"
+              % (name, json.dumps(out[name])))
+    out["launches"] = total
+    return out
+
+
+def _arch_finetune(dev):
+    """finetune.yml's tuple step (T=5, S=7, bf16 embed) with a
+    cirnet_inchan embed (the edge filter before GeM-VGG16): a warm-up step,
+    then ARCH_FT_STEPS timed steps with every launch count set to 0 just
+    before them: finite losses, K2 10 and K4 5 times a step, the edge
+    filter's p and tau moved; then, at T=2, the step with K2 and K4
+    swapped for their plain versions: the loss within 1% and tuple 0's
+    descriptors within 5e-3."""
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
+    cfg = finetune_config()
+    cfg["network"]["embed"]["model"] = dict(
+        ARCH_EVAL_NETS["edge_filter"], pretrained=False, regional=False)
+    exp = build_finetune_experiment(cfg, device=dev)
+    pre = exp["models"]["embed"].module.preprocessing
+    start = (float(pre.p.detach()), float(pre.tau.detach()))
+    batch = finetune_batch(dev)
+    state, _ = exp["step"](exp["state"], *batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(ARCH_FT_STEPS):
+        state, m = exp["step"](state, *batch)
+        losses.append(m["total"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    losses = [float(v) for v in losses]
+    end = (float(pre.p.detach()), float(pre.tau.detach()))
+    res = {"ms_per_step": 1e3 * secs / ARCH_FT_STEPS, "losses": losses,
+           "launches": counts, "p_tau_start": start, "p_tau_end": end}
+    if not np.isfinite(losses).all() or start[0] == end[0] or \
+            start[1] == end[1] or counts["K2"] != 2 * FT_T * ARCH_FT_STEPS \
+            or counts["K4"] != FT_T * ARCH_FT_STEPS:
+        raise AssertionError("cirnet_inchan fine-tune: %s" % res)
+    del exp, state, batch
+    torch.cuda.empty_cache()
+    small = finetune_batch(dev, T=2, seed=1)
+    got = {}
+    for name in ("kernels", "plain"):
+        restore = _plain_k2_k4() if name == "plain" else (lambda: None)
+        try:
+            exp = build_finetune_experiment(cfg, device=dev)
+            x, masks = exp["stage"](small[0], small[1])
+            desc = _descriptors(exp, x, masks, small[3])
+            _, m = exp["step"](exp["state"], *small)
+            got[name] = (float(m["total"]), desc)
+        finally:
+            restore()
+    (lk, dk), (lp, dp) = got["kernels"], got["plain"]
+    res["plain_loss_rel"] = abs(lk - lp) / abs(lp)
+    res["plain_desc_max"] = float((dk - dp).abs().max())
+    if res["plain_loss_rel"] > 1e-2 or res["plain_desc_max"] > 5e-3:
+        raise AssertionError("cirnet_inchan kernels vs plain: %s" % res)
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_architectures(dev):
+    """Every network the registry builds that no earlier phase ran (the
+    module docstring's item 16), each part with every launch count set to
+    0 just before it and read just after: (b) training, blur-pool CUT and
+    the U-Net CycleGAN through the CLI; (a) serving, the blur-pool
+    generator from (b)'s checkpoint and the encoder -> decoder chain; (c)
+    the eval of five descriptor nets at exact shapes; (d) a cirnet_inchan
+    fine-tune step."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="arch_", dir=os.environ.get("TMPDIR"))
+    old_root = os.environ.get("GANDTR_ROOT")
+    os.environ["GANDTR_ROOT"] = tmp
+    out, t_all = {}, time.perf_counter()
+    try:
+        make_family_data(tmp)
+        pth = seeded_detectors(tmp)
+        t0 = time.perf_counter()
+        out["cut_blur"], ckpt = _arch_cut(dev, tmp, pth)
+        out["cut_blur"]["phase_s"] = time.perf_counter() - t0
+        print("architectures: blur-pool CUT: %s" % json.dumps(out["cut_blur"]))
+        t0 = time.perf_counter()
+        out["cyclegan_unet"] = _arch_cyclegan_unet(dev, tmp)
+        out["cyclegan_unet"]["phase_s"] = time.perf_counter() - t0
+        print("architectures: U-Net CycleGAN: %s"
+              % json.dumps(out["cyclegan_unet"]))
+        t0 = time.perf_counter()
+        out["serve_blur"], images = _arch_serve(dev, ckpt)
+        t1 = time.perf_counter()
+        out["encoder_decoder"] = _arch_encoder_decoder(dev, images)
+        out["encoder_decoder"]["phase_s"] = time.perf_counter() - t1
+        out["serve_blur"]["phase_s"] = time.perf_counter() - t0
+        print("architectures: blur-pool generator served: %s; encoder -> "
+              "decoder: %s" % (json.dumps(out["serve_blur"]),
+                               json.dumps(out["encoder_decoder"])))
+        t0 = time.perf_counter()
+        out["eval"] = _arch_eval(dev, os.path.join(tmp, "eval_set"))
+        out["eval"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["finetune"] = _arch_finetune(dev)
+        out["finetune"]["phase_s"] = time.perf_counter() - t0
+        print("architectures: cirnet_inchan fine-tune: %s"
+              % json.dumps(out["finetune"]))
+    finally:
+        if old_root is None:
+            os.environ.pop("GANDTR_ROOT", None)
+        else:
+            os.environ["GANDTR_ROOT"] = old_root
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["launches"] = {k: out["serve_blur"]["launches"][k]
+                       + out["encoder_decoder"]["launches"][k]
+                       + out["eval"]["launches"][k]
+                       + out["finetune"]["launches"][k]
+                       for k in ("K1", "K2", "K3", "K4")}
+    out["phase_s"] = time.perf_counter() - t_all
+    print("architectures (%s): %.1f s, launches %s"
+          % (card_line(), out["phase_s"], json.dumps(out["launches"])))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5779,6 +6309,13 @@ def main():
     # a warm start, the fine-tune's validations with TensorBoard
     torch.cuda.empty_cache()
     opts = run_training_options(dev)
+
+    # ---- every network of the registry no phase above ran: blur-pool CUT
+    # and the U-Net CycleGAN trained, the blur-pool generator and the
+    # encoder -> decoder served, five descriptor nets' eval, a
+    # cirnet_inchan fine-tune step
+    torch.cuda.empty_cache()
+    arch = run_architectures(dev)
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
                    "finetune_loop": loop["launches"][k],
@@ -5788,7 +6325,8 @@ def main():
                    "scenario": scen["launches"][k],
                    "gan_families": fams["launches"][k],
                    "search": srch["launches"][k],
-                   "training_options": opts["launches"][k]}
+                   "training_options": opts["launches"][k],
+                   "architectures": arch["launches"][k]}
                for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{

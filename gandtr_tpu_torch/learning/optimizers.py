@@ -7,8 +7,11 @@ rebuilds that as an optax chain. Here it is torch's optimizer itself.
 
 Parameter groups follow the reference's `parameter_groups`:
 
-- cirnet (cirnet.py:11-33, the JAX package's `_cirnet_leaf_mults`): the
-  GeM `p` at lr x10 and weight decay 0, everything else x1;
+- cirnet, cirnet_inchan, cirnet_attention and gem_retrieval (cirnet.py:
+  11-33, 79-82, 127-131; the JAX package's `_cirnet_leaf_mults`): the GeM
+  `p` (`pool.p`, or `pool.rpool.p` of a regional net) at lr x10 and
+  weight decay 0, the edge filter's `preprocessing.*` at lr x10, an
+  `attention.*` module at lr x100, everything else x1;
 - hed_interpolation (hed.py:86-112, `_hed_leaf_mults`): lr x1 for the VGG
   weights and x2 for their biases, x100 / x200 in block 5, x0.01 / x0.02
   for the score heads and x0.001 / x0.002 for the fusion; weight decay on
@@ -30,8 +33,13 @@ import torch
 
 
 def _cirnet_mults(name):
-    if name == "pool.p" or name.endswith(".pool.p"):
+    parts = name.split(".")
+    if parts[-1] == "p" and "pool" in parts:
         return 10.0, 0.0
+    if parts[0] == "preprocessing":
+        return 10.0, 1.0
+    if parts[0] == "attention":
+        return 100.0, 1.0
     return 1.0, 1.0
 
 
@@ -49,7 +57,10 @@ def _hed_mults(name):
     raise KeyError("HED parameter not recognized %r (hed.py:96)" % name)
 
 
-GROUP_MULTS = {"cirnet": _cirnet_mults, "hed_interpolation": _hed_mults}
+GROUP_MULTS = {"cirnet": _cirnet_mults, "cirnet_inchan": _cirnet_mults,
+               "cirnet_attention": _cirnet_mults,
+               "gem_retrieval": _cirnet_mults,
+               "hed_interpolation": _hed_mults}
 
 
 def param_groups(architecture, named_parameters):

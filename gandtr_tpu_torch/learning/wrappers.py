@@ -87,9 +87,14 @@ class CirMultiscaleAggregation(Wrapper):
 def multiscale_msp(model_cfg, module):
     """The multiscale power of the reference (wrapper.py:249-252): the GeM p
     of a plain GeM net (pooling gem, no whitening head in the model, not
-    regional), else 1. An eval-time Lw wrapper does not change it."""
+    regional), else 1. An eval-time Lw wrapper does not change it. An
+    edge-filter net (cirnet_inchan) aggregates with 1 too: the JAX
+    package's test finds no top-level GeM p there (its p is under
+    `net/`)."""
     model_cfg = dict(model_cfg or {})
     p = getattr(getattr(module, "pool", None), "p", None)
+    if hasattr(module, "preprocessing"):
+        p = None
     if (model_cfg.get("pooling", "gem") == "gem"
             and not model_cfg.get("whitening")
             and not model_cfg.get("regional")

@@ -4,12 +4,13 @@ and PatchDiscriminator, p2p_networks.py:559-607), NHWC in and out.
 
 Module names are the reference's torch names (`model.<i>`, and `d.model.<i>`
 inside the patch discriminator), so a reference `.pth` loads with
-`load_state_dict(strict=True)`. Only the `no_antialias` form is ported: the
-blur-pool downsampling is ROADMAP A.4.
+`load_state_dict(strict=True)`. With `no_antialias` false (blur-pool, the
+default of upstream CUT) each stride-2 conv is a stride-1 conv followed by
+its norm, LeakyReLU and a `BlurDownsample`, which is a module of `model`.
 """
 from torch import nn
 
-from gandtr_tpu_torch.models.layers import Conv, make_norm
+from gandtr_tpu_torch.models.layers import BlurDownsample, Conv, make_norm
 
 
 def _lrelu():
@@ -19,22 +20,23 @@ def _lrelu():
 class NLayerDiscriminator(nn.Module):
     """conv(s2)-lrelu, (n_layers - 1) x [conv(s2)-norm-lrelu],
     conv(s1)-norm-lrelu, conv(s1) to one channel: (N, H, W, input_nc) ->
-    (N, h, w, 1) patch scores."""
+    (N, h, w, 1) patch scores. Blur-pool: conv(s1)-lrelu-blur and
+    conv(s1)-norm-lrelu-blur in place of the stride-2 steps."""
 
     def __init__(self, input_nc=3, ndf=64, n_layers=3, kw=4,
                  norm_type="batch", no_antialias=True):
         super().__init__()
-        if not no_antialias:
-            raise NotImplementedError(
-                "the blur-pool (antialiased) discriminator is not ported yet "
-                "(ROADMAP A.4)")
         norm, use_bias = make_norm(norm_type)
-        m = [Conv(input_nc, ndf, kw, stride=2, padding=1), _lrelu()]
+        s = 2 if no_antialias else 1
+        blur = [] if no_antialias else [BlurDownsample(ndf)]
+        m = [Conv(input_nc, ndf, kw, stride=s, padding=1), _lrelu()] + blur
         mult = 1
         for n in range(1, n_layers):
             prev, mult = mult, min(2 ** n, 8)
-            m += [Conv(ndf * prev, ndf * mult, kw, stride=2, padding=1,
+            m += [Conv(ndf * prev, ndf * mult, kw, stride=s, padding=1,
                        use_bias=use_bias), norm(ndf * mult), _lrelu()]
+            if not no_antialias:
+                m.append(BlurDownsample(ndf * mult))
         prev, mult = mult, min(2 ** n_layers, 8)
         m += [Conv(ndf * prev, ndf * mult, kw, stride=1, padding=1,
                    use_bias=use_bias), norm(ndf * mult), _lrelu(),

@@ -31,15 +31,33 @@ place, so a tap whose next module is a ReLU is seen ReLU'd, and is stored
 so here; the tap at which `encode_only` returns is stored before that
 ReLU, since the reference returns before running it.
 
-Only `no_antialias` sampling is ported: the blur-pool sampling,
-ResnetEncoder / ResnetDecoder and UnetGenerator come later.
+Blur-pool sampling (`no_antialias` / `no_antialias_up` false, upstream
+CUT's default): each stride-2 conv becomes a stride-1 conv, norm, ReLU and
+`BlurDownsample`, each transposed conv a `BlurUpsample`, conv, norm and
+ReLU; the blur steps are modules of `model`, so CUT's `nce_layers` count
+them as the reference's do. Masked mode refuses it, as the JAX package
+does.
+
+`ResnetEncoder` / `ResnetDecoder` are the two halves of the generator
+(p2p_networks.py:341-472): the encoder's head, two stride-2 convs and
+blocks, the decoder's blocks, two transposed convs and tail, each a
+`model` Sequential. Their blocks are `ResnetBlock`s, so in bf16 inference
+each launches K3.
+
+`UnetGenerator` is pix2pix's U-Net (p2p_networks.py:133-239), with its
+nested torch names: the outermost block is `model`, each block's layers
+are `model.<j>` and its inner block is `model.1` (outermost) or `model.3`
+(`model.model.1.model.3.model.1.weight` is the third block's down conv).
+Dropout (`use_dropout`) draws from the net's own CPU `torch.Generator`,
+`generator`, seeded 0.
 """
 import torch
 from torch import nn
 
-from gandtr_tpu_torch.models.layers import (BatchNorm, Conv, ConvTranspose,
-                                            InstanceNorm, Pad, make_norm,
-                                            tensor_key)
+from gandtr_tpu_torch.models.layers import (BatchNorm, BlurDownsample,
+                                            BlurUpsample, Conv, ConvTranspose,
+                                            Dropout, InstanceNorm, Pad,
+                                            make_norm, tensor_key)
 from gandtr_tpu_torch.ops import resblock
 from gandtr_tpu_torch.ops.maskprop import (MaskState, masked_instance_norm,
                                            masked_reflect_pad)
@@ -139,26 +157,15 @@ class ResnetGenerator(nn.Module):
                  use_dropout=False, n_blocks=9, padding_type="reflect",
                  no_antialias=True, no_antialias_up=True):
         super().__init__()
-        if not (no_antialias and no_antialias_up):
-            raise NotImplementedError(
-                "the blur-pool (antialiased) sampling is not ported yet")
         norm, use_bias = make_norm(norm_type)
-        m = [Pad(3, "reflect"), Conv(input_nc, ngf, 7, use_bias=use_bias),
-             norm(ngf), nn.ReLU()]
-        for i in range(2):
-            c = ngf * 2 ** i
-            m += [Conv(c, 2 * c, 3, stride=2, padding=1, use_bias=use_bias),
-                  norm(2 * c), nn.ReLU()]
+        m = _resnet_head(input_nc, ngf, norm, use_bias, blur=not no_antialias)
         m += [ResnetBlock(ngf * 4, padding_type, norm_type, use_dropout,
                           use_bias) for _ in range(n_blocks)]
-        for i in range(2):
-            c = ngf * 2 ** (2 - i)
-            m += [ConvTranspose(c, c // 2, 3, stride=2, padding=1,
-                                output_padding=1, use_bias=use_bias),
-                  norm(c // 2), nn.ReLU()]
-        m += [Pad(3, "reflect"), Conv(ngf, output_nc, 7), nn.Tanh()]
+        m += _resnet_tail(ngf, output_nc, norm, use_bias,
+                          blur=not no_antialias_up)
         self.model = nn.Sequential(*m)
         self.norm_type = norm_type
+        self.blur = not (no_antialias and no_antialias_up)
         self.meta = {"in_channels": input_nc, "out_channels": output_nc}
 
     def forward(self, x, mask=None, layers=(), encode_only=False):
@@ -171,6 +178,9 @@ class ResnetGenerator(nn.Module):
             return self._taps(x, list(layers), encode_only)
         if mask is None:
             return self.model(x)
+        if self.blur:
+            raise NotImplementedError(
+                "masked generator requires no_antialias blur-pool-free form")
         if self.training and self.norm_type == "batch":
             raise NotImplementedError(
                 "masked generator requires frozen (eval-mode) BN")
@@ -196,3 +206,142 @@ class ResnetGenerator(nn.Module):
     def output_hw(h, w):
         """Two stride-2 convs down, two transposed convs up."""
         return 4 * -(-h // 4), 4 * -(-w // 4)
+
+
+def _resnet_head(input_nc, ngf, norm, use_bias, blur=False):
+    """pad, 7x7 conv, norm, ReLU, then two downsampling steps: a stride-2
+    conv, norm, ReLU, or (`blur`) a stride-1 conv, norm, ReLU and a
+    BlurDownsample."""
+    m = [Pad(3, "reflect"), Conv(input_nc, ngf, 7, use_bias=use_bias),
+         norm(ngf), nn.ReLU()]
+    for i in range(2):
+        c = ngf * 2 ** i
+        m += [Conv(c, 2 * c, 3, stride=1 if blur else 2, padding=1,
+                   use_bias=use_bias), norm(2 * c), nn.ReLU()]
+        if blur:
+            m.append(BlurDownsample(2 * c))
+    return m
+
+
+def _resnet_tail(ngf, output_nc, norm, use_bias, blur=False):
+    """Two upsampling steps: a stride-2 transposed conv, norm, ReLU, or
+    (`blur`) a BlurUpsample, a stride-1 conv, norm, ReLU; then pad, 7x7
+    conv, tanh."""
+    m = []
+    for i in range(2):
+        c = ngf * 2 ** (2 - i)
+        if blur:
+            m += [BlurUpsample(c), Conv(c, c // 2, 3, stride=1, padding=1,
+                                        use_bias=use_bias)]
+        else:
+            m.append(ConvTranspose(c, c // 2, 3, stride=2, padding=1,
+                                   output_padding=1, use_bias=use_bias))
+        m += [norm(c // 2), nn.ReLU()]
+    return m + [Pad(3, "reflect"), Conv(ngf, output_nc, 7), nn.Tanh()]
+
+
+class ResnetEncoder(nn.Module):
+    """The downsampling half and `n_blocks` blocks (p2p_networks.py:
+    402-472): (N, H, W, input_nc) -> (N, ceil(H/4), ceil(W/4), 4 ngf).
+    `no_antialias` is taken and unused, as in the JAX package."""
+
+    def __init__(self, input_nc=3, output_nc=3, ngf=64, norm_type="instance",
+                 use_dropout=False, n_blocks=6, padding_type="reflect",
+                 no_antialias=True):
+        super().__init__()
+        norm, use_bias = make_norm(norm_type)
+        self.model = nn.Sequential(*_resnet_head(input_nc, ngf, norm,
+                                                 use_bias), *[
+            ResnetBlock(ngf * 4, padding_type, norm_type, use_dropout,
+                        use_bias) for _ in range(n_blocks)])
+        self.meta = {"in_channels": input_nc, "out_channels": ngf * 4}
+
+    def forward(self, x):
+        return self.model(x)
+
+
+class ResnetDecoder(nn.Module):
+    """`n_blocks` blocks and the upsampling half (p2p_networks.py:341-398):
+    (N, h, w, 4 ngf) -> (N, 4h, 4w, output_nc) in (-1, 1)."""
+
+    def __init__(self, input_nc=3, output_nc=3, ngf=64, norm_type="instance",
+                 use_dropout=False, n_blocks=6, padding_type="reflect",
+                 no_antialias=True):
+        super().__init__()
+        norm, use_bias = make_norm(norm_type)
+        self.model = nn.Sequential(*[
+            ResnetBlock(ngf * 4, padding_type, norm_type, use_dropout,
+                        use_bias) for _ in range(n_blocks)],
+            *_resnet_tail(ngf, output_nc, norm, use_bias))
+        self.meta = {"in_channels": ngf * 4, "out_channels": output_nc}
+
+    def forward(self, x):
+        return self.model(x)
+
+
+class UnetSkipBlock(nn.Module):
+    """pix2pix's UnetSkipConnectionBlock (p2p_networks.py:168-239): down
+    (LeakyReLU 0.2, 4x4 stride-2 conv, norm), the inner block, up (ReLU,
+    4x4 stride-2 transposed conv, norm, dropout), and the block's input
+    concatenated before its output on the channels; the outermost block
+    ends in tanh and concatenates nothing. The skip is the input as the
+    block received it (the JAX package's form)."""
+
+    def __init__(self, outer_nc, inner_nc, input_nc=None, submodule=None,
+                 outermost=False, innermost=False, norm_type="batch",
+                 use_dropout=False, generator=None):
+        super().__init__()
+        norm, use_bias = make_norm(norm_type)
+        input_nc = outer_nc if input_nc is None else input_nc
+        down = Conv(input_nc, inner_nc, 4, stride=2, padding=1,
+                    use_bias=use_bias)
+        if outermost:
+            m = [down, submodule, nn.ReLU(),
+                 ConvTranspose(inner_nc * 2, outer_nc, 4, stride=2,
+                               padding=1, output_padding=0), nn.Tanh()]
+        elif innermost:
+            m = [nn.LeakyReLU(0.2), down, nn.ReLU(),
+                 ConvTranspose(inner_nc, outer_nc, 4, stride=2, padding=1,
+                               output_padding=0, use_bias=use_bias),
+                 norm(outer_nc)]
+        else:
+            m = [nn.LeakyReLU(0.2), down, norm(inner_nc), submodule,
+                 nn.ReLU(), ConvTranspose(inner_nc * 2, outer_nc, 4,
+                                          stride=2, padding=1,
+                                          output_padding=0,
+                                          use_bias=use_bias),
+                 norm(outer_nc)]
+            if use_dropout:
+                m.append(Dropout(0.5, generator))
+        self.outermost = outermost
+        self.model = nn.Sequential(*m)
+
+    def forward(self, x):
+        if self.outermost:
+            return self.model(x)
+        return torch.cat([x, self.model(x)], -1)
+
+
+class UnetGenerator(nn.Module):
+    """pix2pix's U-Net generator (p2p_networks.py:133-165), `num_downs`
+    stride-2 levels: (N, H, W, input_nc) -> (N, H, W, output_nc) in (-1, 1)
+    for H and W divisible by 2**num_downs (`unet_256`: num_downs 8)."""
+
+    def __init__(self, input_nc=3, output_nc=3, num_downs=8, ngf=64,
+                 norm_type="batch", use_dropout=False):
+        super().__init__()
+        self.generator = torch.Generator().manual_seed(0)
+        kw = {"norm_type": norm_type, "generator": self.generator}
+        block = UnetSkipBlock(ngf * 8, ngf * 8, innermost=True, **kw)
+        for _ in range(num_downs - 5):
+            block = UnetSkipBlock(ngf * 8, ngf * 8, submodule=block,
+                                  use_dropout=use_dropout, **kw)
+        for outer in (4, 2, 1):
+            block = UnetSkipBlock(ngf * outer, ngf * outer * 2,
+                                  submodule=block, **kw)
+        self.model = UnetSkipBlock(output_nc, ngf, input_nc=input_nc,
+                                   submodule=block, outermost=True, **kw)
+        self.meta = {"in_channels": input_nc, "out_channels": output_nc}
+
+    def forward(self, x):
+        return self.model(x)

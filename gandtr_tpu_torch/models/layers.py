@@ -7,11 +7,17 @@ conv) and a reference `.pth` loads as it is. The JAX package's
 `ops/fastconv.py` rewrites are TPU-MXU reformulations of the same convs and
 map to plain `F.conv2d` here.
 
+The blur-pool layers (`BlurDownsample`, `BlurUpsample`, the reference's
+Downsample / Upsample) keep their binomial filter as the reference's
+`filt` buffer. `Dropout` draws its masks from an explicit
+`torch.Generator`.
+
 dtype rules follow jnp's: a conv computes in promote(x, weight), so a bf16
 activation after a float32 BatchNorm stays float32 through every later
 conv, as in the JAX package (layers.py:57-59); a transposed conv computes in
 the input's dtype; biases are added after the conv, in its dtype.
 """
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,25 +35,41 @@ def tensor_key(t):
     return t.data_ptr(), (-1 if t.is_inference() else t._version)
 
 
-def _reflect_cat(x, pad, dim):
-    """Reflect-pad one axis by concatenating flipped slices."""
+def _reflect_cat(x, lo, hi, dim):
+    """Reflect-pad one axis by `lo` and `hi` with flipped slices."""
     n = x.shape[dim]
-    return torch.cat([x.narrow(dim, 1, pad).flip(dim), x,
-                      x.narrow(dim, n - 1 - pad, pad).flip(dim)], dim)
+    return torch.cat([x.narrow(dim, 1, lo).flip(dim), x,
+                      x.narrow(dim, n - 1 - hi, hi).flip(dim)], dim)
+
+
+def _replicate_cat(x, lo, hi, dim):
+    """Replicate-pad one axis by `lo` and `hi` with the edge slices."""
+    n = x.shape[dim]
+
+    def edge(i, k):
+        size = list(x.shape)
+        size[dim] = k
+        return x.narrow(dim, i, 1).expand(size)
+    return torch.cat([edge(0, lo), x, edge(n - 1, hi)], dim)
 
 
 def pad2d(x, pad, mode="zero"):
-    """Pad both spatial dims of an NHWC tensor by `pad` on each side.
-    Returns an NHWC-contiguous tensor.
+    """Pad the spatial dims of an NHWC tensor: `pad` is an int for every
+    side or (top, bottom, left, right). Returns an NHWC-contiguous tensor.
 
-    A reflect pad is built from flipped slices: its backward then sums a
-    border pixel's two gradients in a fixed order, where the CUDA backward
-    of `F.pad(mode="reflect")` adds them with atomics, in any order."""
+    Reflect and replicate pads are built from slices: their backward then
+    sums a border pixel's gradients in a fixed order, where the CUDA
+    backwards of `F.pad(mode="reflect" / "replicate")` add them with
+    atomics, in any order."""
     if mode not in _PAD_MODES:
         raise NotImplementedError("pad mode %s" % mode)
-    if _PAD_MODES[mode] == "reflect":
-        return _reflect_cat(_reflect_cat(x, pad, 1), pad, 2)
-    y = F.pad(x.permute(0, 3, 1, 2), (pad,) * 4, mode=_PAD_MODES[mode])
+    t, b, l, r = (pad,) * 4 if isinstance(pad, int) else pad
+    kind = _PAD_MODES[mode]
+    if kind == "reflect":
+        return _reflect_cat(_reflect_cat(x, t, b, 1), l, r, 2)
+    if kind == "replicate":
+        return _replicate_cat(_replicate_cat(x, t, b, 1), l, r, 2)
+    y = F.pad(x.permute(0, 3, 1, 2), (l, r, t, b))
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -163,3 +185,103 @@ def make_norm(norm_type):
         return lambda c: nn.Identity(), True
     raise NotImplementedError("normalization layer [%s] is not found"
                               % norm_type)
+
+
+def binomial_filter(size):
+    """The normalized 2-D binomial filter of the blur-pool layers
+    (`size` 1 to 7), float32, as the JAX package's `_binomial_filter`."""
+    a = {1: [1.0], 2: [1.0, 1.0], 3: [1.0, 2.0, 1.0],
+         4: [1.0, 3.0, 3.0, 1.0], 5: [1.0, 4.0, 6.0, 4.0, 1.0],
+         6: [1.0, 5.0, 10.0, 10.0, 5.0, 1.0],
+         7: [1.0, 6.0, 15.0, 20.0, 15.0, 6.0, 1.0]}[size]
+    f = np.outer(a, a)
+    return (f / f.sum()).astype(np.float32)
+
+
+class _Blur(nn.Module):
+    """A depthwise binomial filter kept as the reference's `filt` buffer,
+    (C, 1, k, k). The filter is a constant: a state without it (the JAX
+    package's variables carry none) loads and keeps it."""
+
+    def __init__(self, channels, filt_size, scale=1.0):
+        super().__init__()
+        self.channels, self.filt_size = channels, filt_size
+        f = torch.from_numpy(binomial_filter(filt_size)) * scale
+        self.register_buffer("filt", f[None, None].repeat(channels, 1, 1, 1))
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        super()._load_from_state_dict(state_dict, prefix, local_metadata,
+                                      strict, missing_keys, unexpected_keys,
+                                      error_msgs)
+        if prefix + "filt" in missing_keys:
+            missing_keys.remove(prefix + "filt")
+
+
+class BlurDownsample(_Blur):
+    """Antialiased downsampling (the reference's Downsample,
+    p2p_networks.py:72-96): a reflect pad, then the binomial blur with
+    stride, one filter a channel. The filter is taken in the input's dtype
+    (exact in bf16: its entries are small dyadic fractions). NHWC."""
+
+    def __init__(self, channels, filt_size=3, stride=2, pad_type="reflect",
+                 pad_off=0):
+        super().__init__(channels, filt_size)
+        self.stride, self.pad_type, self.pad_off = stride, pad_type, pad_off
+        lo, hi = (filt_size - 1) // 2, int(np.ceil((filt_size - 1) / 2.0))
+        self.pad = (lo + pad_off, hi + pad_off, lo + pad_off, hi + pad_off)
+
+    def forward(self, x):
+        s = self.stride
+        if self.filt_size == 1:
+            if self.pad_off:
+                x = pad2d(x, self.pad, self.pad_type)
+            return x[:, ::s, ::s, :]
+        x = pad2d(x, self.pad, self.pad_type)
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.filt.to(x.dtype),
+                     stride=s, groups=x.shape[-1])
+        return y.permute(0, 2, 3, 1)
+
+
+class BlurUpsample(_Blur):
+    """Antialiased upsampling (the reference's Upsample,
+    p2p_networks.py:107-130): a replicate pad of 1, a depthwise transposed
+    convolution with the binomial filter times stride², one row and column
+    cut at the start, and at the end too for an even filter. NHWC."""
+
+    def __init__(self, channels, filt_size=4, stride=2, pad_type="repl"):
+        super().__init__(channels, filt_size, scale=float(stride ** 2))
+        self.stride, self.pad_type = stride, pad_type
+
+    def forward(self, x):
+        x = pad2d(x, 1, self.pad_type)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.filt.to(x.dtype),
+                               stride=self.stride,
+                               padding=1 + (self.filt_size - 1) // 2,
+                               groups=x.shape[-1])[:, :, 1:, 1:]
+        if self.filt_size % 2 == 0:
+            y = y[:, :, :-1, :-1]
+        return y.permute(0, 2, 3, 1)
+
+
+class Dropout(nn.Module):
+    """Dropout (zero with probability p, scale the rest by 1 / (1 - p)) in
+    `.train()`, its mask drawn from the explicit `torch.Generator` set as
+    `generator` (on its own device; the mask then moves to the input's),
+    so a seeded run draws the same masks on any device. The identity in
+    `.eval()`."""
+
+    def __init__(self, p=0.5, generator=None):
+        super().__init__()
+        self.p, self.generator = p, generator
+
+    def forward(self, x):
+        if not self.training or self.p == 0:
+            return x
+        if self.generator is None:
+            raise ValueError("dropout in training draws from an explicit "
+                             "torch.Generator: set the module's `generator`")
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=self.generator.device) >= self.p
+        return x * keep.to(x.device, x.dtype) / (1.0 - self.p)

@@ -12,6 +12,10 @@ coordinates. Its backward is two matrix products too, so it sums in a
 fixed order on the card, where the CUDA backward of `F.interpolate` adds
 with atomics.
 
+`nearest_resize` is torch's `F.interpolate(mode="nearest")` to a given
+size with the JAX package's float32 source index (floor(dst * in / out)),
+a gather.
+
 `dynamic_bilinear_resize_u8` is the device half of the GAN train chain's
 scalecrop (`device_scalecrop`): a per-image resize of padded uint8 crops.
 """
@@ -25,13 +29,15 @@ from gandtr_tpu_torch.ops.maskprop import MaskState
 _MATRICES = {}
 
 
-def _interp_matrix(out_n, in_n, device):
+def _interp_matrix(out_n, in_n, device, scale=None):
     """(out_n, in_n) float32 matrix of the JAX package's `_source_coords`
-    (float32 source coordinates, clamped at both ends)."""
-    key = (out_n, in_n, str(device))
+    (float32 source coordinates, clamped at both ends): a source step of
+    in / out, or 1 / scale where `scale` is given."""
+    key = (out_n, in_n, str(device), scale)
     if key not in _MATRICES:
+        step = in_n / out_n if scale is None else 1.0 / scale
         src = (np.arange(out_n, dtype=np.float32) + np.float32(0.5)) \
-            * np.float32(in_n / out_n) - np.float32(0.5)
+            * np.float32(step) - np.float32(0.5)
         src = np.clip(src, np.float32(0.0), None)
         i0 = np.clip(np.floor(src).astype(np.int64), 0, in_n - 1)
         i1 = np.clip(i0 + 1, 0, in_n - 1)
@@ -44,17 +50,35 @@ def _interp_matrix(out_n, in_n, device):
     return _MATRICES[key]
 
 
-def bilinear_resize(x, out_h, out_w):
+def bilinear_resize(x, out_h, out_w, scale=None):
     """x: (N, H, W, C) float -> (N, out_h, out_w, C), torch-bilinear
-    semantics; the identity where the size does not change."""
+    semantics; the identity where the size does not change. Give `scale`
+    to mimic `F.interpolate(scale_factor=scale)`, whose coordinates step
+    by 1 / scale, not in / out."""
     N, H, W, C = x.shape
-    if (H, W) == (out_h, out_w):
+    if (H, W) == (out_h, out_w) and scale in (None, 1, 1.0):
         return x
-    ah = _interp_matrix(out_h, H, x.device).to(x.dtype)
-    aw = _interp_matrix(out_w, W, x.device).to(x.dtype)
+    ah = _interp_matrix(out_h, H, x.device, scale).to(x.dtype)
+    aw = _interp_matrix(out_w, W, x.device, scale).to(x.dtype)
     y = torch.matmul(ah, x.permute(0, 3, 1, 2))       # (N, C, out_h, W)
     y = torch.matmul(y, aw.T)                          # (N, C, out_h, out_w)
     return y.permute(0, 2, 3, 1)
+
+
+def nearest_resize(x, out_h, out_w):
+    """x: (N, H, W, C) -> (N, out_h, out_w, C), torch's nearest: source
+    index floorf(dst * float32(in / out)), in float32 as torch computes it
+    (an exact integer floor differs where the product rounds across an
+    integer)."""
+    N, H, W, C = x.shape
+
+    def src(out_n, in_n):
+        step = np.float32(in_n) / np.float32(out_n)
+        idx = np.floor(np.arange(out_n, dtype=np.float32) * step)
+        return torch.from_numpy(np.clip(idx.astype(np.int64), 0,
+                                        in_n - 1)).to(x.device)
+
+    return x[:, src(out_h, H)][:, :, src(out_w, W)]
 
 
 def dynamic_bilinear_resize_u8(imgs_u8, hws, out_h, out_w):

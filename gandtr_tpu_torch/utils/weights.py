@@ -13,6 +13,14 @@ GeM nets (models/retrieval.py):
     whiten|lwhiten/kernel (in, out)                 -> whiten|lwhiten.weight (out, in)
     whiten|lwhiten/bias                             -> whiten|lwhiten.bias
 
+with `regional` (cirtorch's Rpool) and the preprocessing net
+(cirnet_inchan, whose JAX net nests under `net/`):
+
+    gem_p (1,), regional                            -> pool.rpool.p
+    rwhiten/kernel (in, out), rwhiten/bias          -> pool.whiten.weight (out, in), pool.whiten.bias
+    net/<path>                                      -> as <path> above
+    preprocessing/p, preprocessing/tau              -> preprocessing.p, preprocessing.tau
+
 and the ResNet backbones, torchvision's layout (`features.0` conv1,
 `features.1` bn1, `features.<3+l>` layer<l>), with BatchNorm as below:
 
@@ -32,6 +40,18 @@ wrapper level dropped:
 
 and each BatchNorm gets `num_batches_tracked` = 0, which torch's state has
 and JAX's has not, so the result loads with `strict=True`.
+
+The ResNet encoder and decoder, the blur-pool generator and the U-Nets of
+models/unet.py take the same rule (`skip_0/down/conv/kernel` ->
+`skip.0.down.weight`); the blur filters are constants that JAX keeps no
+variable of, and the port's blur layers keep theirs when a state lacks
+them. pix2pix's U-Net generator (`inner`, `mid_<i>`, `up4`, `up2`, `up1`,
+`outer`, each with `downconv`, `downnorm`, `upconv`, `upnorm`) takes its
+nested torch names: block d from the outside is under `model.model.` +
+`1.model.` (d >= 1) + `3.model.` x (d - 1), its layers at their
+Sequential indices (outermost: downconv 0, upconv 3; innermost: downconv
+1, upconv 3, upnorm 4; the others: downconv 1, downnorm 2, upconv 5,
+upnorm 6).
 
 Discriminators follow the same rule (`model_<i>` -> `model.<i>`, and
 `d/model_<i>` -> `d.model.<i>` in the patch discriminator). HED
@@ -78,9 +98,15 @@ def _walk(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _retrieval_key(path):
+def _retrieval_key(path, regional=False):
+    if path[0] == "net":          # the preprocessing net's inner net
+        path = path[1:]
     if path == ("gem_p",):
-        return "pool.p"
+        return "pool.rpool.p" if regional else "pool.p"
+    if path[0] == "preprocessing":
+        return "preprocessing.%s" % path[-1]
+    if path[0] == "rwhiten":
+        return "pool.whiten.%s" % _LEAF[path[-1]]
     head = path[1] if path[0] == "backbone" else path[0]
     if head.startswith("features_"):
         return "features.%s.%s" % (head.split("_")[1], _LEAF[path[-1]])
@@ -136,9 +162,37 @@ def patchsample_key_map(path):
                              {"kernel": "weight", "bias": "bias"}[path[-1]])
 
 
+_UNET_LAYERS = {"outer": {"downconv": 0, "upconv": 3},
+                "inner": {"downconv": 1, "upconv": 3, "upnorm": 4},
+                None: {"downconv": 1, "downnorm": 2, "upconv": 5,
+                       "upnorm": 6}}
+
+
+def _unet_generator_key_map(params):
+    """pix2pix's nested names for a JAX UnetGenerator tree."""
+    n_mid = sum(1 for k in params if k.startswith("mid_"))
+    chain = (["outer", "up1", "up2", "up4"]
+             + ["mid_%d" % i for i in reversed(range(n_mid))] + ["inner"])
+    depth = {name: d for d, name in enumerate(chain)}
+
+    def key(path):
+        block, layer = path[0], path[1]
+        d = depth[block]
+        prefix = "model.model." + ("1.model." if d else "") \
+            + "3.model." * max(d - 1, 0)
+        j = _UNET_LAYERS.get(block if block in ("outer", "inner")
+                             else None)[layer]
+        return "%s%d.%s" % (prefix, j, _LEAF[path[-1]])
+    return key
+
+
 def _key_map(params):
-    """The naming rule of a JAX params tree: HED's, RCF's, PatchSampleF's
-    or the generic one."""
+    """The naming rule of a JAX params tree: HED's, RCF's, PatchSampleF's,
+    the U-Net generator's, the retrieval nets' or the generic one."""
+    if "outer" in params and "inner" in params:
+        return _unet_generator_key_map(params)
+    if "rwhiten" in params or "rwhiten" in params.get("net", {}):
+        return lambda path: _retrieval_key(path, regional=True)
     if "fusion" in params and any(re.match(r"vgg\d_\d+$", k)
                                   for k in params):
         return hed_key_map

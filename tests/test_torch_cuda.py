@@ -725,3 +725,81 @@ def test_exact_topk_ties_on_card(cuda):
     for qi, row in zip(q, (3, 17, 250)):
         names = [int(n) for n, _ in index.query(qi, k=70)[0]]
         assert names == [row + 300 * r for r in range(70)]
+
+
+@pytest.mark.parametrize("kind", ["down", "up"])
+def test_blur_backward_is_deterministic(cuda, kind):
+    """The blur-pool layers' backward (a depthwise conv and a depthwise
+    transposed conv on the edge-slice pads) gives the same input gradient
+    bit for bit on repeat, and the CPU's within 1e-5: a blur-pool GAN
+    resumes bit for bit."""
+    from gandtr_tpu_torch.device import set_float32_policy
+    from gandtr_tpu_torch.models.layers import BlurDownsample, BlurUpsample
+    set_float32_policy()
+    C = 64
+    m = (BlurDownsample(C) if kind == "down" else BlurUpsample(C))
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        4, 64, 48, C).astype(np.float32))
+    g = torch.from_numpy(np.random.RandomState(1).randn(
+        *m(x).shape).astype(np.float32))
+    grads = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        xx = x.to(dev).requires_grad_(True)
+        m.to(dev)(xx).backward(g.to(dev))
+        grads.append(xx.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert float((grads[0] - grads[2]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("cfg", [
+    {"architecture": "official_resnet_generator", "ngf": 16, "n_blocks": 2,
+     "no_antialias": False, "no_antialias_up": False,
+     "norm_layer": "instance"},
+    {"architecture": "official_unet_generator", "ngf": 8, "num_downs": 6,
+     "norm_layer": "batch"}], ids=["blur_resnet", "unet"])
+def test_generator_training_backward_is_deterministic(cuda, cfg):
+    """The blur-pool generator and the U-Net in training mode: forward and
+    every parameter gradient bit for bit on repeat on the card, the
+    forward within 1e-4 of the CPU's."""
+    from gandtr_tpu_torch.device import set_float32_policy
+    from gandtr_tpu_torch.models import initialize_model
+    from gandtr_tpu_torch.models.init import initialize_weights
+    set_float32_policy()
+    net = initialize_weights(initialize_model(dict(cfg)), "kaiming_p2p", 0)
+    x = torch.from_numpy(np.random.RandomState(2).uniform(
+        -1, 1, (2, 64, 64, 3)).astype(np.float32))
+    runs = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        net.to(dev).train().zero_grad(set_to_none=True)
+        y = net(x.to(dev))
+        y.square().mean().backward()
+        runs.append((y.detach().cpu(),
+                     [p.grad.cpu() for p in net.parameters()]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert float((runs[0][0] - runs[2][0]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("model", [
+    {"architecture": "cirnet", "cir_architecture": "vgg16",
+     "pooling": "gem", "regional": True},
+    {"architecture": "cirnet", "cir_architecture": "vgg16",
+     "pooling": {"type": "GeometricMedianWeiszfeld", "iterations": 3}},
+    {"architecture": "cirnet_attention", "cir_architecture": "vgg16"},
+    {"architecture": "cirnet_inchan", "cir_architecture": "vgg16",
+     "inputs": {"preprocessing": {"type": "edgefilter"}}}],
+    ids=["regional", "geometric_median", "attention", "edge_filter"])
+def test_descriptor_nets_on_the_card(cuda, model):
+    """The regional, geometric-median, attention and edge-filter nets
+    (seeded VGG16) on the card within 1e-5 of the CPU at 224x160."""
+    from gandtr_tpu_torch.device import set_float32_policy
+    from gandtr_tpu_torch.hub import _init_random
+    from gandtr_tpu_torch.models import initialize_model
+    set_float32_policy()
+    net = _init_random(initialize_model(dict(model)), 3).eval()
+    x = torch.from_numpy(np.random.RandomState(4).randn(
+        2, 224, 160, 3).astype(np.float32))
+    with torch.no_grad():
+        want = net(x)
+        got = net.to(cuda)(x.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-5

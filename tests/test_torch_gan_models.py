@@ -253,8 +253,15 @@ def test_pretrained_null_keeps_the_weights():
 
 @pytest.mark.parametrize("name", ["nlayer", "patch"])
 def test_antialiased_discriminator_is_refused(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        initialize_model({**MODELS[name], "no_antialias": False})
+    """No longer refused: the blur-pool discriminator builds, each
+    stride-2 step a stride-1 conv and a BlurDownsample of `model`
+    (tests/test_torch_architectures.py holds it to JAX's)."""
+    from gandtr_tpu_torch.models.layers import BlurDownsample
+    net = initialize_model({**MODELS[name], "no_antialias": False})
+    seq = (net.d if name == "patch" else net).model
+    blurs = [i for i, m in enumerate(seq) if isinstance(m, BlurDownsample)]
+    assert blurs == ([2, 6] if name == "patch" else [2, 6, 10])
+    assert all(seq[i - 1].__class__.__name__ == "LeakyReLU" for i in blurs)
 
 
 @pytest.mark.parametrize("size", [(32, 32), (256, 192), (40, 56), (7, 5)])

@@ -208,7 +208,22 @@ def _cfg_with(tmp_path, path, value):
       "loss"), "bce", "'bce' is not implemented by the hedngan step"),
 ])
 def test_build_refuses_what_is_not_ported(tmp_path, path, value, match):
+    """The blur-pool and U-Net members, once refused, are ported: the
+    blur-pool cases now build, with the blur steps the config names; the
+    U-Net takes none of the ResNet generator's keys (`no_antialias`, ...)
+    and raises TypeError on them, as the JAX package's does."""
     cfg = _cfg_with(tmp_path, path, value)
+    if "blur-pool" in match:
+        exp = build_gan_experiment(cfg, device="cpu")
+        module = exp["models"][path[1]].module
+        kinds = {type(m).__name__ for m in module.modules()}
+        assert ("BlurUpsample" if path[-1] == "no_antialias_up"
+                else "BlurDownsample") in kinds
+        return
+    if value == "official_p2p_unet_generator":
+        with pytest.raises(TypeError, match="no_antialias"):
+            build_gan_experiment(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=match):
         build_gan_experiment(cfg, device="cpu")
 

@@ -2,7 +2,7 @@
 a descriptor checkpoint's own data params (`network_params.runtime.data`)
 drive the transform, `net.data_params` and a Servable built from the model
 (ported from tests/test_hub_pretrained_fixture.py), and `cirnet` refuses
-`regional: true`, which the port does not build yet."""
+`regional: true`."""
 import numpy as np
 import pytest
 import torch
@@ -88,9 +88,16 @@ def test_data_params_helper_matches_jax(data):
 
 
 def test_cirnet_refuses_regional():
+    """`regional: true` builds cirtorch's Rpool (`pool.rpool.p`,
+    `pool.whiten`) and refuses a padded-bucket mask, as the JAX net
+    does; the meta reports the flag."""
     cfg = {"architecture": "cirnet", "cir_architecture": "vgg16",
            "pooling": "gem", "local_whitening": False, "whitening": False}
-    with pytest.raises(NotImplementedError, match="regional"):
-        initialize_model({**cfg, "regional": True})
+    net = initialize_model({**cfg, "regional": True})
+    assert net.meta["regional"] is True
+    assert {"pool.rpool.p", "pool.whiten.weight", "pool.whiten.bias"} <= \
+        set(net.state_dict())
+    with pytest.raises(ValueError, match="regional"):
+        net.pool(torch.ones(1, 4, 4, 512), mask=torch.ones(1, 4, 4))
     net = initialize_model({**cfg, "regional": False})
     assert net.meta["regional"] is False

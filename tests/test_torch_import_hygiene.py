@@ -31,7 +31,7 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "models.patchsample", "ops.library", "serving.index",
           "serving.pq", "scenarios.index_stage", "scenarios.export_stage",
           "utils.file_readers", "learning.teacher_cache",
-          "learning.tensorboard")
+          "learning.tensorboard", "models.unet", "models.extra_layers")
 
 torch.set_num_threads(1)
 

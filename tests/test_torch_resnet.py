@@ -267,8 +267,12 @@ def test_multiscale_msp_on_resnet_equals_jax(pooling):
 
 
 def test_regional_is_refused():
-    with pytest.raises(NotImplementedError, match="regional"):
-        initialize_model(dict(MODEL, regional=True))
+    """A regional ResNet net builds (Rpool over GeM, a 2048-d regional
+    whitening) and is refused in the padded-bucket (masked) mode only."""
+    net = initialize_model(dict(MODEL, regional=True))
+    assert tuple(net.pool.whiten.weight.shape) == (2048, 2048)
+    with pytest.raises(ValueError, match="regional"):
+        net.pool(torch.ones(1, 3, 3, 2048), mask=torch.ones(1, 3, 3))
 
 
 # ---- weights, both ways
