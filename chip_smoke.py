@@ -285,7 +285,40 @@
    cirnet_inchan embed: K2 10 and K4 5 times a step, the edge filter's p
    and tau moved, the loss within 1% and descriptors within 5e-3 of the
    plain-kernel step. Prints the phase's seconds.
-17. Stage breakdowns of one batch of each served path, the `{"kernels":
+17. The data side (`run_data_side`), at full width with seeded weights
+   and seeded photos in a temp dir set as $GANDTR_ROOT, each part with
+   every launch count set to 0 just before it and read just after:
+   (a) eval.yml's validate stage with `pil2np | apply_clahe:1.0:8:<space>
+   | totensor | normalize` for luv, lsh and hsv on (8)'s seeded set,
+   bucketed (K4) and exact (K1): (8)'s checks (one launch a photo,
+   bucketed within 1e-4 of exact), 2 photos within 1e-4 of the CPU port,
+   every K1 and K4 call of the counted runs bit-equal to its plain
+   version, images/s a space and mode; (b) finetune.yml's tuple step
+   (T=5, S=7, 364², bf16) with `clahepost:...:1.0:8:luv`: K2 10 and K4 5
+   a step over 4 steps, each K4 call bit-equal to its plain version, the
+   4 steps with plain K2 and K4 from the same weights within 1% (loss)
+   and 5e-3 (descriptors); (c) train_hedngan.yml through the train stage
+   on PregeneratedImageTuple (idx 0_1, 40 rows of 3 seeded 448x512
+   JPEGs), `centerscalecrop:256_256:0.6`, batch 10 unshuffled, 2 epochs,
+   with and without `cache_teacher_targets`: epoch 1 all misses, epoch 2
+   all hits, the runs bit-equal, no launch; hit and miss ms, the busy
+   share; (d) train_cyclegan.yml through the train stage on
+   RandomImageTuple (idx 0_any, 4 rows) with `mirror | random_crop:256 | gaussian_noise:0.01 |
+   tospace:luv`, 2 epochs; then the infer stage's image output of its
+   generator_X with `tospace:luv` (the sink undoes luv) and
+   `reflectpad_divisible:4` on photos with no side a multiple of 4: PNGs
+   of the inputs' shapes; every photo's outputs the sink took within
+   twice the CPU float32's distance from float64 (12's rule); the PNGs
+   off the CPU port's on at most 0.1% of values, and by more than a level
+   only where the undo is that ill-conditioned (the levels the sink
+   writes about the float64 output, within the card's and the CPU's
+   largest output difference, span as much); `device_postprocess: true`
+   (plain RGB), for the trained generator and for seeded He-normal
+   weights whose outputs do not sit on levels, within a level of the
+   host sink, and only at float32 / float64 truncation ties (the float64
+   value within 1e-4 of a level); no launch in the training or the
+   output. Prints each part and the phase's seconds.
+18. Stage breakdowns of one batch of each served path, the `{"kernels":
    [...]}` line (each kernel with its launches by path, K1 and K4 with
    their times at the eval's geometry and the r101 inputs), the card's
    line again, and last `{"ok": true, "device": {...}}`.
@@ -2913,37 +2946,40 @@ GAN_SHAPES = [(272, 362), (362, 272), (362, 362), (300, 362), (362, 300),
 GAN_VAL_SHAPES = [(480, 640), (640, 480), (600, 800), (362, 362)]
 
 
+def _photo(rs, h, w, dark=False):
+    """A seeded photo of smooth noise (so edge maps are not flat), darkened
+    for the night domain."""
+    from PIL import Image
+    small = rs.randint(0, 256, (h // 8 + 1, w // 8 + 1, 3), np.uint8)
+    img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+    arr = np.asarray(img).astype(np.float32)
+    arr += rs.randint(-20, 21, arr.shape)
+    if dark:
+        arr *= 0.35
+    return Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+
+
 def make_domain_set(root, seed=0):
     """GAN_DOMAIN seeded JPEGs a domain (smooth noise, so the edge maps
     are not flat) in <root>/ims with their list files, and 4 validation
     photos in <root>/val. Returns the two list paths."""
-    from PIL import Image
     rs = np.random.RandomState(seed)
     ims, val = os.path.join(root, "ims"), os.path.join(root, "val")
     os.makedirs(ims)
     os.makedirs(val)
-
-    def photo(h, w, dark):
-        small = rs.randint(0, 256, (h // 8 + 1, w // 8 + 1, 3), np.uint8)
-        img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
-        arr = np.asarray(img).astype(np.float32)
-        arr += rs.randint(-20, 21, arr.shape)
-        if dark:
-            arr *= 0.35
-        return Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
-
     lists = []
     for d, dark in (("day", False), ("night", True)):
         names = []
         for i in range(GAN_DOMAIN):
             h, w = GAN_SHAPES[i % len(GAN_SHAPES)]
             names.append("%s_%02d.jpg" % (d, i))
-            photo(h, w, dark).save(os.path.join(ims, names[-1]), quality=90)
+            _photo(rs, h, w, dark).save(os.path.join(ims, names[-1]),
+                                        quality=90)
         lists.append(os.path.join(root, "train_%s.txt" % d))
         with open(lists[-1], "w") as f:
             f.write("\n".join(names) + "\n")
     for i, (h, w) in enumerate(GAN_VAL_SHAPES):
-        photo(h, w, False).save(os.path.join(val, "val_%d.jpg" % i))
+        _photo(rs, h, w).save(os.path.join(val, "val_%d.jpg" % i))
     return lists
 
 
@@ -6128,6 +6164,520 @@ def run_architectures(dev):
     return out
 
 
+# ---- the data side: other colorspaces, the tuple datasets, image sinks
+
+DATA_SPACES = ("luv", "lsh", "hsv")
+DATA_FT_STEPS = 4        # fine-tune steps with the kernels, then plain
+DATA_TUPLES = 40         # rows of the HED^N-GAN tuple pickle (3 photos each)
+DATA_TUPLE_HW = (448, 512)    # over ceil(256 / 0.6) = 427 a side
+DATA_CG_TUPLES = 4       # CycleGAN rows (one epoch)
+DATA_CG_HW = (288, 352)
+DATA_OUT_SHAPES = [(250, 333), (301, 226), (250, 333), (198, 402)]
+DATA_TIE = 1e-4          # a truncation tie: float64 value this near a level
+DATA_ON_LEVEL = 1e-2     # most of a generator's values at a tie, for (d)
+DATA_PNG_SHARE = 1e-3    # most of (d)'s PNG values off the CPU port's
+
+
+def _data_eval(dev, root):
+    """(a) eval.yml's validate stage with the descriptor chain `pil2np |
+    apply_clahe:1.0:8:<space> | totensor | normalize` for each of
+    DATA_SPACES, bucketed (K4) and exact (K1), through validate_modes and
+    compare_modes; 2 photos within 1e-4 of the CPU port; every K1 and K4
+    call of the counted runs bit-equal to its plain version."""
+    import pickle
+    from gandtr_tpu_torch.eval import retrieval as R
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.ops.clahe import (clahe_u8_masked_plain,
+                                            clahe_u8_plain)
+    from gandtr_tpu_torch.scenarios import validate_stage
+    db_paths = make_eval_set(root)
+    lw_path = os.path.join(root, "lw.pkl")
+    with open(lw_path, "wb") as f:
+        pickle.dump(seeded_lw(), f)
+    n_img = EVAL_DB + EVAL_Q
+    out, total = {}, dict.fromkeys(("K1", "K2", "K3", "K4"), 0)
+    for space in DATA_SPACES:
+        chain = "pil2np | apply_clahe:1.0:8:%s | totensor | normalize" % space
+
+        def params_for(bucket):
+            params = eval_params(root, lw_path, bucket)
+            params["data"]["transforms"] = chain
+            return params
+
+        calls = {"K4": [], "K1": []}
+        modes = validate_modes(dev, params_for, n_img, 512, calls,
+                               label="data_side eval %s" % space)
+        d_be = compare_modes(modes, EVAL_Q, label="data_side eval %s" % space)
+        held = {"K1": _hold_clahe(calls["K1"], kclahe.clahe_u8_cuda,
+                                  clahe_u8_plain),
+                "K4": _hold_clahe(calls["K4"], kmasked.clahe_u8_masked_cuda,
+                                  clahe_u8_masked_plain)}
+        torch.set_num_threads(os.cpu_count() or 1)
+        cpu = validate_stage.build_eval(params_for(64), torch.device("cpu"))
+        cpu_vecs = R.extract_vectors(cpu["extractor"], db_paths[:2], 1024,
+                                     cpu["transform"])
+        d_cpu = float(np.abs(cpu_vecs - modes["bucketed"]["vecs"][:, :2])
+                      .max())
+        if d_cpu > 1e-4:
+            raise AssertionError("data_side eval %s card vs CPU port: %g"
+                                 % (space, d_cpu))
+        out[space] = {
+            "images_per_s": {m: modes[m]["images_per_s"] for m in modes},
+            "launches": {m: modes[m]["launches"] for m in modes},
+            "bucketed_vs_exact": d_be, "card_vs_cpu": d_cpu,
+            "held_bit_equal": held}
+        for m in modes:
+            for k, v in modes[m]["launches"].items():
+                total[k] += v
+        print("data_side eval %s: %s" % (space, json.dumps(out[space])))
+    out["launches"] = total
+    return out
+
+
+def _data_finetune(dev):
+    """(b) finetune.yml's tuple step (T=5, S=7, 364², bf16 embed) with its
+    augment wrappers' `clahepost:...:1.0:8:luv`: a warm-up step, then
+    DATA_FT_STEPS steps with every launch count set to 0 just before them
+    (K2 10 and K4 5 a step, each K4 call held bit for bit against its
+    plain version), then the same steps from the same weights with K2 and
+    K4 swapped for their plain versions: each step's loss within 1% and
+    tuple 0's descriptors within 5e-3 (_arch_finetune's rule)."""
+    from gandtr_tpu_torch.kernels import clahe_masked as kmasked
+    from gandtr_tpu_torch.ops.clahe import clahe_u8_masked_plain
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
+    cfg = finetune_config()
+    aug = cfg["network"]["augment"]["runtime"]
+    aug["wrappers"] = aug["wrappers"].replace(
+        "clahepost:[[0.5,0.5,0.5],[0.5,0.5,0.5]]:1.0,",
+        "clahepost:[[0.5,0.5,0.5],[0.5,0.5,0.5]]:1.0:8:luv,")
+    if ":8:luv" not in aug["wrappers"]:
+        raise AssertionError("no clahepost in %r" % aug["wrappers"])
+    batch = finetune_batch(dev)
+    res, runs = {}, {}
+    for name in ("kernels", "plain"):
+        restore = _plain_k2_k4() if name == "plain" else (lambda: None)
+        calls = []
+        try:
+            exp = build_finetune_experiment(cfg, device=dev)
+            x, masks = exp["stage"](batch[0], batch[1])
+            desc = _descriptors(exp, x, masks, batch[3])
+            state, _ = exp["step"](exp["state"], *batch)
+            torch.cuda.synchronize()
+            if name == "kernels":
+                put_back = _capped_recording(kmasked, "clahe_u8_masked_cuda",
+                                             calls, cap=DATA_FT_STEPS * FT_T)
+            reset_launches()
+            losses = []
+            t0 = time.perf_counter()
+            for _ in range(DATA_FT_STEPS):
+                state, m = exp["step"](state, *batch)
+                losses.append(m["total"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launches()
+            if name == "kernels":
+                put_back()
+        finally:
+            restore()
+        runs[name] = ([float(v) for v in losses], desc)
+        res[name] = {"ms_per_step": 1e3 * secs / DATA_FT_STEPS,
+                     "losses": runs[name][0], "launches": counts}
+        if name == "kernels":
+            res["k4_calls_held"] = _hold_clahe(
+                calls, kmasked.clahe_u8_masked_cuda, clahe_u8_masked_plain)
+        del exp, state, x, masks
+        torch.cuda.empty_cache()
+    (lk, dk), (lp, dp) = runs["kernels"], runs["plain"]
+    res["plain_loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    res["plain_desc_max"] = float((dk - dp).abs().max())
+    k = res["kernels"]["launches"]
+    if not np.isfinite(lk).all() or k["K2"] != 2 * FT_T * DATA_FT_STEPS \
+            or k["K4"] != FT_T * DATA_FT_STEPS \
+            or res["plain_loss_rel"] > 1e-2 or res["plain_desc_max"] > 5e-3:
+        raise AssertionError("luv clahepost fine-tune: %s" % res)
+    res["launches"] = k
+    return res
+
+
+def make_tuple_pickle(root, rows, hw, seed=0):
+    """`rows` rows of 3 seeded JPEGs of `hw` (day, night, night) under
+    <root>/tuples and their names as a tuple pickle {"train": rows};
+    returns the pickle's path."""
+    import pickle
+    rs = np.random.RandomState(seed)
+    ims = os.path.join(root, "tuples")
+    os.makedirs(ims)
+    names = []
+    for r in range(rows):
+        row = ["t%02d_%d" % (r, c) for c in range(3)]
+        for c, name in enumerate(row):
+            _photo(rs, *hw, dark=c > 0).save(os.path.join(ims, name + ".jpg"),
+                                             quality=90)
+        names.append(row)
+    path = os.path.join(root, "tuples.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"train": names}, f)
+    return path
+
+
+def _tuple_data(cfg, pkl, root, idx, chain, batch, shuffle):
+    """cfg's data.train on the tuple pickle: `idx` of each row."""
+    train = cfg["data"]["train"]
+    train["dataset"] = {"name": "RandomImageTuple" if "any" in idx
+                        else "PregeneratedImageTuple",
+                        "dataset": pkl, "data_key": "train",
+                        "image_dir": os.path.join(root, "tuples"),
+                        "idx": idx}
+    train["transforms"] = chain
+    train["loader"] = {"batch_size": batch, "shuffle": shuffle}
+
+
+def _train_recorded(cfg, dev, per_step=None):
+    """The train stage on `cfg` with the build instrumented
+    (_instrumented_gan_builds, epoch 2 profiled); `per_step(exp)` wraps
+    the loop's step after that. Returns the record."""
+    from gandtr_tpu_torch.scenarios import build
+    from gandtr_tpu_torch.scenarios.train_stage import train
+    recs = []
+    orig = _instrumented_gan_builds(recs)
+    inst = build.build_gan_experiment
+
+    def both(*args, **kwargs):
+        exp = inst(*args, **kwargs)
+        if per_step is not None:
+            per_step(exp)
+        return exp
+    build.build_gan_experiment = both
+    try:
+        train(cfg, (), device=dev)
+    finally:
+        build.build_gan_experiment = orig
+    return recs[0]
+
+
+def _data_hedngan(dev, root):
+    """(c) train_hedngan.yml through the train stage on a deterministic
+    tuple pipeline: PregeneratedImageTuple (idx 0_1) over DATA_TUPLES rows,
+    `pil2np | centerscalecrop:256_256:0.6 | totensor | normalize`, batch
+    10, the loader unshuffled, 2 epochs, visual validation off; with
+    `cache_teacher_targets` and without. Epoch 1 misses on every batch and
+    epoch 2 hits on every one; the two runs end bit-equal (nets and
+    Adams); each run, its launch counts set to 0 just before it and read
+    just after, launches no kernel (float32 training reaches none). Prints
+    hit and miss ms (each step synchronised) and the cached run's busy
+    share over epoch 2."""
+    pkl = make_tuple_pickle(root, DATA_TUPLES, DATA_TUPLE_HW)
+    chain = "pil2np | centerscalecrop:256_256:0.6 | totensor | normalize"
+    recs, order, counts = {}, [], {}
+    for tag, cache in (("cached", True), ("plain", False)):
+        # the domain lists are replaced by the tuple pickle
+        cfg = gan_train_config(os.path.join(root, tag), ("", ""))
+        _tuple_data(cfg, pkl, root, "0_1", chain, 10, False)
+        cfg["learning"]["validation"]["visual"]["frequency"] = 0
+        cfg["learning"]["training"]["epoch_iteration"][
+            "cache_teacher_targets"] = cache
+        times = {"hit": [], "miss": []}
+
+        def per_step(exp):
+            if not cache:
+                return
+            loop, step = exp["training"].loop, exp["step"]
+            inner = loop.step_fn
+
+            def timed(state, *args):
+                hits = step.hits
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(state, *args)
+                torch.cuda.synchronize()
+                kind = "hit" if step.hits > hits else "miss"
+                times[kind].append(1e3 * (time.perf_counter() - t0))
+                order.append(kind)
+                return out
+            loop.step_fn = timed
+        reset_launches()
+        recs[tag] = _train_recorded(cfg, dev, per_step)
+        counts[tag] = launches()
+        if cache:
+            recs["times"] = times
+    a, b = recs["cached"]["exp"], recs["plain"]["exp"]
+    diff = _nets_differ(a, b)
+    for name, opt in b["state"].optimizers.items():
+        want = opt.state_dict()["state"]
+        got = a["state"].optimizers[name].state_dict()["state"]
+        diff += ["%s moment %s.%s" % (name, i, k) for i, s in want.items()
+                 for k, v in s.items() if not torch.equal(v, got[i][k])]
+    steps = DATA_TUPLES // 10
+    numbers = _gan_loop_numbers(recs["cached"])
+    out = {"order": order, "bit_equal_to_uncached": not diff,
+           "miss_ms": float(np.median(recs["times"]["miss"])),
+           "hit_ms": float(np.median(recs["times"]["hit"])),
+           "epoch2_busy_share": numbers["epoch2_steps_busy_share"],
+           "loop_ms_per_step_epoch2": numbers["loop_ms_per_step_epoch2"],
+           "plain_loop_ms_per_step_epoch2": _gan_loop_numbers(
+               recs["plain"])["loop_ms_per_step_epoch2"],
+           "launches_by_run": counts,
+           "launches": {k: sum(c[k] for c in counts.values())
+                        for k in ("K1", "K2", "K3", "K4")}}
+    if diff or order != ["miss"] * steps + ["hit"] * steps \
+            or any(out["launches"].values()):
+        raise AssertionError("tuple-pipeline teacher cache: %s; differs: %s"
+                             % (json.dumps(out), diff[:8]))
+    return out
+
+
+def _decoded(directory):
+    from PIL import Image
+    return {f: np.asarray(Image.open(os.path.join(directory, f)))
+            for f in sorted(os.listdir(directory))}
+
+
+def _ties_only(post, host, host_y, ms):
+    """device_postprocess's PNGs (float32 on the card) against the host
+    sink's (float64) on the same outputs: one level at most, and only at
+    a truncation tie, where the float64 value * 255 lies within
+    DATA_TIE of an integer (float32's roundings of y * std + mean and of
+    the * 255 move it by less: about 3e-5 at std = mean = 0.5). Returns
+    (most levels, share of values that differ, share of the unclipped
+    values that sit at a tie: the rule has force only where it is
+    small)."""
+    worst, share, on_level = 0, 0.0, 0.0
+    for k, want in host.items():
+        got = post[k].astype(int)
+        v = np.clip((host_y[k].astype(np.float64) * np.asarray(ms[1])
+                     + np.asarray(ms[0])) * 255, 0, 255)
+        if got.shape != want.shape:
+            raise AssertionError("device_postprocess %s: %s" % (k,
+                                                                got.shape))
+        d = got != want
+        tie = np.abs(v - np.round(v)) <= DATA_TIE
+        levels = int(np.abs(got - want).max())
+        off = int((d & ~tie).sum())
+        if levels > 1 or off:
+            raise AssertionError(
+                "device_postprocess %s: %d levels, %d values differ, %d "
+                "of them off a tie" % (k, levels, int(d.sum()), off))
+        inside = (v > 0) & (v < 255)
+        worst, share = max(worst, levels), max(share, float(d.mean()))
+        on_level = max(on_level, float(tie[inside].mean()))
+    return worst, share, on_level
+
+
+def _png_levels(card, cpu, card_y, cpu_y, ref, sink, ms):
+    """(d)'s luv PNGs of one photo, the card's against the CPU port's: at
+    most DATA_PNG_SHARE of the values differ, and where one differs by
+    more than a level the sink's undo is that ill-conditioned there: its
+    levels over the cube of half-side eps about the float64 output (eps
+    the largest |output - float64| of the card's and the CPU's on the
+    photo; its 27 corners, edge and face centres) span at least that
+    difference less one. Returns the numbers, with the float64 L
+    (cv2's 0-100) of those values."""
+    d = np.abs(card.astype(int) - cpu)
+    eps = float(max(np.abs(card_y - ref).max(), np.abs(cpu_y - ref).max()))
+    iy, ix, ic = np.nonzero(d > 1)
+    out = {"levels": int(d.max()), "share": float((d > 0).mean()),
+           "over_one": int(len(iy)), "eps": eps}
+    if len(iy):
+        grid = np.stack(np.meshgrid(*[(-1.0, 0.0, 1.0)] * 3,
+                                    indexing="ij"), -1).reshape(27, 3)
+        pts = ref[iy, ix][:, None, :3] + eps * grid
+        lv = sink.to_uint8(pts.reshape(-1, 1, 3)).reshape(-1, 27, 3)
+        lv = lv.astype(int)[np.arange(len(ic)), :, ic]
+        spread = lv.max(1) - lv.min(1)
+        L = (ref[iy, ix, 0] * ms[1][0] + ms[0][0]) * 100
+        out.update(min_spread=int(spread.min()),
+                   unexplained=int((d[iy, ix, ic] > spread + 1).sum()),
+                   L_range=[float(L.min()), float(L.max())])
+    if out["share"] > DATA_PNG_SHARE or out.get("unexplained"):
+        raise AssertionError("luv PNG card vs CPU port: %s" % out)
+    return out
+
+
+def _data_cyclegan(dev, root):
+    """(d) train_cyclegan.yml through the train stage (full width, batch
+    1) on RandomImageTuple (idx 0_any) over DATA_CG_TUPLES rows with
+    `pil2np | mirror | random_crop:256 | gaussian_noise:0.01 | tospace:luv
+    | totensor | normalize`, 2 epochs, visual validation off; then the
+    infer stage's image output of the trained generator_X on photos of
+    DATA_OUT_SHAPES (no side a multiple of 4) through
+    `reflectpad_divisible:4`, with `tospace:luv` in its transforms (the
+    sink undoes luv), on the card and on the CPU: PNGs of the inputs'
+    shapes; the outputs the sink took (normalized luv) within twice the
+    CPU float32's distance from a float64 CPU forward (L2, relative, on
+    every photo: the rule of the CycleGAN step, PERF.md §2, for this
+    normal_p2p generator); the PNGs held to the CPU port's by
+    _png_levels. Then plain RGB (`pil2np | totensor | normalize`: the
+    sink's device_postprocess takes plain RGB only, as in the JAX
+    package) with `device_postprocess: true` against the host sink, for
+    the trained generator and for one of seeded He-normal weights whose
+    outputs do not sit on levels (at most DATA_ON_LEVEL of its unclipped
+    values at a tie): a level at most, and only at float32 against
+    float64 truncation ties (_ties_only). The training and every run on
+    the card have their launch counts set to 0 just before and read just
+    after, and launch no kernel (float32 reaches none)."""
+    from gandtr_tpu_torch.data.datasets import imread
+    from gandtr_tpu_torch.data.transforms import initialize_transforms
+    from gandtr_tpu_torch.scenarios import infer_stage
+    from gandtr_tpu_torch.scenarios.engine import load_yaml_scenario
+    pkl = make_tuple_pickle(os.path.join(root, "cg"), DATA_CG_TUPLES,
+                            DATA_CG_HW, seed=1)
+    cfg = load_yaml_scenario([CYCLEGAN_YML] + cyclegan_overrides())
+    cfg = cfg["train"]["1_train_augment"]
+    cfg["learning"]["checkpoints"]["directory"] = os.path.join(root, "cg_exp")
+    cfg["learning"]["validation"]["visual"]["frequency"] = 0
+    _tuple_data(cfg, pkl, os.path.join(root, "cg"), "0_any",
+                "pil2np | mirror | random_crop:256 | gaussian_noise:0.01 | "
+                "tospace:luv | totensor | normalize", 1, True)
+    counts = {}
+    t0 = time.perf_counter()
+    reset_launches()
+    rec = _train_recorded(cfg, dev)
+    counts["train"] = launches()
+    train_s = time.perf_counter() - t0
+    numbers = _gan_loop_numbers(rec)
+    if len(rec["metrics"]) != 2 * DATA_CG_TUPLES or not all(
+            np.isfinite(float(v)) for m in rec["metrics"] for v in m.values()):
+        raise AssertionError("luv CycleGAN: %d steps, %s"
+                             % (len(rec["metrics"]), rec["metrics"][-1:]))
+    ckpt = os.path.join(root, "cg_exp", "epochs", "generator_X_best.ckpt")
+    if not os.path.isfile(ckpt):
+        raise AssertionError("no %s among %s" % (ckpt, sorted(os.listdir(
+            os.path.dirname(ckpt)))))
+    rs = np.random.RandomState(2)
+    ims = os.path.join(root, "out_ims")
+    os.makedirs(ims)
+    names = []
+    for i, (h, w) in enumerate(DATA_OUT_SHAPES):
+        names.append("o%d.png" % i)
+        _photo(rs, h, w).save(os.path.join(ims, names[-1]))
+    ms = [[0.5] * 3, [0.5] * 3]
+    net_cfg = {"type": "SingleNetwork", "path": ckpt,
+               "runtime": {"wrappers": "reflectpad_divisible:4", "data": {}}}
+
+    def run(tag, where, chain, post=False, net=net_cfg):
+        """The image output into <root>/<tag>: (decoded PNGs, seconds,
+        the float outputs the sink took)."""
+        params = {"network": dict(net),
+                  "data": {"image_dir": ims, "transforms": chain,
+                           "mean_std": ms, "device_postprocess": post,
+                           "loader": {"batch_size": 2}},
+                  "output": {"type": "image",
+                             "directory": os.path.join(root, tag)}}
+        floats, add = {}, infer_stage.RgbImageSaver.add
+
+        def recording(self, name, image_hwc, input_hwc=None):
+            floats[name] = np.array(image_hwc)
+            return add(self, name, image_hwc, input_hwc)
+        infer_stage.RgbImageSaver.add = recording
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            infer_stage.infer(params, (names,), device=where)
+        finally:
+            infer_stage.RgbImageSaver.add = add
+        if where != "cpu":
+            counts[tag] = launches()
+        return (_decoded(os.path.join(root, tag)), time.perf_counter() - t0,
+                floats)
+
+    luv = "pil2np | tospace:luv | totensor | normalize"
+    rgb = "pil2np | totensor | normalize"
+    card, card_s, card_y = run("luv_card", dev, luv)
+    for name, (h, w) in zip(names, DATA_OUT_SHAPES):
+        if card[name].shape != (h, w, 3) or card[name].dtype != np.uint8:
+            raise AssertionError("luv output %s: %s" % (name,
+                                                        card[name].shape))
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu, cpu_s, cpu_y = run("luv_cpu", "cpu", luv)
+    f64 = infer_stage._load_network(net_cfg, "cpu")
+    f64.module.double()
+    tf = initialize_transforms(luv, ms)
+    sink = infer_stage.RgbImageSaver(os.path.join(root, "luv_probe"), ms,
+                                     transforms=luv)
+    rel, levels = {}, {}
+    try:
+        for name in names:
+            x = tf(imread(os.path.join(ims, name)))[None].double()
+            with torch.no_grad():
+                ref = f64.apply(x, train=False)[0].numpy()
+            rel[name] = {k: float(np.linalg.norm(y[name] - ref)
+                                  / np.linalg.norm(ref))
+                         for k, y in (("card", card_y), ("cpu", cpu_y))}
+            levels[name] = _png_levels(card[name], cpu[name], card_y[name],
+                                       cpu_y[name], ref, sink, ms)
+    finally:
+        sink.close()
+    seeded = {"type": "SingleNetwork", "path": None,
+              "model": dict(f64.loaded_model_cfg),
+              "runtime": {"wrappers": "reflectpad_divisible:4", "data": {}}}
+    del f64
+    vs_host = {}
+    for which, net in (("trained", net_cfg), ("seeded", seeded)):
+        host, _, host_y = run("rgb_host_" + which, dev, rgb, net=net)
+        post, _, _ = run("rgb_post_" + which, dev, rgb, post=True, net=net)
+        vs_host[which] = _ties_only(post, host, host_y, ms)
+    out = {"train_s": train_s, "steps": len(rec["metrics"]),
+           "loop_ms_per_step_epoch2": numbers["loop_ms_per_step_epoch2"],
+           "epoch2_busy_share": numbers["epoch2_steps_busy_share"],
+           "output_s": card_s, "output_cpu_s": cpu_s,
+           "luv_outputs_rel_to_float64": rel,
+           "luv_png_card_vs_cpu": levels,
+           "device_postprocess_vs_host_levels_share_on_level": vs_host,
+           "launches_by_run": counts,
+           "launches": {k: sum(c[k] for c in counts.values())
+                        for k in ("K1", "K2", "K3", "K4")}}
+    far = [n for n, r in rel.items() if r["card"] > 2 * r["cpu"]]
+    if far or any(out["launches"].values()) \
+            or vs_host["seeded"][2] > DATA_ON_LEVEL:
+        raise AssertionError("luv output past twice the CPU's distance "
+                             "from float64 (%s), launches, or a seeded "
+                             "generator on levels: %s"
+                             % (far, json.dumps(out)))
+    return out
+
+
+def run_data_side(dev):
+    """The data side (the module docstring's item 17), in a temp dir set as
+    $GANDTR_ROOT, each part with every launch count set to 0 just before
+    it and read just after: (a) _data_eval, (b) _data_finetune, (c)
+    _data_hedngan, (d) _data_cyclegan. Prints each part and the phase's
+    seconds."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="data_", dir=os.environ.get("TMPDIR"))
+    old_root = os.environ.get("GANDTR_ROOT")
+    os.environ["GANDTR_ROOT"] = tmp
+    out, t_all = {}, time.perf_counter()
+    try:
+        for key, fn in (
+                ("eval", lambda: _data_eval(dev, os.path.join(tmp, "eval"))),
+                ("finetune", lambda: _data_finetune(dev)),
+                ("hedngan_tuples", lambda: _data_hedngan(dev, tmp)),
+                ("cyclegan_luv", lambda: _data_cyclegan(dev, tmp))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            out[key]["phase_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            print("data_side %s (%s): %s" % (key, card_line(),
+                                             json.dumps(out[key])))
+    finally:
+        if old_root is None:
+            os.environ.pop("GANDTR_ROOT", None)
+        else:
+            os.environ["GANDTR_ROOT"] = old_root
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in
+                              ("eval", "finetune", "hedngan_tuples",
+                               "cyclegan_luv"))
+                       for k in ("K1", "K2", "K3", "K4")}
+    out["phase_s"] = time.perf_counter() - t_all
+    print("data_side (%s): %.1f s, launches %s"
+          % (card_line(), out["phase_s"], json.dumps(out["launches"])))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6316,6 +6866,12 @@ def main():
     # cirnet_inchan fine-tune step
     torch.cuda.empty_cache()
     arch = run_architectures(dev)
+
+    # ---- the data side: eval and clahepost in luv / lsh / hsv, HED^N-GAN
+    # on a deterministic tuple pipeline with the teacher cache, CycleGAN in
+    # luv and its image output through reflectpad_divisible
+    torch.cuda.empty_cache()
+    data = run_data_side(dev)
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
                    "finetune_loop": loop["launches"][k],
@@ -6326,7 +6882,8 @@ def main():
                    "gan_families": fams["launches"][k],
                    "search": srch["launches"][k],
                    "training_options": opts["launches"][k],
-                   "architectures": arch["launches"][k]}
+                   "architectures": arch["launches"][k],
+                   "data_side": data["launches"][k]}
                for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{

@@ -1,6 +1,14 @@
-"""Image loading, the GAN datasets and the batch loader (counterpart of
-gandtr_tpu/data/datasets.py::imread, ::path_join, ::InferImageListDataset,
-::RandomDomainsPairDataset and ::Loader).
+"""Image loading, the image-list, tuple and GAN datasets and the batch
+loader (counterpart of gandtr_tpu/data/datasets.py::imread, ::path_join,
+::ImageListDataset, ::InferImageListDataset, ::RandomImageTupleDataset,
+::PregeneratedImageTupleDataset, ::RandomDomainsPairDataset and ::Loader).
+
+An item is a tuple of numpy images (InferImageList's a pair of its names
+and its images), so `stack_collate` makes a batch of each position. A
+dataset whose images are known before they are decoded has `plan(i)`: it
+makes item i's transform draws from the images' header sizes, and the
+loader calls it for its items in order, so a pool of threads gives every
+item the draws of the sequential loop.
 
 PIL decodes; the JAX package's native libjpeg decoder and its `store.h5#key`
 form are not ported yet. The two decoders give equal arrays on the same
@@ -8,6 +16,7 @@ JPEGs (tests/test_torch_eval.py holds it), so descriptors do not depend on
 which one ran.
 """
 import os
+import random
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -49,43 +58,176 @@ def path_join(directory, name, default_extension=".jpg"):
     return os.path.join(path, name + ext)
 
 
-class InferImageListDataset:
-    """Named images from parallel name lists (tuple_datasets.py:19-60):
-    `data` holds one list of names per position; item i is ((names),
-    images), the images decoded and transformed together (one image for
-    one list, as the JAX package's variadic Compose returns it)."""
+def _items(images):
+    """A transform's output (one image or a list) as a tuple of arrays."""
+    if not isinstance(images, (list, tuple)):
+        images = (images,)
+    return tuple(np.asarray(im) for im in images)
+
+
+class _Planned:
+    """`plan(i)` for a dataset with `_paths(i)` and `transform`: the draws
+    of item i from its images' header sizes, kept until it is loaded."""
+
+    def plan(self, idx):
+        if self.transform is not None and hasattr(self.transform, "draw"):
+            sizes = []
+            for path in self._paths(idx):
+                with Image.open(path) as im:
+                    sizes.append((im.size[1], im.size[0]))
+            self._draws[idx] = self.transform.draw(sizes)
+
+    def _transformed(self, idx, mode="RGB"):
+        """Item idx's images through the transform, with their planned
+        draws: as the transform returns them."""
+        images = [imread(p, mode) for p in self._paths(idx)]
+        if self.transform:
+            images = self.transform(*images,
+                                    draws=self._draws.pop(idx, None))
+        return images
+
+    def _load(self, idx, mode="RGB"):
+        return _items(self._transformed(idx, mode))
+
+
+class ImageListDataset(_Planned):
+    """Images from parallel name lists (tuple_datasets.py:19-40): `data`
+    holds one list of names per position; item i is the tuple of the
+    i-th names' images, transformed together."""
 
     loader_params = {}
 
     def __init__(self, data, transform, image_dir, mode=None):
         if len({len(x) for x in data}) != 1:
             raise ValueError("name lists of different lengths")
-        self.data = [list(x) for x in zip(*data)]
         self.image_list = [[path_join(image_dir, x) for x in y]
-                           for y in self.data]
+                           for y in zip(*data)]
         self.transform = transform
         self.mode = mode
+        self._draws = {}
 
     def __len__(self):
         return len(self.image_list)
 
+    def _paths(self, idx):
+        return self.image_list[idx]
+
     def __getitem__(self, idx):
-        images = tuple(imread(x, self.mode or "RGB")
-                       for x in self.image_list[idx])
-        if self.transform:
-            images = self.transform(*images)
-        return tuple(self.data[idx]), images
+        return self._load(idx, self.mode or "RGB")
 
 
-class RandomDomainsPairDataset:
+class InferImageListDataset(ImageListDataset):
+    """Named images from parallel name lists (tuple_datasets.py:43-60):
+    item i is ((names), images), the images as the transform returns them
+    (one image for one list, as the JAX package's variadic Compose)."""
+
+    def __init__(self, data, transform, image_dir, mode=None):
+        super().__init__(data, transform, image_dir, mode)
+        self.data = [list(x) for x in zip(*data)]
+
+    def __getitem__(self, idx):
+        return tuple(self.data[idx]), self._transformed(idx,
+                                                        self.mode or "RGB")
+
+
+class RandomImageTupleDataset(_Planned):
+    """Tuples of images drawn from rows of candidates
+    (tuple_datasets.py:63-122). `dataset` (a file the readers of
+    utils/file_readers.py take, or a dict) holds under `data_key` one list
+    of candidate names a row; `idx` says how each position of a row's
+    tuple picks among them: an int (negative from the end), "any", or
+    "different" (any not picked yet in the tuple), or a [start, end)
+    range; the string form joins them with "_" ("0_any"). Each epoch
+    (`prepare_epoch`) draws the tuples anew from `rng`, numpy's global RNG
+    by default, as the reference; a range's ends reach its `randint` as
+    written (a negative start too), as there."""
+
+    loader_params = {}
+
+    def __init__(self, data, transform, dataset, data_key, image_dir, idx,
+                 rng=None):
+        if data:
+            raise ValueError("%s takes no data" % type(self).__name__)
+        self.image_list = [[path_join(image_dir, y) for y in x]
+                           for x in self._read_dataset(dataset, data_key)]
+        self.transform = transform
+        if isinstance(idx, str):
+            idx = [x if x in {"any", "different"} else int(x)
+                   for x in idx.split("_")]
+        self.idx = idx
+        self.epoch_images = None
+        self._rng = rng or np.random
+        self._draws = {}
+
+    @staticmethod
+    def _read_dataset(dataset, data_key):
+        if isinstance(dataset, dict):
+            return dataset[data_key]
+        from gandtr_tpu_torch.utils.file_readers import initialize_file_reader
+        with initialize_file_reader(dataset, keys=[data_key]) as reader:
+            return reader.get()[data_key]
+
+    @staticmethod
+    def get_idx(idx, length, previous_idxs, rand):
+        if idx == "any":
+            return rand(length)
+        if idx == "different":
+            idxs = [x for x in range(length) if x not in previous_idxs]
+            return idxs[rand(len(idxs))]
+        if isinstance(idx, (list, tuple)):
+            for end in idx:
+                if end is not None and not 0 <= (length + end if end < 0
+                                                 else end) < length:
+                    raise IndexError("index range %s of %d candidates"
+                                     % (idx, length))
+            return rand(idx[0] or 0, idx[1] or length)
+        if idx < 0:
+            idx = length + idx
+        if not 0 <= idx < length:
+            raise IndexError("index %s of %d candidates" % (idx, length))
+        return idx
+
+    def _generate_epoch_images(self, rand):
+        self.epoch_images = []
+        for possible in self.image_list:
+            idxs = []
+            for i in self.idx:
+                idxs.append(self.get_idx(i, len(possible), idxs, rand))
+            self.epoch_images.append([possible[j] for j in idxs])
+        self._draws = {}
+
+    def prepare_epoch(self):
+        self._generate_epoch_images(self._rng.randint)
+
+    def __len__(self):
+        return len(self.image_list)
+
+    def _paths(self, idx):
+        return self.epoch_images[idx]
+
+    def __getitem__(self, idx):
+        return self._load(idx)
+
+
+class PregeneratedImageTupleDataset(RandomImageTupleDataset):
+    """RandomImageTuple drawn once, from `random.Random(0)`, and the same
+    every epoch (tuple_datasets.py:125-135): the deterministic pipeline a
+    resumed run repeats, and the one whose batches the teacher cache sees
+    again."""
+
+    def __init__(self, data, transform, dataset, data_key, image_dir, idx):
+        super().__init__(data, transform, dataset, data_key, image_dir, idx)
+        self._generate_epoch_images(random.Random(0).randrange)
+
+    def prepare_epoch(self):
+        pass
+
+
+class RandomDomainsPairDataset(_Planned):
     """Unpaired domain pairs (domain_datasets.py:10-58): each epoch
     (`prepare_epoch`) draws `size` images of domain X and `size` of domain
     Y from numpy's global RNG, as the reference does; item i is the pair
-    (X_i, Y_i), transformed together (a scalecrop cuts both alike).
-
-    `plan(i)` makes item i's transform draws from the images' sizes (their
-    headers) before it is decoded; the loader calls it in order, so a pool
-    of threads gives every item the draws of the sequential loop."""
+    (X_i, Y_i), transformed together (a scalecrop cuts both alike)."""
 
     loader_params = {}
 
@@ -126,24 +268,15 @@ class RandomDomainsPairDataset:
         return (self.images_X[self.idxs_X[idx]],
                 self.images_Y[self.idxs_Y[idx]])
 
-    def plan(self, idx):
-        if self.transform is not None and hasattr(self.transform, "draw"):
-            sizes = []
-            for path in self._paths(idx):
-                with Image.open(path) as im:
-                    sizes.append((im.size[1], im.size[0]))
-            self._draws[idx] = self.transform.draw(sizes)
-
     def __getitem__(self, idx):
-        images = [imread(p) for p in self._paths(idx)]
-        if self.transform:
-            draws = self._draws.pop(idx, None)
-            images = self.transform(*images, draws=draws)
-        return tuple(np.asarray(im) for im in images)
+        return self._load(idx)
 
 
 DATASET_LABELS = {
+    "ImageList": ImageListDataset,
     "InferImageList": InferImageListDataset,
+    "RandomImageTuple": RandomImageTupleDataset,
+    "PregeneratedImageTuple": PregeneratedImageTupleDataset,
     "RandomDomainsPair": RandomDomainsPairDataset,
 }
 
@@ -165,7 +298,8 @@ def initialize_dataset_loader(data, params, loader_defaults=None):
     name = dparams.pop("name")
     if name not in DATASET_LABELS:
         raise NotImplementedError("dataset %r is not ported yet" % name)
-    for key in ("dataset_X", "dataset_Y", "image_dir", "image_dir_Y"):
+    for key in ("dataset", "dataset_X", "dataset_Y", "image_dir",
+                "image_dir_Y"):
         if isinstance(dparams.get(key), str):
             dparams[key] = resolve_path(dparams[key])
     dataset = DATASET_LABELS[name](data, transforms, **dparams)

@@ -21,7 +21,9 @@ cached run is the uncached run bit for bit.
 
 The published protocol cannot hit: RandomDomainsPair draws new pairs and
 scalecrop new crops every epoch, so no batch repeats. The cache is for
-deterministic pipelines.
+deterministic pipelines: PregeneratedImageTuple with a chain that draws
+nothing (`centerscalecrop`, say) and an unshuffled loader gives every
+epoch the batches of the first.
 """
 import hashlib
 from collections import OrderedDict

@@ -2,14 +2,15 @@
 wrapper is a pair `pre(x, ctx) -> (x, meta)` / `post(y, ctx, meta) -> y`
 composed around a model forward. NHWC batches in, (N, D) descriptors out.
 
-Ported so far: the eval chain of the descriptor nets (`cirmultiscale`,
-`cirwhiten`), the fine-tune chain of the augment net (`meanstd_post`,
-`clahepost`, `cir_ratio_pass_through`, `cirfaketuplebatch`) and the HED
-detectors' input chain of HED^N-GAN (`rgb2bgr_pre`, `meanstd_pre`), in both
-forms configs write them in: the string DSL and the sorted dict. The md5-name
-augmentation gate is decided on the host per image name and reaches the
-batch as a boolean `ctx["pass_mask"]` tensor; the selection is a
-`torch.where`.
+Every wrapper of the JAX package's registry: the eval chain of the
+descriptor nets (`cirmultiscale`, `cirwhiten`), the fine-tune chain of the
+augment net (`meanstd_post`, `clahepost`, `cir_ratio_pass_through`,
+`cirfaketuplebatch`), the HED detectors' input chain of HED^N-GAN
+(`rgb2bgr_pre`, `meanstd_pre`), and `reflectpad_divisible`,
+`random_pass_through` and `fakebatch`, in both forms configs write them
+in: the string DSL and the sorted dict. The md5-name augmentation gate is
+decided on the host per image name and reaches the batch as a boolean
+`ctx["pass_mask"]` tensor; the selection is a `torch.where`.
 
 In the padded-bucket mode (`ctx["mask_state"]`, ops/maskprop.py) ClahePost
 computes each image's CLAHE on its valid rectangle, the whole batch in one
@@ -26,6 +27,7 @@ import re
 import numpy as np
 import torch
 
+from gandtr_tpu_torch.models.layers import pad2d
 from gandtr_tpu_torch.ops import clahe as clahe_ops
 from gandtr_tpu_torch.ops.maskprop import MaskState
 from gandtr_tpu_torch.ops.resize import masked_scale_resize, scale_resize
@@ -42,6 +44,50 @@ class Wrapper:
 
     def post(self, y, ctx, meta):
         return y
+
+
+class ReflectPadMakeDivisible(Wrapper):
+    """Pad H and W up to a multiple of `divisible_by` (replicating the
+    edge, the pad split top / bottom and left / right with the odd pixel
+    after), crop the output back (wrapper.py:68-94)."""
+
+    def __init__(self, divisible_by):
+        self.divisible_by = int(divisible_by)
+
+    def pre(self, x, ctx):
+        d = self.divisible_by
+        pady = -(x.shape[1] // -d) * d - x.shape[1]
+        padx = -(x.shape[2] // -d) * d - x.shape[2]
+        pad = (pady // 2, pady - pady // 2, padx // 2, padx - padx // 2)
+        return pad2d(x, pad, "replicate"), pad
+
+    def post(self, y, ctx, pad):
+        t, b, l, r = pad
+        return y[:, t:y.shape[1] - b or None, l:y.shape[2] - r or None, :]
+
+
+class RandomPassThrough(Wrapper):
+    """Each image takes the model's output with probability
+    `probability_through`, else passes unchanged (wrapper.py:97-117). The
+    model runs on the whole batch; the mask is `ctx["pass_mask"]` where
+    given, else drawn from `ctx["generator"]` (a torch.Generator on the
+    batch's device), one Bernoulli per image. The JAX package draws it
+    with `jax.random.bernoulli`, another stream: the two agree on a given
+    mask and in law."""
+
+    def __init__(self, probability_through):
+        self.probability = float(probability_through)
+
+    def pre(self, x, ctx):
+        return x, x
+
+    def post(self, y, ctx, original):
+        mask = ctx.get("pass_mask")
+        if mask is None:
+            mask = torch.rand(y.shape[0], generator=ctx["generator"],
+                              device=y.device) < self.probability
+        mask = torch.as_tensor(mask, device=y.device)
+        return torch.where(mask[:, None, None, None], y, original.to(y.dtype))
 
 
 class CirMultiscaleAggregation(Wrapper):
@@ -264,6 +310,9 @@ class ClahePost(Wrapper):
 
 
 WRAPPERS_LABELS = {
+    "reflectpad_divisible": ReflectPadMakeDivisible,
+    "random_pass_through": RandomPassThrough,
+    "fakebatch": FakeBatch,
     "cirfaketuplebatch": CirFakeTupleBatch,
     "cir_ratio_pass_through": CirRatioPassThrough,
     "meanstd_post": MeanStdPost,
@@ -301,25 +350,19 @@ def _split_args(wrap):
     return _split(wrap, ":")
 
 
-def _wrapper_class(wname):
-    if wname not in WRAPPERS_LABELS:
-        raise NotImplementedError("wrapper %r is not ported yet" % wname)
-    return WRAPPERS_LABELS[wname]
-
-
 def initialize_wrappers(net_wrappers):
     """A wrapper string (`name:arg:arg,name2:...`) or a dict of keyword
     arguments keyed `<order>_<name>` (run in sorted key order, as configs
     write `0_cirwhiten`, `1_cirmultiscale`) -> a list of wrappers
     (wrapper.py:384-396)."""
     if isinstance(net_wrappers, dict):
-        return [_wrapper_class(k.split("_", 1)[1])(**(net_wrappers[k] or {}))
-                for k in sorted(net_wrappers)]
+        return [WRAPPERS_LABELS[k.split("_", 1)[1]](
+                    **(net_wrappers[k] or {})) for k in sorted(net_wrappers)]
     wraps = []
     for wrap in [x.strip() for x in split_wrapper_string(net_wrappers or "")
                  if x.strip()]:
         wname, *args = _split_args(wrap)
-        wraps.append(_wrapper_class(wname)(*args))
+        wraps.append(WRAPPERS_LABELS[wname](*args))
     return wraps
 
 

@@ -2,8 +2,11 @@
 tensors, bit-exact vs cv2.createCLAHE.
 
 Counterpart of gandtr_tpu/ops/clahe.py (`clahe_u8`, `channel_clahe`,
-`image_clahe`, `clahe_u8_dispatch`). Every descriptor input goes through
-LAB-CLAHE (clip 1.0, grid 8x8). Algorithm (OpenCV clahe.cpp semantics):
+`image_clahe`, `image_colorspace_clahe`, `clahe_u8_dispatch`). Every
+descriptor input goes through LAB-CLAHE (clip 1.0, grid 8x8); the image
+functions take every space of ops/colorspace.py, and CLAHE always runs on
+the truncated uint8 first channel of the normalized space. Algorithm
+(OpenCV clahe.cpp semantics):
 
   1. pad right/bottom with BORDER_REFLECT_101 so H, W divide the tile grid
      (cv2 pads a FULL extra tile on an axis that already divides whenever
@@ -285,3 +288,12 @@ def image_clahe(img, clip_limit=4.0, grid_size=8, colorspace="lab"):
     L = channel_clahe(spc[..., 0], clip_limit, grid_size)
     spc = torch.cat([L[..., None], spc[..., 1:]], dim=-1)
     return cs.normspace2rgb(spc, colorspace)
+
+
+def image_colorspace_clahe(img, clip_limit=4.0, grid_size=8,
+                           colorspace="lab"):
+    """image_clahe without the way back: the normalized `colorspace` with
+    its first channel CLAHE'd (reference ImageColorspaceClahe.apply)."""
+    spc = cs.rgb2normspace(img, colorspace)
+    L = channel_clahe(spc[..., 0], clip_limit, grid_size)
+    return torch.cat([L[..., None], spc[..., 1:]], dim=-1)

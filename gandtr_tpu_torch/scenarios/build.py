@@ -18,19 +18,22 @@ initialize_learning) for the four families of the paper:
   `epoch_iteration.pool_size`;
 
 each with an Adam per trained network and its lr schedule, the step, the
-RandomDomainsPair loader, events, checkpoints and the visual validation.
+loader of `data.train.dataset` (RandomDomainsPair as published, or
+RandomImageTuple / PregeneratedImageTuple over a tuple list), events,
+checkpoints and the visual validation.
 
     exp = build_gan_experiment(params, directory)        # on cuda
     state, start = exp["training"].resume_or_start(exp["state"])
     state = exp["training"].run(state, start_epoch=start)
 
-Weights: a member with `initialize: {weights, seed}` takes that scheme
-(models/init.py), any other seeded He-normal weights from
-`learning.training.seed` and its position; then a local `pretrained:`
-checkpoint loads strictly (a URL raises: the port downloads nothing), and
-`detector_frozen` starts as a copy of `detector`. The loader's shuffle
-state is saved with each training file, so a resumed run repeats the
-straight run bit for bit.
+Weights: a member with `initialize: {weights, seed, ...}` takes that
+scheme with the rest of the dict as its parameters (`init_gain`, as the
+JAX package passes them; models/init.py), any other seeded He-normal
+weights from `learning.training.seed` and its position; then a local
+`pretrained:` checkpoint loads strictly (a URL raises: the port
+downloads nothing), and `detector_frozen` starts as a copy of
+`detector`. The loader's shuffle state is saved with each training file,
+so a resumed run repeats the straight run bit for bit.
 
 `dispatch_chunk: K` is the loop's `chunk`: the same steps in the same
 order, the metrics read back once a chunk.
@@ -162,10 +165,12 @@ def _init_nets(nets, init_specs, net_cfg, seed, device, path_states):
             # seeded ones and for any `pretrained:` of its model config
             net.module.load_state_dict(path_states[name], strict=True)
             continue
-        spec = init_specs.get(name)
+        spec = dict(init_specs.get(name) or {})
         if spec:
-            initialize_weights(net.module, spec.get("weights", "normal_p2p"),
-                               spec.get("seed", 0))
+            # the whole dict reaches the scheme, as the JAX package passes
+            # it: `init_gain` sets the p2p gain
+            initialize_weights(net.module, spec.pop("weights", "normal_p2p"),
+                               spec.pop("seed", 0), **spec)
         else:
             _init_random(net.module, seed + i)
         load_pretrained(net.module,

@@ -13,7 +13,9 @@ on the card; without it exact shapes and K1). The `image` output (the
 `output` target, parameters/output_gan.yml) runs same-shape batches
 through a generator in eval mode, optionally through a named method with
 extra arguments (the `forward` section), and writes each output as an
-image file through `RgbImageSaver`. `data` takes the flat form
+image file through `RgbImageSaver`; `data.device_postprocess: true`
+quantizes a plain RGB output to uint8 on the device first
+(`device_quantize_rgb`). `data` takes the flat form
 {image_dir, image_size, transforms, mean_std, loader, ...} or the
 reference's nested `data.test.{dataset: {name: CirImageList, image_dir,
 image_size}, loader, ...}`.
@@ -28,7 +30,8 @@ from PIL import Image
 
 from gandtr_tpu_torch.data.cir_datasets import imresize
 from gandtr_tpu_torch.data.datasets import imread, path_join
-from gandtr_tpu_torch.data.transforms import (initialize_transforms,
+from gandtr_tpu_torch.data.transforms import (device_quantize_rgb,
+                                              initialize_transforms,
                                               seed_transforms,
                                               split_device_transform)
 from gandtr_tpu_torch.device import resolve_device, upload
@@ -59,11 +62,21 @@ class RgbImageSaver:
     mean and std, in float64 as the reference's python lists promote
     (which keeps its truncation ties); "auto" stretches min to max;
     "none" writes the raw values; a number n denormalizes, divides by n
-    and adds 1/(2n). A `tolab` marker in the dataset's transforms undoes
-    LAB instead (imgtools.py:31-60): denormalize, clip L to [0, 100] and
-    a, b to [-127, 127], convert to RGB; stretch_by is ignored there, as
-    in the reference. The other colorspaces (luv, lsh, the `tospace:X`
-    transform) and the channel sinks (chan1, chan42, add_meanstd) raise.
+    and adds 1/(2n).
+
+    `transforms` is the dataset's transform string; as the reference's
+    imgtools (imgtools.py:5-11, 31-60), the saver reads markers in it and
+    undoes them:
+    - `tolab`, `toluv`, `tolsh`: denormalize, clip each channel to the
+      space's range, convert to RGB (lab and luv saturate there, as cv2);
+      stretch_by is ignored, as in the reference. With `chan1` the output
+      is one channel, padded with zeros to three and written as the mean
+      of the RGB result (grayscale).
+    - `tospace:X` (the live transform, normalized values): denormalize,
+      convert back with ops/colorspace.py::normspace2rgb, clip to [0, 1].
+    - `chan42` and `add_meanstd` take the network's input too
+      (`needs_input`): chan42 writes the input's channels after the third
+      before the output's, add_meanstd the output's first channel.
 
     `close()` waits for every write and re-raises the first error."""
 
@@ -72,23 +85,19 @@ class RgbImageSaver:
     def __init__(self, directory, mean_std, structure=None, append=False,
                  stretch_by="meanstd", transforms=""):
         self.transforms = transforms or ""
-        for marker in ("toluv", "tolsh", "tospace:"):
-            if marker in self.transforms:
-                raise NotImplementedError(
-                    "undoing the %r colorspace of an image output is not "
-                    "ported yet (ROADMAP A, item 5.3)" % marker)
-        for marker in ("chan1", "chan42", "add_meanstd"):
-            if marker in self.transforms:
-                raise NotImplementedError(
-                    "the %r image sink is not ported yet: its transforms are "
-                    "not (ROADMAP A, item 5.4)" % marker)
         self.directory = resolve_path(directory)
         self.mean = np.asarray(mean_std[0], np.float64)
         self.std = np.asarray(mean_std[1], np.float64)
         self.structure = structure
         self.append = append
         self.stretch_by = stretch_by
-        self.lab = "tolab" in self.transforms
+        self.colorspace = next((c for c in ("lab", "luv", "lsh")
+                                if "to" + c in self.transforms), None)
+        self.normspace = None
+        for piece in self.transforms.split("|"):
+            piece = piece.strip()
+            if piece.startswith("tospace:"):
+                self.normspace = piece.split(":", 1)[1].strip()
         os.makedirs(self.directory, exist_ok=True)
         self.pool = ThreadPoolExecutor(self.WRITERS)
         self.futures = []
@@ -117,10 +126,18 @@ class RgbImageSaver:
             return names
         return [n for n in names if not os.path.exists(self.target_path(n))]
 
+    @property
+    def needs_input(self):
+        """chan42 and add_meanstd mix the (normalized) input into the
+        written image (imgtools.get_image, imgtools.py:63-71)."""
+        return "chan42" in self.transforms or "add_meanstd" in self.transforms
+
     def to_uint8(self, arr):
         """(H, W, C) float output -> the uint8 image written."""
-        if self.lab:
-            return self._lab_to_uint8(arr)
+        if self.colorspace:
+            return self._colorspace_to_uint8(arr)
+        if self.normspace and self.normspace not in ("rgb", "gray"):
+            return self._normspace_to_uint8(arr)
         img = np.asarray(arr, np.float32)
         if img.shape[-1] == 1:
             img = img[..., 0]
@@ -139,20 +156,67 @@ class RgbImageSaver:
             img = img + 1.0 / 2.0 / float(s)
         return np.clip(img * 255, 0, 255).astype(np.uint8)
 
-    def _lab_to_uint8(self, arr):
-        img = np.asarray(arr, np.float32)[..., :3] * self.std[:3] \
-            + self.mean[:3]
-        img[..., 0] = np.clip(img[..., 0], 0, 100)
-        img[..., 1:] = np.clip(img[..., 1:], -127, 127)
-        rgb = cs.lab_to_rgb(torch.from_numpy(img.astype(np.float32)))
-        # cv2 saturates the LAB2RGB float output to [0, 1]
-        return (rgb.clamp(0.0, 1.0).numpy() * 255).astype(np.uint8)
+    def _normspace_to_uint8(self, arr):
+        img = np.asarray(arr, np.float32)
+        c = min(img.shape[-1], 3)
+        img = img[..., :3] * self.std[:c] + self.mean[:c]
+        rgb = cs.normspace2rgb(torch.from_numpy(img.astype(np.float32)),
+                               self.normspace).numpy()
+        return (np.clip(rgb, 0.0, 1.0) * 255).astype(np.uint8)
 
-    def add(self, name, image_hwc):
-        """Queue the write of one (H, W, C) float output."""
+    def _colorspace_to_uint8(self, arr):
+        """imgtools.py:31-60. The final cast does not clip, as there: lab
+        and luv saturate, and a clipped lsh gives RGB in range."""
+        img = np.asarray(arr, np.float32)
+        mean, std = self.mean, self.std
+        chan1 = "chan1" in self.transforms
+        if chan1:
+            img = np.concatenate([img, np.zeros_like(img),
+                                  np.zeros_like(img)], axis=-1)
+            mean = np.array([mean[0], 0.0, 0.0])
+            std = np.array([std[0], 1.0, 1.0])
+        img = img[..., :3] * std[:3] + mean[:3]
+        if self.colorspace == "lab":
+            img[..., 0] = np.clip(img[..., 0], 0, 100)
+            img[..., 1:] = np.clip(img[..., 1:], -127, 127)
+        elif self.colorspace == "luv":
+            img[..., 0] = np.clip(img[..., 0], 0, 100)
+            img[..., 1] = np.clip(img[..., 1], -134, 220)
+            img[..., 2] = np.clip(img[..., 2], -140, 122)
+        else:   # lsh: [l, s, h] -> HLS [h, l, s]
+            img = np.stack([np.clip(img[..., 2], 0, 360),
+                            np.clip(img[..., 0], 0, 1),
+                            np.clip(img[..., 1], 0, 1)], axis=-1)
+        convert = {"lab": cs.lab_to_rgb, "luv": cs.luv_to_rgb,
+                   "lsh": cs.hls_to_rgb}[self.colorspace]
+        rgb = convert(torch.from_numpy(img.astype(np.float32)))
+        if self.colorspace in ("lab", "luv"):
+            rgb = rgb.clamp(0.0, 1.0)   # cv2 saturates LAB2RGB / LUV2RGB
+        rgb = rgb.numpy()
+        if chan1:
+            rgb = np.mean(rgb, axis=-1)
+        return (rgb * 255).astype(np.uint8)
+
+    def add(self, name, image_hwc, input_hwc=None):
+        """Queue the write of one (H, W, C) output: a float one is turned
+        into uint8 here, a uint8 one (quantized on the device) is written
+        as it is. `input_hwc` is the network's input, for the sinks that
+        need it."""
+        out = np.asarray(image_hwc)
+        if input_hwc is not None:
+            if "chan42" in self.transforms:
+                out = np.concatenate([np.asarray(input_hwc)[..., 3:], out],
+                                     axis=-1)
+            elif "add_meanstd" in self.transforms:
+                out = out[..., :1]
+
         def write(arr):
-            Image.fromarray(self.to_uint8(arr)).save(self.target_path(name))
-        self.futures.append(self.pool.submit(write, np.asarray(image_hwc)))
+            if arr.dtype != np.uint8:
+                arr = self.to_uint8(arr)
+            elif arr.ndim == 3 and arr.shape[-1] == 1:
+                arr = arr[..., 0]
+            Image.fromarray(arr).save(self.target_path(name))
+        self.futures.append(self.pool.submit(write, out))
 
     def close(self):
         try:
@@ -194,10 +258,6 @@ def infer(params, data, device=None):
     out_cfg = dict(params.pop("output", None) or {})
     out_type = out_cfg.pop("type", "image")
     data_cfg = _flat_data(params.pop("data", None))
-    if data_cfg.get("device_postprocess"):
-        raise NotImplementedError(
-            "data.device_postprocess (the JAX package's opt-in uint8 "
-            "quantization on the device) is not ported")
     if out_type == "image":
         return _infer_images(params, data_cfg, out_cfg, names, dev)
     if out_type != "embedding":
@@ -238,10 +298,19 @@ def _infer_images(params, data_cfg, out_cfg, names, dev):
                          stretch_by=out_cfg.pop("stretch_by", "meanstd"),
                          transforms=tf_str)
     # uint8 images go up and are normalized on the device where the
-    # pipeline splits so (the generators' pil2np | totensor | normalize)
+    # pipeline splits so (the generators' pil2np | totensor | normalize);
+    # a sink that mixes the input in takes the host chain's normalized one
     transform, device_pre = split_device_transform(tf_str, mean_std)
-    if device_pre is None:
-        transform = initialize_transforms(tf_str, mean_std)
+    if device_pre is None or sink.needs_input:
+        transform, device_pre = initialize_transforms(tf_str, mean_std), None
+    # `device_postprocess: true` quantizes to uint8 on the device in
+    # float32 (1/4 of the download); the host sink's float64 can differ by
+    # one level at a truncation tie, so it is opt-in, and only for the
+    # plain "meanstd" RGB sink (the JAX package's rule)
+    device_post = bool(data_cfg.get("device_postprocess", False)
+                       and sink.stretch_by == "meanstd"
+                       and sink.colorspace is None and not sink.needs_input
+                       and sink.normspace in (None, "rgb"))
 
     fwd_cfg = dict(params.get("forward") or {})
     fwd_kwargs = dict(fwd_cfg.get("params") or {})
@@ -272,9 +341,11 @@ def _infer_images(params, data_cfg, out_cfg, names, dev):
         with torch.no_grad():
             if device_pre is not None:
                 x = device_pre(x.float() / 255.0)
-            out = run(x).float().cpu().numpy()
-        for name, y in zip(batch_names, out):
-            sink.add(name, y)
+            out = run(x)
+            out = (device_quantize_rgb(out, mean_std) if device_post
+                   else out.float()).cpu().numpy()
+        for name, y, inp in zip(batch_names, out, arrays):
+            sink.add(name, y, inp if sink.needs_input else None)
 
     try:
         buckets = {}

@@ -3,10 +3,10 @@ the CPU, on the same weights (JAX variables filled by shape from a seeded
 draw and carried across with utils/weights.from_jax_variables) and the same
 seeded inputs: the blur-pool layers, the blur-pool generator and
 discriminators, the ResNet encoder -> decoder chain, pix2pix's U-Net
-generator, the seven U-Nets of models/unet.py, and the GAN steps that
-build them (CUT with blur-pool G and D, CycleGAN with the U-Net)."""
-import functools
-
+generator. The seven U-Nets of models/unet.py and the CycleGAN step with
+the U-Net are in test_torch_architectures_unet.py, the CUT step with
+blur-pool G and D in test_torch_architectures_cut.py (each file builds one
+JAX GAN, so `--dist loadfile` runs them apart)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +23,7 @@ from gandtr_tpu_torch import hub
 from gandtr_tpu_torch.learning.network import WrappedNet
 from gandtr_tpu_torch.models import initialize_model
 from gandtr_tpu_torch.models.layers import (BlurDownsample, BlurUpsample,
-                                            Dropout, pad2d)
+                                            pad2d)
 from gandtr_tpu_torch.ops import resblock
 from gandtr_tpu_torch.utils.weights import from_jax_variables
 from torch_gan_common import seeded_variables
@@ -285,48 +285,6 @@ def test_state_dict_through_the_jax_importer(name):
         np.testing.assert_array_equal(t.numpy(), sd[k], err_msg=k)
 
 
-def test_unet_generator_names_and_the_jax_importer():
-    """pix2pix's nested names (`model.model.1.model.3...`), the ones a
-    reference `.pth` holds; the JAX importer's default key map has no
-    entry for them (ROADMAP C), so it refuses a port state_dict."""
-    cfg = _cfg("unet", "batch")
-    x = jnp.zeros((1, SIDE, SIDE, 3))
-    jnet, v, net = _jax_net(cfg, x, train=False)
-    sd = net.state_dict()
-    for k in ("model.model.0.weight", "model.model.3.bias",
-              "model.model.1.model.1.weight", "model.model.1.model.2.weight",
-              "model.model.1.model.3.model.3.model.3.model.1.weight",
-              "model.model.1.model.3.model.3.model.3.model.4.running_var"):
-        assert k in sd, k
-    assert "model.model.0.bias" not in sd    # batch norm: no conv bias
-    with pytest.raises(KeyError):
-        ti.convert_torch_state(_host(v), {k: t.numpy()
-                                          for k, t in sd.items()})
-
-
-def test_unet_dropout_draws_from_its_generator():
-    """The U-Net's dropout draws from the net's own CPU generator: two runs
-    from the same generator state agree, and about half of a block's
-    outputs are dropped; in eval mode it is the identity."""
-    net = initialize_model({**_cfg("unet", "instance"), "num_downs": 6,
-                            "use_dropout": True}).train()
-    drops = [m for m in net.modules() if isinstance(m, Dropout)]
-    assert len(drops) == 1 and drops[0].generator is net.generator
-    x = torch.from_numpy(_x((1, 64, 64, 3), seed=9))
-    state = net.generator.get_state()
-    with torch.no_grad():
-        a = net(x)
-        net.generator.set_state(state)
-        b = net(x)
-        c = net(x)
-    assert torch.equal(a, b) and not torch.equal(a, c)
-    h = torch.ones(4000)
-    d = Dropout(0.5, torch.Generator().manual_seed(1)).train()(h)
-    assert 0.45 < (d == 0).float().mean() < 0.55
-    assert set(d.unique().tolist()) == {0.0, 2.0}
-    assert torch.equal(drops[0].eval()(h), h)
-
-
 @pytest.mark.parametrize("size,scale", [((13, 50), None), ((41, 29), 2.5)])
 def test_resizes_against_jax(size, scale):
     """nearest_resize and bilinear_resize (to a size, and with `scale`,
@@ -360,40 +318,7 @@ def test_identity_and_normalization_l2_against_jax(arch):
         {"architecture": arch}).meta)
 
 
-# ---- models/unet.py
-
-VARIANTS = [
-    ("orig_unet", {"nested_levels": 2, "min_channels": 4}),
-    ("p2p_unet", {"nested_levels": 2}),
-    ("shallow_p2p_unet", {"nested_levels": 2}),
-    ("outconv_unet", {"nested_levels": 2}),
-    ("outconv_dynint_unet", {"nested_levels": 2}),
-    ("inconv_p2p_unet", {"nested_levels": 2}),
-    ("aligned_p2p_unet", {"nested_levels": 2}),
-]
-
-
-@pytest.mark.parametrize("arch,kw", VARIANTS, ids=[a for a, _ in VARIANTS])
-def test_unet_variants_against_jax(arch, kw):
-    """The seven U-Nets at tests/test_model_variants.py's sizes (32x32):
-    eval mode within 1e-4 of JAX's; their state_dict loads into the JAX
-    net through the JAX importer's default key map, every leaf filled,
-    and comes back equal."""
-    cfg = {"architecture": arch, "in_channels": 3, "out_channels": 3, **kw}
-    x = _x((1, SIDE, SIDE, 3), seed=11)
-    jnet, v, net = _jax_net(cfg, jnp.asarray(x), train=False)
-    want = jnet.apply(v, jnp.asarray(x), train=False)
-    with torch.no_grad():
-        got = net(torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
-                               atol=1e-4)
-    sd = {k: t.numpy() for k, t in net.state_dict().items()}
-    back = ti.convert_torch_state(_host(v), sd, min_coverage=1.0)
-    for k, t in from_jax_variables(_host(back)).items():
-        np.testing.assert_array_equal(t.numpy(), sd[k], err_msg=k)
-
-
-# ---- the GAN builds, the hub
+# ---- the hub, and the GAN builds' helper
 
 
 def test_hub_adopts_a_blur_pool_checkpoint(tmp_path):
@@ -422,98 +347,3 @@ def _gan_pair(section, root, mp):
     jexp = jbuild.build_gan_experiment(without_data(section), sample_hw=SIDE)
     psec = _with_initial_weights(section, root, jexp["variables"])
     return jexp, build_gan_experiment(without_data(psec), device="cpu")
-
-
-def test_cut_step_with_blur_pool_against_jax(tmp_path):
-    """cut.yml's train section at test_torch_cut.py's micro size with
-    upstream CUT's blur-pool sampling on G (no_antialias and
-    no_antialias_up false) and D: two steps through `build_cut_step` on
-    fixed patch positions (taps 4, 8, 12, 16 are 32², 16², 8², 16² here),
-    each metric within test_torch_cut.py's rtol 2e-3 / atol 2e-4 of JAX's,
-    every parameter within 2 lr per Adam step (`adam_reach`)."""
-    from gandtr_tpu.learning import gan_steps as jgs
-    from gandtr_tpu.scenarios.engine import load_yaml_scenario
-    from gandtr_tpu_torch.learning import gan_steps as pgs
-    from test_torch_cut import CUT_YML, METRICS, _micro_cut
-    from torch_gan_common import adam_reach, micro_section
-    section = micro_section(
-        load_yaml_scenario([CUT_YML])["train"]["1_train_augment"],
-        str(tmp_path))
-    _micro_cut(section)
-    section["network"]["generator_X"]["model"].update(
-        no_antialias=False, no_antialias_up=False)
-    section["network"]["discriminator_Y"]["model"]["no_antialias"] = False
-    ids = [np.random.RandomState(11).permutation(n)[:min(256, n)]
-           for n in (1024, 256, 64, 256)]
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jgs, "build_cut_step", functools.partial(
-            jgs.build_cut_step, fixed_patch_ids=ids))
-        mp.setitem(pgs.GAN_STEPS, "cut", functools.partial(
-            pgs.build_cut_step, fixed_patch_ids=ids))
-        jexp, exp = _gan_pair(section, str(tmp_path), mp)
-        jstate, state = jexp["state"], exp["state"]
-        rs = np.random.RandomState(0)
-        for n in (1, 2):
-            X, Y = (rs.uniform(-1, 1, (1, SIDE, SIDE, 3)).astype(np.float32)
-                    for _ in range(2))
-            jstate, jm, _ = jexp["step"](jstate, jnp.asarray(X),
-                                         jnp.asarray(Y))
-            state, pm, _ = exp["step"](state, torch.from_numpy(X),
-                                       torch.from_numpy(Y))
-            for k in METRICS:
-                np.testing.assert_allclose(float(pm[k]), float(jm[k]),
-                                           rtol=2e-3, atol=2e-4, err_msg=k)
-            jv = from_jax_variables(_host(jstate.variables))
-            for name in ("generator_X", "featdown", "discriminator_Y"):
-                (group,) = exp["optimizers"][name].param_groups
-                bound = 2 * group["lr"] * adam_reach(n, group["betas"][0])
-                sd = exp["models"][name].module.state_dict()
-                for key, want in jv[name].items():
-                    assert float((sd[key] - want).abs().max()) <= bound, \
-                        (n, name, key)
-    blurs = [type(m).__name__ for m in
-             exp["models"]["generator_X"].module.model]
-    assert blurs.count("BlurDownsample") == blurs.count("BlurUpsample") == 2
-
-
-def test_cyclegan_step_with_unet_against_jax(tmp_path):
-    """train_cyclegan.yml at test_torch_cyclegan.py's micro size with
-    pix2pix's U-Net (`official_unet_generator`, ngf 4, 5 levels, batch
-    norm: unet_256's form) for both generators: one step through
-    `build_cyclegan_step`, each loss within 1e-3 relative, the fakes and
-    reconstructions within 1e-4, each network's gradients (Adam's first
-    moment) within test_torch_cyclegan.py's GRAD_RTOL, or below its
-    ZERO_GRAD in both where they are 0 in exact arithmetic."""
-    from test_torch_cyclegan import (GRAD_RTOL, METRICS, ZERO_GRAD,
-                                     _gradients, micro_cyclegan_config)
-    cfg = micro_cyclegan_config(str(tmp_path))
-    unet = {"architecture": "official_unet_generator", "input_nc": 3,
-            "output_nc": 3, "ngf": 4, "num_downs": 5, "norm_layer": "batch"}
-    for name in ("generator_X", "generator_Y"):
-        cfg["network"][name]["model"] = dict(unet)
-    with pytest.MonkeyPatch.context() as mp:
-        jexp, exp = _gan_pair(cfg, str(tmp_path), mp)
-    rs = np.random.RandomState(0)
-    X, Y = (rs.uniform(-1, 1, (2, SIDE, SIDE, 3)).astype(np.float32)
-            for _ in range(2))
-    jstate, jm, jdbg = jexp["step"](jexp["state"], jnp.asarray(X),
-                                    jnp.asarray(Y))
-    state, pm, pdbg = exp["step"](exp["state"], torch.from_numpy(X),
-                                  torch.from_numpy(Y))
-    for k in METRICS:
-        np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-3,
-                                   err_msg=k)
-    for k in ("fake_Y", "rec_X", "fake_X", "rec_Y"):
-        np.testing.assert_allclose(pdbg[k].numpy(), np.asarray(jdbg[k]),
-                                   atol=1e-4, rtol=0, err_msg=k)
-    assert type(exp["models"]["generator_X"].module).__name__ == \
-        "UnetGenerator"
-    for name, grads in _gradients(jstate, exp).items():
-        net = float(torch.cat([w.flatten() for _, w in grads.values()])
-                    .norm())
-        for key, (got, want) in grads.items():
-            if float(want.norm()) < ZERO_GRAD * net:
-                assert float(got.norm()) < ZERO_GRAD * net, (name, key)
-                continue
-            rel = float((got - want).norm() / want.norm())
-            assert rel <= GRAD_RTOL, (name, key, rel)

@@ -224,6 +224,23 @@ def test_build_refuses_what_is_not_ported(tmp_path, path, value, match):
         with pytest.raises(TypeError, match="no_antialias"):
             build_gan_experiment(cfg, device="cpu")
         return
+    if value == "PregeneratedImageTuple":
+        # ported: the loader takes the tuples the JAX dataset draws
+        from gandtr_tpu.data.datasets import PregeneratedImageTupleDataset
+        ds = cfg["data"]["train"]["dataset"]
+        names = [["%s%d.jpg" % (d, i) for d in ("day", "night")]
+                 for i in range(6)]
+        cfg["data"]["train"]["dataset"] = {
+            "name": value, "dataset": {"train": names}, "data_key": "train",
+            "image_dir": ds["image_dir"], "idx": "0_1"}
+        loader = build_gan_experiment(cfg, device="cpu")["loader"]
+        want = PregeneratedImageTupleDataset(
+            [], None, {"train": names}, "train", ds["image_dir"], "0_1")
+        assert type(loader.dataset).__name__ == value + "Dataset"
+        assert loader.dataset.epoch_images == want.epoch_images
+        X, Y = next(iter(loader))
+        assert X.shape == Y.shape and X.shape[-1] == 3
+        return
     with pytest.raises(NotImplementedError, match=match):
         build_gan_experiment(cfg, device="cpu")
 

@@ -31,7 +31,8 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "models.patchsample", "ops.library", "serving.index",
           "serving.pq", "scenarios.index_stage", "scenarios.export_stage",
           "utils.file_readers", "learning.teacher_cache",
-          "learning.tensorboard", "models.unet", "models.extra_layers")
+          "learning.tensorboard", "models.unet", "models.extra_layers",
+          "ops.colorspace", "learning.wrappers", "data.histogram_consts")
 
 torch.set_num_threads(1)
 
@@ -51,6 +52,35 @@ def test_importing_every_module_loads_no_jax():
         "print(len(names), bad, sorted(need - set(names)))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n" % (NEEDED,))
     out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_data_side_runs_without_jax(tmp_path):
+    """The histogram transforms read the port's own copy of the
+    constants (data/histogram_consts.py), imported when first used; the
+    colorspaces, the tuple datasets and the sinks load nothing of JAX
+    either when they run."""
+    code = (
+        "import sys, numpy as np\n"
+        "from gandtr_tpu_torch.data import transforms as T\n"
+        "from gandtr_tpu_torch.data import datasets as D\n"
+        "from gandtr_tpu_torch.scenarios import infer_stage as I\n"
+        "img = np.random.RandomState(0).randint(0, 255, (20, 24, 3), "
+        "np.uint8)\n"
+        "T.initialize_transforms('pil2np | match_histogram:f3d_lab:luv | "
+        "replace_histogram:eq:append | tospace:lsh', [[0.5] * 3, [0.5] * 3])"
+        "(img)\n"
+        "D.PregeneratedImageTupleDataset([], None, {'k': [['a', 'b']]}, "
+        "'k', '', '0_any')\n"
+        "I.RgbImageSaver(sys.argv[1], [[0.5] * 3, [0.5] * 3], transforms="
+        "'toluv').close()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'gandtr_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=PKG.parent,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
 

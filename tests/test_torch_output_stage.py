@@ -9,6 +9,9 @@ the JAX package's, on the CPU.
   block; instance and batch norm) and a micro HED through `forward`;
   their files have the JAX `infer`'s names and are within one uint8 level
   of its images. Both load the same reference-format .pth.
+- `data.device_postprocess: true` writes the JAX opt-in path's PNGs, but
+  for one level at a truncation tie, and stays within one level of the
+  host sink.
 - The repaired nested `data.test` form gives the JAX `infer`'s
   descriptors, as does the flat form, with relative names under
   $GANDTR_ROOT.
@@ -30,6 +33,7 @@ torch.set_num_threads(1)
 GAN = [[0.5] * 3, [0.5] * 3]
 IMNET = [[0.485, 0.456, 0.406], [0.229, 0.224, 0.225]]
 SHAPES = [(20, 28), (28, 20), (20, 28), (24, 24), (20, 28)]
+POST_TIE = 1e-3   # device_postprocess: a level this near is a tie
 
 
 def _files(directory):
@@ -134,8 +138,50 @@ def test_lab_undo_equals_jax(tmp_path):
     ("pil2np | add_meanstd | totensor | normalize", "5.4"),
 ])
 def test_saver_refuses_what_is_not_ported(tmp_path, transforms, match):
-    with pytest.raises(NotImplementedError, match="ROADMAP A, item " + match):
-        tinfer.RgbImageSaver(str(tmp_path), GAN, transforms=transforms)
+    """Once refused (ROADMAP A, items 5.3 and 5.4), each sink is ported:
+    the luv and lsh undo and the live `tospace:X` undo (5.3), and the
+    chan42 and add_meanstd sinks, which take the network's input (5.4),
+    write the JAX sink's files byte for byte."""
+    rs = np.random.RandomState(3)
+    ms = [[0.4, 0.5, 0.45], [0.3, 0.35, 0.4]]
+    images = {"u%d.png" % i: rs.uniform(-1.3, 1.3, (10, 12, 3))
+              .astype(np.float32) for i in range(3)}
+    inputs = {k: rs.uniform(-1, 1, (10, 12, 5)).astype(np.float32)
+              for k in images}
+    for tag, module in (("port", tinfer), ("jax", jinfer)):
+        sink = module.RgbImageSaver(str(tmp_path / tag), ms,
+                                    transforms=transforms)
+        assert sink.needs_input == (match == "5.4")
+        for k, v in images.items():
+            if match == "5.4":
+                sink.add(k, v, inputs[k])
+            else:
+                sink.add(k, v)
+        sink.close()
+    got, want = _files(tmp_path / "port"), _files(tmp_path / "jax")
+    assert sorted(got) == sorted(images) and got == want
+
+
+@pytest.mark.parametrize("transforms", [
+    "pil2np | tospace:luv | totensor | normalize",
+    "pil2np | tospace:hsv | totensor | normalize",
+    "pil2np | tospace:lsh | totensor | normalize",
+    "pil2np | tospace:yxz | totensor | normalize",
+    "pil2np | toluv | chan1 | totensor | normalize",
+    "pil2np | tolsh | chan1 | totensor | normalize",
+])
+def test_saver_colorspace_undo_equals_jax(tmp_path, transforms):
+    """The other undo forms, chan1's one-channel outputs among them:
+    byte-equal to the JAX sink."""
+    rs = np.random.RandomState(4)
+    chans = 1 if "chan1" in transforms else 3
+    ms = [[0.5] * 3, [0.5] * 3]
+    images = {"s%d.png" % i: rs.uniform(-1.2, 1.2, (9, 11, chans))
+              .astype(np.float32) for i in range(3)}
+    for tag, module in (("port", tinfer), ("jax", jinfer)):
+        _save_all(module, str(tmp_path / tag), images, mean_std=ms,
+                  transforms=transforms)
+    assert _files(tmp_path / "port") == _files(tmp_path / "jax")
 
 
 def _generator_pth(root, norm, seed):
@@ -259,17 +305,50 @@ def test_infer_forward_section_against_jax(photos, tmp_path):
     assert _files(str(tmp_path / "method")) == _files(str(tmp_path / "port"))
 
 
-def test_infer_image_output_refusals(photos, tmp_path):
+def test_infer_image_output_refusals(photos, tmp_path, monkeypatch):
     root, names = photos
     path, model = _generator_pth(str(tmp_path), "instance", seed=1)
     params = _output_params(path, model, str(root / "ims"), str(tmp_path))
     params["data"]["shape_bucket"] = 64
     with pytest.raises(ValueError, match="shape_bucket"):
         tinfer.infer(params, (names,), device="cpu")
-    params = _output_params(path, model, str(root / "ims"), str(tmp_path))
-    params["data"]["device_postprocess"] = True
-    with pytest.raises(NotImplementedError, match="device_postprocess"):
-        tinfer.infer(params, (names,), device="cpu")
+    # device_postprocess, once refused, quantizes on the device in
+    # float32, as the JAX package's opt-in path: its PNGs are JAX's, but
+    # for a level at a tie (the float output, denormalized, within
+    # POST_TIE of a level: the two packages' generator outputs differ by
+    # ulps); and within one level of the host sink's float64
+    floats, add = {}, tinfer.RgbImageSaver.add
+
+    def recording(self, name, image_hwc, input_hwc=None):
+        if np.asarray(image_hwc).dtype != np.uint8:
+            floats[name] = np.array(image_hwc, np.float64)
+        return add(self, name, image_hwc, input_hwc)
+    monkeypatch.setattr(tinfer.RgbImageSaver, "add", recording)
+    out = {}
+    for tag, post in (("host", False), ("post", True), ("jax", True)):
+        params = _output_params(path, model, str(root / "ims"),
+                                str(tmp_path / tag))
+        params["data"]["device_postprocess"] = post
+        if tag == "jax":
+            jinfer.infer(params, (names,))
+        else:
+            tinfer.infer(params, (names,), device="cpu")
+        out[tag] = _decoded(str(tmp_path / tag))
+    assert sorted(out["post"]) == sorted(out["host"]) == sorted(out["jax"])
+    assert len(out["post"]) == 5 and len(floats) == 5
+    on_level = []
+    for k, want in out["jax"].items():
+        got = out["post"][k].astype(int)
+        assert got.shape == want.shape == out["host"][k].shape
+        assert np.abs(got - out["host"][k]).max() <= 1, k
+        v = np.clip(floats[k] * GAN[1][0] + GAN[0][0], 0, 1) * 255
+        tie = np.abs(v - np.round(v)) <= POST_TIE
+        d = got != want
+        assert np.abs(got - want).max() <= 1 and not (d & ~tie).any(), k
+        on_level.append(tie.mean())
+    # the micro generator's outputs do not sit on levels, so "at a tie
+    # only" has force: few values lie within POST_TIE of one
+    assert max(on_level) < 0.01, on_level
     params = _output_params(path, model, str(root / "ims"), str(tmp_path))
     params["data"] = {"test": {"dataset": {"name": "ImagesFromList"}}}
     with pytest.raises(NotImplementedError, match="ImagesFromList"):
