@@ -276,7 +276,8 @@
    official_resnet_decoder chain (6 + 6 blocks, bf16, kaiming_p2p) on
    the 8 photos: K3 12 times, each block call held against its plain
    version by phase 13's rule, the output within mean 0.01 of the plain
-   chain's (its max printed beside a one-level input change's);
+   chain's, its largest distance from the float32 chain on the same
+   weights within CHAIN_FACTOR (2) of the plain chain's;
    (c) eval.yml's validate stage at exact shapes (K1) on (8)'s seeded
    set for regional GeM, R-MAC, cirnet_attention, cirnet_inchan and
    {type: GeometricMedianWeiszfeld, iterations: 3}: K1 once a photo,
@@ -318,7 +319,40 @@
    host sink, and only at float32 / float64 truncation ties (the float64
    value within 1e-4 of a level); no launch in the training or the
    output. Prints each part and the phase's seconds.
-18. Stage breakdowns of one batch of each served path, the `{"kernels":
+18. The model side (`run_local_multihead`), at full width with seeded
+   weights and seeded photos, each part with every launch count set to 0
+   just before it and read just after: (a) GlobalLocalModule on the hub's
+   GeM-VGG16 (float32) through its served preprocessing (LAB CLAHE, K1
+   once a batch, each call bit-equal to its plain version) over 40
+   768x1024 photos, 5 scales (about 5.9k local features a photo, L2-
+   normalized), forward_global within 1e-5 of the net's single-scale
+   descriptor, images/s; (b) ClusteringCodebook("64k", 10 iterations)
+   over the first 32 photos' features (about 188k points): repeated bit
+   for bit, its pickle (LoadedCodebook's layout) loaded back bit-equal,
+   the last iteration's assignment of 4,096 points equal to float64's
+   except where float64's relative gap is under 1e-4, seconds an
+   iteration; (c) the hard path (res, top-1, uniform, l2norm, maxass) on
+   the next 7 photos (a tuple) with the 64k codebook, with and without
+   top_centroids 8k and 2k (2k drops features: the query and positive
+   choose more centroids), and with a seeded 512k codebook and
+   top_centroids 8k: each twice bit-equal, descriptors and weights within 1e-5 of
+   float64 on the rows whose assignments agree, the 512k run's peak
+   beyond its inputs under 2 GiB, ms a tuple; (d) a 1k codebook with
+   softmax-20 (res features) and BatchClustering (kmeans, 256 clusters,
+   10 iterations; iden features: a residual about a cluster's own mean
+   cancels) on one photo's scale-1 features, by (c)'s float64 rule; (e) one
+   backward through (c)'s 64k path: twice bit-equal, within 1e-5 of the
+   float64 backward (relative to its largest) where assignments agree;
+   (f) a MultiheadModule in bf16 (official_resnet_encoder, 6 blocks,
+   instance norm -> two official_resnet_decoder heads, kaiming_p2p) on 8
+   photos: K3 18 times, each block call held by phase 13's rule,
+   default_output equal to the all-outputs dict, each output's largest
+   distance from the float32 net within CHAIN_FACTOR of the plain-K3
+   net's, each head's within mean 0.01 of the plain-K3 net's; one float32 Adam step with MH_GROUPS on 64x64 crops: each
+   group's lr and weight decay as configured, each subnet moved by at
+   most its lr, the weights within 1e-5 of the same step on the CPU port.
+   Prints each part and the phase's seconds.
+19. Stage breakdowns of one batch of each served path, the `{"kernels":
    [...]}` line (each kernel with its launches by path, K1 and K4 with
    their times at the eval's geometry and the r101 inputs), the card's
    line again, and last `{"ok": true, "device": {...}}`.
@@ -5918,11 +5952,13 @@ def _arch_encoder_decoder(dev, images):
     instance norm, kaiming_p2p weights) in bf16 on the N_REQ photos at
     768x1024: K3 12 times, each block call held against K3's plain version
     on the same inputs by `_k3_on`'s rule (`_k3_held`); the chain's output
-    within mean 0.01 of the chain with K3's plain version, its largest
-    difference printed beside the plain chain's own change when one input
-    value moves by one uint8 level (as generator_parity holds the served
-    normal_p2p generator: twelve chained random blocks amplify a block's
-    one-step roundings); ms of each (cuda_ms)."""
+    within mean 0.01 of the chain with K3's plain version, and its largest
+    distance from the float32 chain on the same weights within
+    CHAIN_FACTOR of the plain chain's (`_chain_bound`: twelve chained
+    random blocks amplify a block's one-step roundings, so the bound is
+    the plain bf16 chain's own distance); the plain chain's change when
+    one input value moves by one uint8 level printed beside; ms of each
+    (cuda_ms)."""
     from gandtr_tpu_torch.learning.network import WrappedNet
     from gandtr_tpu_torch.models import initialize_model
     from gandtr_tpu_torch.models.init import initialize_weights
@@ -5965,6 +6001,8 @@ def _arch_encoder_decoder(dev, images):
             nudge = float((chain(x1).float() - y_plain).abs().max())
         finally:
             resblock.fused_resblock = kernel
+        f32 = [WrappedNet(module=n.module) for n in nets]
+        y_f32 = f32[1].apply(f32[0].apply(x))
     errs = _k3_held(calls)
     del calls
     d = (y - y_plain).abs()
@@ -5973,14 +6011,16 @@ def _arch_encoder_decoder(dev, images):
            "mean_abs_err": float(d.mean()), "one_level_nudge_max": nudge,
            "block_calls_max_abs_err": max(e[0] for e in errs),
            "block_calls_mean_abs_err": max(e[1] for e in errs),
-           "block_calls_past_bound": sum(e[5]["past_bound"] for e in errs)}
+           "block_calls_past_bound": sum(e[5]["past_bound"] for e in errs),
+           "vs_float32": _chain_bound(y, y_plain, y_f32)}
     if counts["K3"] != 12 or len(errs) != 12 or \
             not all(e[3] for e in errs) or \
             res["block_calls_mean_abs_err"] >= K3_MEAN or \
             res["mean_abs_err"] >= K3_MEAN or \
+            not res["vs_float32"]["within"] or \
             not bool(torch.isfinite(y).all()):
         raise AssertionError("encoder -> decoder: %s" % res)
-    del nets, x, y, y_plain, d
+    del nets, f32, x, y, y_plain, y_f32, d
     torch.cuda.empty_cache()
     return res
 
@@ -6678,6 +6718,589 @@ def run_data_side(dev):
     return out
 
 
+# ---- the model side: local features, the VLAD grouping layers, multi-head
+
+LM_PHOTOS = 40           # 5 batches of N_REQ seeded 768x1024 photos
+LM_BOOK_PHOTOS = 32      # the photos whose local features make the codebook
+LM_TUPLE = 7             # the next photos: query, positive, 5 negatives
+LM_BOOK = "64k"
+LM_TOP = "8k"
+LM_TOP_FEW = "2k"
+LM_BIG = "512k"
+LM_SOFT_K = 1024
+LM_BATCH_K = 256
+LM_ITERATIONS = 10
+LM_SAMPLE = 4096         # points whose last k-means assignment is recomputed
+LM_GAP = 1e-4            # float64 relative gap under which an argmin may flip
+LM_TOL = 1e-5            # descriptors (and gradients, relative) vs float64
+LM_EXTRA_GIB = 2.0       # the 512k assignment's peak beyond its inputs
+LM_HARD = ("res", "top", "uniform", "l2norm", "maxass")
+LM_SOFT = ("res", "all", "softmax-20", "l2norm", "avgass")
+# per-batch clusters are the means of the very features they group, so a
+# residual summed over a cluster cancels to rounding noise: BatchClustering
+# sums the features themselves
+LM_BATCH = ("iden", "top", "uniform", "l2norm", "maxass")
+# the C.2 rule: a bf16 chain with K3 stays within this factor of the plain
+# bf16 chain's largest distance from the float32 chain on the same weights
+CHAIN_FACTOR = 2.0
+MH_GROUPS = {"base": {"lr": 0.1}, "night": {"lr": 10.0, "weight_decay": 0.0}}
+MH_ADAM = {"algorithm": "adam", "lr": 4e-7, "weight_decay": 0.01}
+MH_STEP_HW = 64          # the Adam step's crops (the CPU repeats it)
+
+
+class _FeatureMaps(torch.nn.Module):
+    """A GeM net's backbone feature maps (N, h, w, 512), channels last."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x):
+        return self.net._features(x, None)[0]
+
+
+def _flat_local(local, i):
+    """Image i's local features over every scale, L2-normalized (as VLAD
+    codebooks take them), and their attentions: ((n, D), (n, 1))."""
+    from gandtr_tpu_torch.ops.norm import l2n
+    f = torch.cat([s[0][i].reshape(-1, s[0].shape[-1]) for s in local])
+    a = torch.cat([s[1][i].reshape(-1, 1) for s in local])
+    return l2n(f), a
+
+
+def _lm_local(dev):
+    """(a): GlobalLocalModule on the hub's GeM-VGG16 (float32, seeded)
+    through its served preprocessing (LAB CLAHE, K1) over LM_PHOTOS seeded
+    photos, 5 scales; forward_global against the net's own single-scale
+    descriptor."""
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.data.transforms import split_device_transform
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.learning.network import (GlobalLocalModule,
+                                                   WrappedNet)
+    model = hub.gem_vgg16_hedngan(pretrained=False, device=dev)
+    dp = model.net.data_params
+    _, pre = split_device_transform(dp["transforms"], dp["mean_std"])
+    net = model.net.module
+    gl = GlobalLocalModule(WrappedNet(module=_FeatureMaps(net).eval()))
+    rs = np.random.RandomState(17)
+    photos = [np.asarray(_photo(rs, *HW)) for _ in range(LM_PHOTOS)]
+    calls, images, first = [], [], None
+    restore = _recording_calls(kclahe, "clahe_u8_cuda", calls)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        # no_grad, not inference_mode: (e) differentiates these features
+        with torch.no_grad():
+            for b in range(0, LM_PHOTOS, N_REQ):
+                xu = torch.from_numpy(np.stack(photos[b:b + N_REQ])).to(dev)
+                xn = pre(xu.to(torch.float32) / 255.0)
+                local = gl.forward_local(xn)
+                images += [_flat_local(local, i) for i in range(xn.shape[0])]
+                if first is None:
+                    torch.cuda.synchronize()
+                    first, x0 = time.perf_counter(), xn
+            torch.cuda.synchronize()
+    finally:
+        restore()
+    seconds = time.perf_counter() - first
+    counts = launches()
+    with torch.no_grad():
+        glob, single = gl.forward_global(x0), net(x0)
+    held = _held_k1(calls)
+    d_global = float((glob - single).abs().max())
+    scales = [list(s[0].shape[1:3]) for s in local]
+    res = {"launches": counts, "k1_calls_held": len(calls),
+           "k1_shapes": held, "scales_hw": scales,
+           "features_per_image": int(images[0][0].shape[0]),
+           "first_batch_s": first - t0,
+           "images_per_s": (LM_PHOTOS - N_REQ) / seconds,
+           "global_vs_single_scale_max": d_global}
+    if counts["K1"] != LM_PHOTOS // N_REQ or d_global > LM_TOL or \
+            len(local) != 5 or not all(bool(torch.isfinite(f).all())
+                                       for f, _ in images):
+        raise AssertionError("local features: %s" % res)
+    del model, net, gl, local, glob, single, x0
+    torch.cuda.empty_cache()
+    return res, images
+
+
+def _lm_nearest64(points, centroids):
+    """Float64 argmin and the relative gap to the second nearest."""
+    from gandtr_tpu_torch.models.grouping import cdist
+    d = cdist(points.double(), centroids.double())
+    two = torch.topk(d, 2, dim=1, largest=False)
+    return d.argmin(dim=1), (two.values[:, 1] - two.values[:, 0]) / \
+        two.values[:, 0].clamp_min(1e-30)
+
+
+def _lm_codebook(dev, points, tmp):
+    """(b): ClusteringCodebook(64k) by k-means over the codebook photos'
+    local features; the pickle round trip; the last iteration's
+    assignment on a sample against float64."""
+    import pickle
+    from gandtr_tpu_torch.models import grouping as G
+    book = G.ClusteringCodebook(LM_BOOK, *LM_HARD, iterations=LM_ITERATIONS,
+                                outputdim=points.shape[1]).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    book.compute_codebook(points, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with torch.no_grad():
+        init = G.init_clusters_forgy(
+            points, G.parse_size(LM_BOOK),
+            torch.Generator(device=dev).manual_seed(0))
+        c9 = G.iterate_kmeans(points, init, LM_ITERATIONS - 1)
+        again = G.iterate_kmeans(points, c9, 1)
+        sample = points[torch.randperm(
+            points.shape[0], generator=torch.Generator(device=dev)
+            .manual_seed(1), device=dev)[:LM_SAMPLE]]
+        got = G.nearest(sample, c9, 1)[1][:, 0]
+        want, gap = _lm_nearest64(sample, c9)
+    flips = got != want
+    path = os.path.join(tmp, "codebook_64k.pkl")
+    with open(path, "wb") as handle:
+        pickle.dump({"state": {"centroids":
+                               book.codebook.detach().cpu().numpy()}},
+                    handle)
+    loaded = G.LoadedCodebook(path, *LM_HARD).to(dev)
+    res = {"points": int(points.shape[0]), "centroids": G.parse_size(LM_BOOK),
+           "iterations": LM_ITERATIONS, "s_per_iteration":
+           seconds / LM_ITERATIONS, "repeat_bit_equal":
+           bool(torch.equal(again, book.codebook.detach())),
+           "pickle_bit_equal": bool(torch.equal(loaded.codebook,
+                                                book.codebook)),
+           "sample_flips": int(flips.sum()),
+           "flip_gap_max": float(gap[flips].max()) if flips.any() else 0.0,
+           "clusters_at_their_initial_point": int(
+               (book.codebook.detach() == init).all(1).sum())}
+    if not (res["repeat_bit_equal"] and res["pickle_bit_equal"]) or \
+            bool((gap[flips] >= LM_GAP).any()) or \
+            not bool(torch.isfinite(book.codebook).all()):
+        raise AssertionError("codebook: %s" % res)
+    del c9, again, init, sample
+    return res, path
+
+
+def _lm_rows_agree(images, centroids, reduced=None):
+    """Per image, the centroid rows whose assigned features are the same
+    in float32 and float64 (`nearest`), as a (n_images, K) mask, and the
+    count of features whose nearest centroid differs."""
+    from gandtr_tpu_torch.models.grouping import nearest
+    K = centroids.shape[0]
+    masks, flips = [], 0
+    for f, _ in (reduced or images):
+        ok = torch.ones(K, dtype=torch.bool, device=centroids.device)
+        if f.shape[0]:
+            i32 = nearest(f, centroids)[1][:, 0]
+            i64 = nearest(f.double(), centroids.double())[1][:, 0]
+            diff = i32 != i64
+            ok[i32[diff]] = False
+            ok[i64[diff]] = False
+            flips += int(diff.sum())
+        masks.append(ok)
+    return torch.stack(masks), flips
+
+
+def _lm_vs_float64(group, images, centroids):
+    """The grouping's descriptors and weights in float32 and in float64 on
+    the same centroids and features: the largest differences over the rows
+    whose assignments agree."""
+    with torch.no_grad():
+        d32, w32 = group.assign_images(images, centroids)
+        d64, w64 = group.assign_images(
+            [(f.double(), a.double()) for f, a in images], centroids.double())
+    ok, flips = _lm_rows_agree(images, centroids)
+    return {"descriptor_max": float((d32.double() - d64)[ok].abs().max()),
+            "weights_max": float((w32.double() - w64)[ok].abs().max()),
+            "rows_compared": int(ok.sum()), "feature_flips": flips}
+
+
+def _lm_hard(dev, images, path):
+    """(c): the 64k hard path on the tuple, with and without top_centroids
+    8k; the 512k codebook with top_centroids 8k and its extra peak."""
+    from gandtr_tpu_torch.models import grouping as G
+    out = {}
+    # 8k as the model side's cell; 2k, fewer than the pospair's
+    # centroids, so features assigned to dropped ones are filtered out too
+    for label, top in (("64k", None), ("64k_top8k", LM_TOP),
+                       ("64k_top2k", LM_TOP_FEW)):
+        book = G.LoadedCodebook(path, *LM_HARD, top_centroids=top).to(dev)
+        with torch.no_grad():
+            first = book(images)
+            second = book(images)
+            ms = _timed(lambda: book(images), reps=3)
+            codebook, reduced = book.reduce(images)
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        cmp = _lm_vs_float64(book, reduced, codebook.detach())
+        out[label] = dict(cmp, ms_per_tuple=ms, bit_equal_twice=same,
+                          centroids_kept=int(codebook.shape[0]),
+                          features_kept=int(sum(f.shape[0]
+                                                for f, _ in reduced)))
+        if not same or cmp["descriptor_max"] > LM_TOL or \
+                cmp["weights_max"] > LM_TOL or \
+                not all(bool(torch.isfinite(t).all()) for t in first) or \
+                (top == LM_TOP_FEW and out[label]["features_kept"]
+                 >= sum(f.shape[0] for f, _ in images)):
+            raise AssertionError("hard path %s: %s" % (label, out[label]))
+        del book, first, second, codebook, reduced
+    feats = torch.cat([f for f, _ in images])
+    g = torch.Generator(device=dev).manual_seed(5)
+    big = (feats.mean(0) + feats.std(0) * torch.randn(
+        G.parse_size(LM_BIG), feats.shape[1], generator=g, device=dev))
+    book = G.Codebook(big, *LM_HARD, top_centroids=LM_TOP).to(dev)
+    del big
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        first = book(images)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        second = book(images)
+        ms = _timed(lambda: book(images), reps=2)
+        codebook, reduced = book.reduce(images)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    out["512k_top8k"] = dict(
+        _lm_vs_float64(book, reduced, codebook.detach()),
+        extra_peak_gib=extra / 2 ** 30,
+        codebook_gib=book.codebook.numel() * 4 / 2 ** 30,
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        ms_per_tuple=ms, bit_equal_twice=same,
+        centroids_kept=int(codebook.shape[0]),
+        features_kept=int(sum(f.shape[0] for f, _ in reduced)))
+    if not same or extra / 2 ** 30 >= LM_EXTRA_GIB or \
+            out["512k_top8k"]["descriptor_max"] > LM_TOL or \
+            out["512k_top8k"]["weights_max"] > LM_TOL:
+        raise AssertionError("512k: %s" % out["512k_top8k"])
+    del book, first, second, codebook, reduced
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_soft_and_batch(dev, image, path):
+    """(d): Codebook(1k) with softmax-20 assignment, and BatchClustering
+    (kmeans, 256 clusters, 10 iterations), on one image's scale-1
+    features."""
+    from gandtr_tpu_torch.models import grouping as G
+    full = G.LoadedCodebook.load_codebook(path)
+    idx = torch.randperm(full.shape[0], generator=torch.Generator()
+                         .manual_seed(2))[:LM_SOFT_K]
+    soft = G.Codebook(full[idx], *LM_SOFT).to(dev)
+    with torch.no_grad():
+        first = soft([image])
+        ms = _timed(lambda: soft([image]), reps=2)
+        again = soft([image])
+    out = {"soft": dict(_lm_vs_float64(soft, [image], soft.codebook.detach()),
+                        ms=ms, bit_equal_twice=all(
+                            torch.equal(a, b) for a, b in zip(first, again)))}
+    del soft, first, again
+    seen = []
+    batch = G.BatchClustering(LM_BATCH_K, *LM_BATCH, "kmeans",
+                              LM_ITERATIONS, outputdim=image[0].shape[1],
+                              seed=4)
+    assign = batch.assign_images
+    batch.assign_images = lambda ims, c: seen.append(c) or assign(ims, c)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch([image])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    out["batch_clustering"] = dict(
+        _lm_vs_float64(G.Grouping(LM_BATCH_K, *LM_BATCH), [image], seen[0]),
+        ms=ms)
+    for key, r in out.items():
+        if r["descriptor_max"] > LM_TOL or r["weights_max"] > LM_TOL or \
+                not r.get("bit_equal_twice", True):
+            raise AssertionError("%s: %s" % (key, out))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_grads(book, images, dtype):
+    """Gradients of a seeded projection of the descriptors into the
+    features and the codebook."""
+    cb = book.codebook.detach().to(dtype).requires_grad_(True)
+    ims = [(f.detach().to(dtype).requires_grad_(True), a.to(dtype))
+           for f, a in images]
+    d, _ = book.assign_images(ims, cb)
+    R = torch.randn(d.shape, generator=torch.Generator(device=d.device)
+                    .manual_seed(6), device=d.device).to(dtype)
+    (d * R).sum().backward()
+    return [f.grad for f, _ in ims], cb.grad
+
+
+def _lm_gradient(dev, images, path):
+    """(e): one backward through the 64k hard path: twice bit-equal, and
+    within LM_TOL of the float64 backward (relative to its largest
+    gradient) over the features and centroid rows whose assignments
+    agree."""
+    from gandtr_tpu_torch.models import grouping as G
+    book = G.LoadedCodebook(path, *LM_HARD).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g1, c1 = _lm_grads(book, images, torch.float32)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    g2, c2 = _lm_grads(book, images, torch.float32)
+    same = all(torch.equal(a, b) for a, b in zip(g1 + [c1], g2 + [c2]))
+    del g2, c2
+    g64, c64 = _lm_grads(book, images, torch.float64)
+    ok, flips = _lm_rows_agree(images, book.codebook.detach())
+    rows = ok.all(0)
+    feat_err, feat_max = 0.0, 0.0
+    with torch.no_grad():
+        for (f, _), a, b, okr in zip(images, g1, g64, ok):
+            keep = okr[G.nearest(f, book.codebook.detach())[1][:, 0]]
+            feat_err = max(feat_err, float((a.double() - b)[keep].abs()
+                                           .max()))
+            feat_max = max(feat_max, float(b.abs().max()))
+        book_err = float((c1.double() - c64)[rows].abs().max())
+        book_max = float(c64.abs().max())
+    res = {"ms": ms, "bit_equal_twice": same, "feature_flips": flips,
+           "features_rel": feat_err / feat_max,
+           "codebook_rel": book_err / book_max,
+           "codebook_rows_compared": int(rows.sum())}
+    if not same or res["features_rel"] > LM_TOL or \
+            res["codebook_rel"] > LM_TOL:
+        raise AssertionError("gradient: %s" % res)
+    del book, g1, c1, g64, c64
+    torch.cuda.empty_cache()
+    return res
+
+
+def _chain_bound(y, y_plain, y_f32):
+    """The C.2 rule: the K3 chain's largest distance from the float32
+    chain within CHAIN_FACTOR of the plain bf16 chain's."""
+    dk = float((y.float() - y_f32).abs().max())
+    dp = float((y_plain.float() - y_f32).abs().max())
+    return {"k3_vs_f32_max": dk, "plain_vs_f32_max": dp,
+            "factor": dk / dp if dp else float("inf"),
+            "within": dk <= CHAIN_FACTOR * dp}
+
+
+def _mh_nets(dev, dtype):
+    """base official_resnet_encoder (6 blocks, instance norm) -> heads
+    day and night (official_resnet_decoder each), seeded kaiming_p2p."""
+    from gandtr_tpu_torch.learning.network import MultiheadModule, WrappedNet
+    from gandtr_tpu_torch.models import initialize_model
+    from gandtr_tpu_torch.models.init import initialize_weights
+    nets = {}
+    for i, (name, half) in enumerate((("base", "encoder"), ("day", "decoder"),
+                                      ("night", "decoder"))):
+        m = initialize_model({"architecture": "official_resnet_%s" % half,
+                              "n_blocks": 6, "norm_type": "instance"})
+        initialize_weights(m, "kaiming_p2p", seed=10 + i)
+        nets[name] = WrappedNet(module=m.to(dev), compute_dtype=dtype)
+    base = nets.pop("base")
+    return MultiheadModule(base, nets, default_output="night",
+                           parameter_groups=MH_GROUPS)
+
+
+def _retyped(mh, dtype):
+    """The same modules (shared weights) under another compute dtype."""
+    from gandtr_tpu_torch.learning.network import MultiheadModule, WrappedNet
+    return MultiheadModule(
+        WrappedNet(module=mh.base, compute_dtype=dtype),
+        {n: WrappedNet(module=getattr(mh, n), compute_dtype=dtype)
+         for n in mh.head_names}, default_output=mh.default_output,
+        parameter_groups=mh.parameter_groups)
+
+
+def _mh_adam(mh, dev, photos):
+    """One float32 Adam step of MH_ADAM with MH_GROUPS on MH_STEP_HW crops:
+    the updated weights and each group's (lr, weight_decay)."""
+    import copy
+    from gandtr_tpu_torch.learning.optimizers import initialize_optimizer
+    mh = copy.deepcopy(_retyped(mh, None)).to(dev).train()
+    opt, _ = initialize_optimizer(dict(MH_ADAM), mh.named_parameters(), "",
+                                  mh.parameter_groups)
+    x = torch.from_numpy(photos[:2, :MH_STEP_HW, :MH_STEP_HW]).to(dev) \
+        .float() / 127.5 - 1.0
+    mh.default_output = None
+    out = mh(x)
+    loss = sum(((out[h] - x.flip(-1)) ** 2).mean() for h in mh.head_names)
+    opt.zero_grad()
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in mh.named_parameters()}
+    opt.step()
+    groups = {}
+    for name, p in mh.named_parameters():
+        g = next(g for g in opt.param_groups if any(q is p for q in
+                                                    g["params"]))
+        groups[name.split(".", 1)[0]] = (g["lr"], g["weight_decay"])
+    return ({k: v.detach().cpu() for k, v in mh.state_dict().items()},
+            groups, float(loss), grads)
+
+
+def _lm_multihead(dev, photos):
+    """(f): the bf16 multi-head net on N_REQ photos: K3 18 times, each
+    block call held by _k3_held; default_output against the all-outputs
+    dict; each head bounded by the C.2 rule; one float32 Adam step with
+    parameter groups on the card against the CPU port."""
+    from gandtr_tpu_torch.ops import resblock
+    mh = _mh_nets(dev, torch.bfloat16).eval()
+    x = torch.from_numpy(photos[:N_REQ]).to(dev).float() / 127.5 - 1.0
+    calls, kernel = [], resblock.fused_resblock
+
+    def recording(*args, **kwargs):
+        out = kernel(*args, **kwargs)
+        calls.append((args, out))
+        return out
+    with torch.inference_mode():
+        default = mh(x)
+        torch.cuda.synchronize()
+        mh.default_output = None
+        resblock.fused_resblock = recording
+        reset_launches()
+        try:
+            outs = mh(x)
+            torch.cuda.synchronize()
+        finally:
+            resblock.fused_resblock = kernel
+        counts = launches()
+        ms = cuda_ms(lambda: mh(x), reps=3)
+        resblock.fused_resblock = resblock.fused_resblock_plain
+        try:
+            plain = mh(x)
+            plain_ms = cuda_ms(lambda: mh(x), reps=2)
+        finally:
+            resblock.fused_resblock = kernel
+        f32 = _retyped(mh, None).eval()(x)
+    errs = _k3_held(calls)
+    del calls
+    res = {"launches": counts, "ms": ms, "plain_ms": plain_ms,
+           "images_per_s": N_REQ / ms * 1e3,
+           "default_equals_dict": bool(torch.equal(default, outs["night"])),
+           "block_calls": len(errs),
+           "block_calls_max_abs_err": max(e[0] for e in errs),
+           "block_calls_mean_abs_err": max(e[1] for e in errs),
+           "block_calls_past_bound": sum(e[5]["past_bound"] for e in errs)}
+    for h in ("base",) + mh.head_names:
+        d = (outs[h].float() - plain[h].float()).abs()
+        res[h] = dict(_chain_bound(outs[h], plain[h], f32[h]),
+                      vs_plain_max=float(d.max()),
+                      vs_plain_mean=float(d.mean()),
+                      shape=list(outs[h].shape))
+    # the heads' tanh outputs as the encoder -> decoder chain's; the base's
+    # unbounded residual stream by the float32 rule alone (its block calls
+    # are held above)
+    ok = (counts["K3"] == 18 and len(errs) == 18
+          and all(e[3] for e in errs) and res["default_equals_dict"]
+          and res["block_calls_mean_abs_err"] < K3_MEAN
+          and all(res[h]["within"]
+                  and bool(torch.isfinite(outs[h].float()).all())
+                  for h in ("base",) + mh.head_names)
+          and all(res[h]["vs_plain_mean"] < K3_MEAN for h in mh.head_names))
+    if not ok:
+        raise AssertionError("multi-head: %s" % res)
+    del default, outs, plain, f32, errs, x
+    torch.cuda.empty_cache()
+    card, groups, loss, g_card = _mh_adam(mh, dev, photos)
+    cpu, cpu_groups, cpu_loss, g_cpu = _mh_adam(mh, torch.device("cpu"),
+                                                photos)
+    lr = MH_ADAM["lr"]
+    wd = MH_ADAM["weight_decay"]
+    want = {h: (lr * MH_GROUPS.get(h, {}).get("lr", 1.0),
+                wd * MH_GROUPS.get(h, {}).get("weight_decay", 1.0))
+            for h in ("base",) + mh.head_names}
+    start = {k: v.detach().cpu() for k, v in mh.state_dict().items()}
+    # a move of at most the group's lr, less the float32 rounding of the
+    # updated weight (half an ulp, at most 2^-24 of it)
+    moved = {h: max(float(((card[k] - start[k]).abs()
+                           - 2.0 ** -24 * card[k].abs()).max())
+                    for k in card if k.startswith(h + "."))
+             for h in want}
+    res["adam"] = {"groups": groups, "loss": loss, "cpu_loss": cpu_loss,
+                   "vs_cpu_max": max(float((card[k] - cpu[k]).abs().max())
+                                     for k in card),
+                   "update_signs_differ": sum(int(
+                       ((card[k] - start[k]).sign()
+                        != (cpu[k] - start[k]).sign()).sum()) for k in card),
+                   "parameters": sum(v.numel() for v in card.values()),
+                   "largest_move": moved,
+                   # printed: the gradients' card / CPU distance, relative
+                   # to each subnet's largest CPU gradient
+                   "grad_rel_max": {h: max(
+                       float((g_card[k] - g_cpu[k]).abs().max())
+                       for k in g_cpu if k.startswith(h + ".")) / max(
+                       float(g_cpu[k].abs().max())
+                       for k in g_cpu if k.startswith(h + "."))
+                       for h in want}}
+    if groups != cpu_groups or any(
+            abs(groups[h][0] - want[h][0]) > 1e-12 * want[h][0]
+            or groups[h][1] != want[h][1] for h in want) or \
+            res["adam"]["vs_cpu_max"] > LM_TOL or any(
+                not 0 < moved[h] <= 1.01 * want[h][0] for h in want):
+        raise AssertionError("multi-head Adam step: %s" % res["adam"])
+    del mh
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_local_multihead(dev):
+    """The model side (the module docstring's item 18), each part with
+    every launch count set to 0 just before it and read just after: (a)
+    _lm_local, (b) _lm_codebook, (c) _lm_hard, (d) _lm_soft_and_batch,
+    (e) _lm_gradient, (f) _lm_multihead. Prints each part and the phase's
+    seconds."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="local_", dir=os.environ.get("TMPDIR"))
+    out, t_all = {}, time.perf_counter()
+
+    def part(key, fn):
+        t0 = time.perf_counter()
+        reset_launches()
+        r = fn()
+        r.setdefault("launches", launches())
+        r["phase_s"] = time.perf_counter() - t0
+        out[key] = r
+        print("local_multihead %s (%s): %s" % (key, card_line(),
+                                               json.dumps(r)))
+        torch.cuda.empty_cache()
+    try:
+        held = {}
+        part("local", lambda: held.setdefault("local", _lm_local(dev))[0])
+        images = held.pop("local")[1]
+        tup = images[LM_BOOK_PHOTOS:LM_BOOK_PHOTOS + LM_TUPLE]
+        points = torch.cat([f for f, _ in images[:LM_BOOK_PHOTOS]])
+        del images
+        part("codebook", lambda: held.setdefault(
+            "book", _lm_codebook(dev, points, tmp))[0])
+        path = held["book"][1]
+        del points
+        part("hard", lambda: _lm_hard(dev, tup, path))
+        part("soft_and_batch", lambda: _lm_soft_and_batch(
+            dev, _scale1(tup[0], out["local"]), path))
+        part("gradient", lambda: _lm_gradient(dev, tup, path))
+        del tup
+        rs = np.random.RandomState(18)
+        photos = np.stack([np.asarray(_photo(rs, *HW))
+                           for _ in range(N_REQ)])
+        part("multihead", lambda: _lm_multihead(dev, photos))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in
+                              ("local", "codebook", "hard", "soft_and_batch",
+                               "gradient", "multihead"))
+                       for k in ("K1", "K2", "K3", "K4")}
+    out["phase_s"] = time.perf_counter() - t_all
+    print("local_multihead (%s): %.1f s, launches %s"
+          % (card_line(), out["phase_s"], json.dumps(out["launches"])))
+    return out
+
+
+def _scale1(image, local):
+    """An image's scale-1 features and attentions (the first of its
+    flattened scales)."""
+    h, w = local["scales_hw"][0]
+    return image[0][:h * w], image[1][:h * w]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6690,6 +7313,10 @@ def main():
 
     card = card_line()
     print(card)
+    t_run = time.perf_counter()
+
+    def lap(name):
+        print("time: %s done at %.1f s" % (name, time.perf_counter() - t_run))
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
     sass_report(build_all())
@@ -6697,6 +7324,7 @@ def main():
     k1 = check_k1(dev)
     k2 = check_k2(dev)
     k4 = check_k4(dev)
+    lap("kernel checks")
 
     lw = seeded_lw()
     model = hub.gem_vgg16_hedngan(pretrained=False, whitening=lw)
@@ -6809,6 +7437,7 @@ def main():
     parity = generator_parity(gen, images)
     print("generator parity: %s" % json.dumps(parity))
     del model, gen, servable, gen_servable, server
+    lap("serving")
     torch.cuda.empty_cache()
 
     # ---- fine-tune tuple step
@@ -6818,15 +7447,18 @@ def main():
     del ft_exp, ft_batch
     torch.cuda.empty_cache()
     ft["parity"] = finetune_parity(dev)
+    lap("finetune")
 
     # ---- the fine-tune loop of finetune.yml
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     loop = run_finetune_loop(dev, ft["ms_per_step"])
+    lap("finetune_loop")
 
     # ---- the retrieval eval of eval.yml
     torch.cuda.empty_cache()
     ev = run_eval(dev)
+    lap("eval")
     print("eval summary: %s" % json.dumps(
         {k: v for k, v in ev.items()
          if k not in ("breakdown", "at_eval_geometry")}))
@@ -6834,24 +7466,29 @@ def main():
     # ---- the ResNet-101 chain of finetune_r101 and eval_r101
     torch.cuda.empty_cache()
     r101 = run_r101(dev)
+    lap("r101")
 
     # ---- HED^N-GAN training of train_hedngan.yml
     torch.cuda.empty_cache()
     gan = run_gan_train(dev)
+    lap("gan_train")
 
     # ---- the scenario CLI: hedngan.yml's all and output, cyclegan.yml's
     # train
     torch.cuda.empty_cache()
     scen = run_scenario(dev)
+    lap("scenario")
 
     # ---- HED-GAN, RCF-GAN, RCF^N-GAN and CUT training through the CLI
     torch.cuda.empty_cache()
     fams = run_gan_families(dev)
+    lap("gan_families")
 
     # ---- retrieval search and deployment: build_index, export, the
     # 1,001,001-row exact and PQ indexes, :search, the artifacts' kernels
     torch.cuda.empty_cache()
     srch = run_search(dev)
+    lap("search")
     print("search (%d photos + %d distractor rows, %s): %s"
           % (SEARCH_PHOTOS, SEARCH_DB, card, json.dumps(srch)))
 
@@ -6859,6 +7496,7 @@ def main():
     # a warm start, the fine-tune's validations with TensorBoard
     torch.cuda.empty_cache()
     opts = run_training_options(dev)
+    lap("training_options")
 
     # ---- every network of the registry no phase above ran: blur-pool CUT
     # and the U-Net CycleGAN trained, the blur-pool generator and the
@@ -6866,12 +7504,20 @@ def main():
     # cirnet_inchan fine-tune step
     torch.cuda.empty_cache()
     arch = run_architectures(dev)
+    lap("architectures")
 
     # ---- the data side: eval and clahepost in luv / lsh / hsv, HED^N-GAN
     # on a deterministic tuple pipeline with the teacher cache, CycleGAN in
     # luv and its image output through reflectpad_divisible
     torch.cuda.empty_cache()
     data = run_data_side(dev)
+    lap("data_side")
+
+    # ---- the model side: GlobalLocalModule's local features, the VLAD
+    # grouping layers and codebooks, the bf16 multi-head net
+    torch.cuda.empty_cache()
+    lm = run_local_multihead(dev)
+    lap("local_multihead")
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
                    "finetune_loop": loop["launches"][k],
@@ -6883,7 +7529,8 @@ def main():
                    "search": srch["launches"][k],
                    "training_options": opts["launches"][k],
                    "architectures": arch["launches"][k],
-                   "data_side": data["launches"][k]}
+                   "data_side": data["launches"][k],
+                   "local_multihead": lm["launches"][k]}
                for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{

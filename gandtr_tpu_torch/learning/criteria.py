@@ -8,13 +8,18 @@ reference's optim/criterion registry).
   reduced: `contrastive`, `triplet`, and `contrastive_multidesc`, which
   weighs a list of descriptor matrices (cirlosses.py:22-45) and returns
   a `TotalWithIntermediate` (mdir/tools/loss_value.py);
+- the compound `multihead_loss` (compound_losses.py:67-97), a weighted
+  sum of member losses each on its own key of dict outputs and targets,
+  and `combination_loss` (:100-109), the same on one output and target;
+  each returns a `TotalWithIntermediate` with the weighted parts;
 - `check_criterion_losses`: a GAN config asks only for the losses its
   family's step computes (the JAX package's build.py:44-73). The GAN steps
-  read their weights from the config themselves.
+  read their weights from the config themselves and compute their own
+  multihead_loss.
 
-The registry's compound entries (cycle_loss, discriminator_loss, loss_set,
-multihead_loss, combination_loss, multilayer_patchnce_loss) are what the
-GAN steps compute inside; as stand-alone criteria they raise by name.
+The registry's other compound entries (cycle_loss, discriminator_loss,
+loss_set, multilayer_patchnce_loss) are what the GAN steps compute
+inside; as stand-alone criteria they raise by name.
 """
 import dataclasses
 
@@ -227,14 +232,59 @@ class TripletLoss:
                               margin=self.margin)
 
 
+class MultiheadLoss:
+    """Weighted dict-keyed loss over multi-head outputs
+    (compound_losses.py:67-97): `weights` a number for every member or a
+    dict by member, divided by their sum with `normalize_weights`; the
+    reduction is the members' own when they share one, else "mixed"."""
+
+    def __init__(self, weights, normalize_weights=False, **losses):
+        self.losses = {k: initialize_criterion(dict(v))
+                       for k, v in losses.items()}
+        if isinstance(weights, (int, float)):
+            weights = {key: weights for key in self.losses}
+        weights = dict(weights)
+        if normalize_weights:
+            total = sum(weights.values())
+            weights = {k: v / total for k, v in weights.items()}
+        if self.losses.keys() != weights.keys():
+            raise ValueError("loss keys %s differ from weight keys %s"
+                             % (sorted(self.losses), sorted(weights)))
+        self.weights = weights
+        reductions = [getattr(x, "reduction", "mean")
+                      for x in self.losses.values()]
+        self.reduction = (reductions[0] if len(set(reductions)) == 1
+                          else "mixed")
+
+    def _term(self, key, output, target):
+        return self.losses[key](output[key], target[key])
+
+    def __call__(self, output, target):
+        total, partial = ZERO, {}
+        for key in self.losses:
+            partial[key] = self.weights[key] * self._term(key, output,
+                                                          target)
+            total = total + partial[key]
+        return TotalWithIntermediate(total, **partial)
+
+
+class CombinationLoss(MultiheadLoss):
+    """The weighted sum of several losses on the same output and target
+    (compound_losses.py:100-109)."""
+
+    def _term(self, key, output, target):
+        return self.losses[key](output, target)
+
+
 CRITERIA = {"l1": L1Loss, "mse": MSELoss, "bce": BCELoss,
             "bce_with_logits": BCEWithLogitsLoss,
             "contrastive": ContrastiveLoss,
             "contrastive_multidesc": ContrastiveLossMultipleDescriptors,
-            "triplet": TripletLoss}
-#: the JAX registry's compound entries: the GAN steps compute them inside
+            "triplet": TripletLoss, "multihead_loss": MultiheadLoss,
+            "combination_loss": CombinationLoss}
+#: the JAX registry's other compound entries: the GAN steps compute them
+#: inside
 COMPUTED_BY_STEPS = ("cycle_loss", "discriminator_loss", "loss_set",
-                     "multihead_loss", "combination_loss",
                      "multilayer_patchnce_loss")
 
 

@@ -429,6 +429,19 @@ def build_cyclegan_step(models, optimizers, weights_GX, weights_GY):
     return step
 
 
+def refused_multihead_step(names):
+    """The step of a GAN build with multi-head members `names`: it raises.
+    The JAX GAN steps cannot run such a member (their `_apply` calls
+    `has_batch_stats`, a WrappedNet method the multi-head container
+    lacks), so there is no step to hold a port step against."""
+    def step(state, *batch):
+        raise NotImplementedError(
+            "GAN steps do not run multi-head members (%s): the JAX package's "
+            "steps call has_batch_stats, which its MultiheadModule lacks, so "
+            "it has no such step to hold one against" % ", ".join(names))
+    return step
+
+
 GAN_STEPS = {
     "hedngan": build_hedngan_step,
     "hedgan": build_hedgan_step,

@@ -19,7 +19,18 @@ JAX package, and a float input is cast likewise.
 `build_network_set` is the NetworkSet of the GAN configs (network.py:
 167-253): named WrappedNets, each with its `runtime.frozen`, and the
 `initialize` spec of each. A member given by `path:` (a warm start) is
-rewritten before, by scenarios/build.py::adopt_path_members.
+rewritten before, by scenarios/build.py::adopt_path_members. A
+`MultiheadNetwork` member is a WrappedNet around a `MultiheadModule`
+(`build_multihead_net`); a `SingleNetworkLink` member is its target's
+WrappedNet under a second name, so it shares the target's weights as the
+reference's link does (the JAX ModelSet gives a link variables of its
+own).
+
+`MultiheadModule` (the reference's MultiheadNetwork, network.py:756-879)
+is base -> optional split -> heads; `GlobalLocalModule` (its
+GlobalLocalNetwork, network.py:374-517) pools a global descriptor and
+makes the multi-scale local features of the grouping layers
+(models/grouping.py).
 """
 import copy
 from dataclasses import dataclass, field
@@ -31,8 +42,12 @@ from torch import nn
 from gandtr_tpu_torch.learning.wrappers import CirMultiscaleAggregation, \
     apply_wrapped, initialize_wrappers
 from gandtr_tpu_torch.models import initialize_model
+from gandtr_tpu_torch.models.extra_layers import l2norm_attention
 from gandtr_tpu_torch.models.layers import tensor_key
 from gandtr_tpu_torch.ops.maskprop import MaskState
+from gandtr_tpu_torch.ops.norm import l2n
+from gandtr_tpu_torch.ops.pooling import gem
+from gandtr_tpu_torch.ops.resize import scale_resize
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
@@ -188,23 +203,160 @@ def build_single_net(config, device="cpu"):
                       compute_dtype=dtype)
 
 
+class MultiheadModule(nn.Module):
+    """A shared base feeding heads (the reference's MultiheadNetwork,
+    network.py:756-879): an optional `split` WrappedNet turns the base's
+    output into one piece per head (a list or tuple, in head order), or,
+    with no split, every head takes the base's output. `base`, `split` and
+    the heads are WrappedNets (their wrappers and compute dtypes apply);
+    their modules are this module's children `base`, `split` and
+    `<head>`, so the state_dict keys are `base.*`, `split.*`, `<head>.*`.
+
+    `forward(x, head=None)`: the output of `head` (a head's name or
+    "base"), else of `default_output`, else the dict of "base" and every
+    head (network.py:818-839). The subnets run in this module's train
+    mode. `parameter_groups` maps "base", "split" or a head to its
+    optimizer multipliers {"lr": m, "weight_decay": m}
+    (learning/optimizers.py::multihead_mults)."""
+
+    def __init__(self, base, heads, default_output=None, split=None,
+                 parameter_groups=None):
+        super().__init__()
+        if default_output not in (None, "base") and \
+                default_output not in heads:
+            raise ValueError("default_output %r is neither base nor a head"
+                             % (default_output,))
+        if {"base", "split"} & set(heads):
+            raise ValueError("a head may not be named base or split")
+        self.nets = dict(base=base, **({"split": split} if split else {}),
+                         **heads)
+        for name, net in self.nets.items():
+            self.add_module(name, net.module)
+        self.head_names = tuple(heads)
+        self.default_output = default_output
+        self.parameter_groups = dict(parameter_groups or {})
+
+    def _pieces(self, h):
+        """Each head's input (network.py:826-828)."""
+        if "split" not in self.nets:
+            return {name: h for name in self.head_names}
+        pieces = self.nets["split"].apply(h, train=self.training)
+        if not isinstance(pieces, (list, tuple)) or \
+                len(pieces) != len(self.head_names):
+            # the JAX package zips whatever the split returns, so a single
+            # tensor is cut along its batch axis (ROADMAP, reference faults)
+            raise ValueError(
+                "the split must return one piece per head (%d), got %s"
+                % (len(self.head_names), type(pieces).__name__
+                   if not isinstance(pieces, (list, tuple))
+                   else "%d pieces" % len(pieces)))
+        return dict(zip(self.head_names, pieces))
+
+    def forward(self, x, head=None, **kwargs):
+        h = self.nets["base"].apply(x, train=self.training, **kwargs)
+        single = head if head is not None else self.default_output
+        if single == "base":
+            return h
+        pieces = self._pieces(h)
+        if single is not None:
+            return self.nets[single].apply(pieces[single],
+                                           train=self.training)
+        out = {"base": h}
+        out.update({name: self.nets[name].apply(pieces[name],
+                                                train=self.training)
+                    for name in self.head_names})
+        return out
+
+
+def build_multihead_net(config, device="cpu"):
+    """A WrappedNet around the MultiheadModule of a reference-style
+    MultiheadNetwork config ({type: MultiheadNetwork, network_order:
+    "base,split,head,...", runtime: {default_output, data},
+    parameter_groups: {...}, <name>: SingleNetwork config}), as the JAX
+    package's build_multihead_net (network.py:841-846): network_order names
+    the base, the split, then the heads; default_output is not the split;
+    the groups of the base and the split are renamed `base` and `split`;
+    `data_params` come from `runtime.data`, else the base's."""
+    config = dict(config)
+    config.pop("type", None)
+    order = [s.strip() for s in config.pop("network_order").split(",")]
+    runtime = dict(config.pop("runtime", {}) or {})
+    groups = dict(config.pop("parameter_groups", {}) or {})
+    if len(order) < 3:
+        raise ValueError("network_order %r names no head" % (order,))
+    base_name, split_name, *head_names = order
+    default_output = runtime.get("default_output")
+    if default_output not in order or default_output == split_name:
+        raise ValueError("default_output %r must be the base or a head of %r"
+                         % (default_output, order))
+    subs = {name: build_single_net(config[name], device=device)
+            for name in order}
+    rename = {base_name: "base", split_name: "split"}
+    module = MultiheadModule(
+        subs[base_name], {name: subs[name] for name in head_names},
+        default_output=rename.get(default_output, default_output),
+        split=subs[split_name],
+        parameter_groups={rename.get(k, k): v for k, v in groups.items()})
+    return WrappedNet(module=module, data_params=dict(
+        runtime.get("data") or subs[base_name].data_params or {}))
+
+
+class GlobalLocalModule:
+    """Global and local descriptors of one features net (the reference's
+    GlobalLocalNetwork, network.py:374-517): `features` is a WrappedNet
+    whose forward maps (N, H, W, 3) images to (N, h, w, C) feature maps,
+    channels last as everywhere in the port (the JAX package's NHWC).
+    `forward_global(x)` = l2n(pool_fn(features(x))), GeM with p 3 by
+    default; `forward_local(x)` returns, for each of `scales` (SCALES by
+    default, network.py:374-377), the (features (N, h, w, C), attention
+    (N, h, w, 1)) of the image resized by that scale (`scale_resize`), the
+    attention `l2norm_attention` by default. The weights are the features
+    net's."""
+
+    SCALES = (1.0, 0.7071, 0.5, 0.3536, 0.25)
+
+    def __init__(self, features, pool_fn=None, attention_fn=None,
+                 scales=None):
+        self.features = features
+        self.pool_fn = pool_fn or gem
+        self.attention_fn = attention_fn or l2norm_attention
+        self.scales = tuple(scales) if scales else self.SCALES
+
+    def forward_global(self, x):
+        return l2n(self.pool_fn(self.features.apply(x)))
+
+    def forward_local(self, x):
+        out = []
+        for s in self.scales:
+            f = self.features.apply(scale_resize(x, s) if s != 1.0 else x)
+            out.append((f, self.attention_fn(f)))
+        return out
+
+
 def build_network_set(config, device="cpu"):
     """({name: WrappedNet}, {name: initialize spec}) from a NetworkSet
-    config ({type: NetworkSet, <name>: SingleNetwork config, ...}); each
-    module on `device` with its own initial weights (the caller seeds or
-    loads them). A member set to null is left out."""
+    config ({type: NetworkSet, <name>: member config, ...}); each module on
+    `device` with its own initial weights (the caller seeds or loads
+    them). A member is a SingleNetwork, a MultiheadNetwork
+    (`build_multihead_net`) or a SingleNetworkLink (`link` or `network`
+    names its target): the target's WrappedNet itself, placed after the
+    other members as in the JAX package. A member set to null is left
+    out."""
     config = dict(config)
     if config.pop("type", "NetworkSet") != "NetworkSet":
         raise ValueError("not a NetworkSet config")
-    nets, init_specs = {}, {}
+    nets, init_specs, links = {}, {}, {}
     for name, sub in config.items():
         if sub is None:
             continue
         sub = dict(sub)
         kind = sub.pop("type", "SingleNetwork")
-        if kind != "SingleNetwork":
-            raise NotImplementedError("NetworkSet member %s of type %s is "
-                                      "not ported yet" % (name, kind))
+        if kind == "SingleNetworkLink":
+            links[name] = sub.get("link") or sub.get("network")
+            continue
+        if kind not in ("SingleNetwork", "MultiheadNetwork"):
+            raise NotImplementedError("NetworkSet member %s of type %s"
+                                      % (name, kind))
         if sub.get("path"):
             raise ValueError("NetworkSet member %s: a `path` member is "
                              "adopted before the set is built "
@@ -212,8 +364,15 @@ def build_network_set(config, device="cpu"):
                              % name)
         sub.pop("path", None)
         spec = sub.pop("initialize", None)
-        nets[name] = build_single_net(sub, device=device)
+        nets[name] = (build_multihead_net(sub, device=device)
+                      if kind == "MultiheadNetwork"
+                      else build_single_net(sub, device=device))
         if spec:
             init_specs[name] = dict(spec)
+    for name, target in links.items():
+        if target not in nets:
+            raise KeyError("NetworkSet link %s names no member %r"
+                           % (name, target))
+        nets[name] = nets[target]
     return nets, init_specs
 

@@ -17,6 +17,12 @@ Parameter groups follow the reference's `parameter_groups`:
   for the score heads and x0.001 / x0.002 for the fusion; weight decay on
   the weights only.
 
+A multi-head net (learning/network.py::MultiheadModule) takes its
+config-level `parameter_groups` instead (network.py:764, 482-496; the JAX
+package's `multihead_group_mults`): every parameter of subnet `base`,
+`split` or `<head>` at lr x `parameter_groups[subnet]["lr"]` and weight
+decay x `["weight_decay"]`, 1.0 for a subnet or key not named.
+
 Each group keeps its `lr_mult`, so a schedule sets lr = base_lr * lr_mult
 * factor (`set_learning_rate`). Weight decay is torch's own: L2 added to
 the gradient, as the JAX package's `_decay_per_leaf` adds it before the
@@ -63,24 +69,39 @@ GROUP_MULTS = {"cirnet": _cirnet_mults, "cirnet_inchan": _cirnet_mults,
                "hed_interpolation": _hed_mults}
 
 
-def param_groups(architecture, named_parameters):
+def multihead_mults(parameter_groups):
+    """The (lr_mult, wd_mult) of a multi-head net's parameter by its name
+    (`<subnet>.<...>`), from the net's `parameter_groups`."""
+    def mults(name):
+        group = parameter_groups.get(name.split(".", 1)[0]) or {}
+        return (float(group.get("lr", 1.0)),
+                float(group.get("weight_decay", 1.0)))
+    return mults
+
+
+def param_groups(architecture, named_parameters, parameter_groups=None):
     """[(lr_mult, wd_mult, [params])] for `architecture`: its table in
     GROUP_MULTS, or one group for an architecture the reference gives no
-    groups (the GAN generators and discriminators)."""
+    groups (the GAN generators and discriminators); by subnet for a
+    multi-head net's `parameter_groups`."""
     groups = {}
+    mults = (multihead_mults(parameter_groups)
+             if parameter_groups is not None
+             else GROUP_MULTS.get(architecture))
     for name, p in named_parameters:
         if not p.requires_grad:
             continue
-        mults = GROUP_MULTS.get(architecture)
         key = mults(name) if mults else (1.0, 1.0)
         groups.setdefault(key, []).append(p)
     return [(lr, wd, ps) for (lr, wd), ps in groups.items()]
 
 
-def initialize_optimizer(params, named_parameters, architecture=""):
+def initialize_optimizer(params, named_parameters, architecture="",
+                         parameter_groups=None):
     """A torch optimizer from a reference-style config: {algorithm: adam,
     lr, beta1, beta2, weight_decay} or {algorithm: sgd, lr, momentum,
-    weight_decay}. Returns (optimizer, base_lr)."""
+    weight_decay}, its groups by `param_groups`. Returns (optimizer,
+    base_lr)."""
     params = dict(params)
     algorithm = params.pop("algorithm")
     if algorithm not in ("adam", "sgd"):
@@ -89,8 +110,8 @@ def initialize_optimizer(params, named_parameters, architecture=""):
     wd = float(params.pop("weight_decay", 0.0))
     groups = [{"params": ps, "lr": lr * lr_mult, "weight_decay": wd * wd_mult,
                "lr_mult": lr_mult}
-              for lr_mult, wd_mult, ps in param_groups(architecture,
-                                                       named_parameters)]
+              for lr_mult, wd_mult, ps in param_groups(
+                  architecture, named_parameters, parameter_groups)]
     if algorithm == "sgd":
         return torch.optim.SGD(groups, lr=lr,
                                momentum=float(params.pop("momentum", 0.0)),

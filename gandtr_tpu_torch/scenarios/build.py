@@ -56,6 +56,14 @@ The JAX package's opt-in knobs, each off by default under the same key:
   from a local network file (`adopt_path_members`), loaded strictly in
   place of the seeded weights and of `pretrained:`.
 
+A `MultiheadNetwork` member builds, takes its `initialize:` spec subnet
+by subnet (base, split, heads, each drawn from the spec's seed, as the
+JAX package's init_all does) and its optimizer by its `parameter_groups`;
+but no GAN step runs one: the step raises (as the JAX steps cannot run
+one: their `has_batch_stats` is a WrappedNet method the multi-head
+container lacks). A `SingleNetworkLink` member is its target's network
+and is not drawn again.
+
 Not ported: data-parallel training (ROADMAP A.6).
 """
 import copy
@@ -76,7 +84,8 @@ from gandtr_tpu_torch.learning.checkpoints import Checkpoints
 from gandtr_tpu_torch.learning.criteria import check_criterion_losses
 from gandtr_tpu_torch.learning.events import initialize_processor
 from gandtr_tpu_torch.learning.image_pool import ImagePool
-from gandtr_tpu_torch.learning.network import build_network_set
+from gandtr_tpu_torch.learning.network import (MultiheadModule,
+                                               build_network_set)
 from gandtr_tpu_torch.learning.optimizers import (alternate,
                                                   initialize_optimizer)
 from gandtr_tpu_torch.learning.schedules import initialize_schedule
@@ -158,8 +167,12 @@ def adopt_path_members(config):
 
 def _init_nets(nets, init_specs, net_cfg, seed, device, path_states):
     """Seed, load and place every member; a path member takes its file's
-    weights; the teacher copies the student."""
+    weights; the teacher copies the student; a multi-head member's
+    `initialize:` spec draws each subnet in turn; a link shares its
+    target's weights."""
     for i, (name, net) in enumerate(nets.items()):
+        if any(net is nets[other] for other in list(nets)[:i]):
+            continue      # a SingleNetworkLink: its target's network
         if name in path_states:
             # the file covers every parameter: its weights stand in for the
             # seeded ones and for any `pretrained:` of its model config
@@ -169,8 +182,12 @@ def _init_nets(nets, init_specs, net_cfg, seed, device, path_states):
         if spec:
             # the whole dict reaches the scheme, as the JAX package passes
             # it: `init_gain` sets the p2p gain
-            initialize_weights(net.module, spec.pop("weights", "normal_p2p"),
-                               spec.pop("seed", 0), **spec)
+            scheme, seed_ = spec.pop("weights", "normal_p2p"), \
+                spec.pop("seed", 0)
+            subnets = (net.module.nets.values()
+                       if isinstance(net.module, MultiheadModule) else [net])
+            for sub in subnets:
+                initialize_weights(sub.module, scheme, seed_, **spec)
         else:
             _init_random(net.module, seed + i)
         load_pretrained(net.module,
@@ -294,7 +311,8 @@ def build_gan_experiment(params, directory=None, device=None):
         arch = ((net_cfg.get(name) or {}).get("model") or {}) \
             .get("architecture", "")
         optimizers[name], base_lr[name] = initialize_optimizer(
-            dict(cfg), nets[name].module.named_parameters(), arch)
+            dict(cfg), nets[name].module.named_parameters(), arch,
+            getattr(nets[name].module, "parameter_groups", None))
     optimizers = alternate(optimizers, composition)
     epochs = int(train_cfg.get("epochs", 1))
     sched_cfg = dict(train_cfg.get("scheduler") or {})
@@ -317,9 +335,16 @@ def build_gan_experiment(params, directory=None, device=None):
                         bool(it_cfg.get("concat_student", False)),
                         "emit_targets": bool(cache_cfg)}
     weights = [dict(w or {}) for w in weights]
-    step = gan_steps.GAN_STEPS[family](nets, optimizers, *weights,
-                                       **step_options)
+    multihead = [name for name, net in nets.items()
+                 if isinstance(net.module, MultiheadModule)]
     batch_to_args = lambda b: (upload(b[0], dev), upload(b[1], dev))  # noqa
+    if multihead:
+        # no knob wraps a step that refuses
+        step, cache_cfg, dsc = \
+            gan_steps.refused_multihead_step(multihead), None, None
+    else:
+        step = gan_steps.GAN_STEPS[family](nets, optimizers, *weights,
+                                           **step_options)
     if cache_cfg:
         step = TeacherTargetCachingStep(
             step, gan_steps.build_hedngan_step(

@@ -75,7 +75,12 @@ reference's PatchSampleF.
 The fine-tune tree {"augment": variables, "embed": variables} (the JAX
 fine-tune state's `variables`) gives {"augment": state_dict, "embed":
 state_dict}, the generator's batch statistics and the GeM `p` included;
-a GAN state's {"generator_X": ..., "detector": ..., ...} likewise.
+a GAN state's {"generator_X": ..., "detector": ..., ...} likewise. A
+multi-head net's tree {"base": variables, "split": ..., "<head>": ...}
+(it always has "base") gives the one state_dict of the port's
+MultiheadModule, each subnet's keys under "base.", "split." or
+"<head>.". A grouping codebook, which the JAX package holds as a bare
+(K, D) array, gives a Codebook's {"codebook": (K, D)}.
 
 `load_pretrained` fills a module from a model config's `pretrained:`
 entry: a local checkpoint loads strictly (every parameter covered), null
@@ -232,9 +237,18 @@ def _layout(path, value):
 def from_jax_variables(variables):
     """{'params': {...}[, 'batch_stats': {...}]} of numpy arrays ->
     {torch name: tensor}; a tree of such trees by net name (the fine-tune's
-    {'augment', 'embed'}) -> {net name: state_dict}."""
+    {'augment', 'embed'}) -> {net name: state_dict}; a multi-head tree
+    {'base', ['split',] '<head>', ...} -> one state_dict, prefixed by
+    subnet; a codebook array -> {'codebook': tensor}."""
+    if not hasattr(variables, "items"):
+        return {"codebook": torch.from_numpy(np.array(variables, np.float32))}
     if "params" not in variables:
-        return {name: from_jax_variables(v) for name, v in variables.items()}
+        nets = {name: from_jax_variables(v) for name, v in variables.items()}
+        if "base" not in variables:
+            return nets
+        return {"%s.%s" % (name, key): value
+                for name, state in nets.items() for key, value in
+                state.items()}
     out = {}
     name = _key_map(variables["params"])
     for collection in ("params", "batch_stats"):

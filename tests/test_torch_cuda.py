@@ -803,3 +803,54 @@ def test_descriptor_nets_on_the_card(cuda, model):
         want = net(x)
         got = net.to(cuda)(x.to(cuda)).cpu()
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n,K,D,k", [(3000, 2000, 512, 1), (500, 700, 64, 3),
+                                     (41, 4096, 512, 1)])
+def test_grouping_chunked_nearest_bit_equal_on_card(cuda, n, K, D, k):
+    """The chunked nearest-centroid search (models/grouping.py::nearest) on
+    the card: every chunk width gives the unchunked result bit for bit,
+    ties to the lower index."""
+    from gandtr_tpu_torch.device import set_float32_policy
+    from gandtr_tpu_torch.models.grouping import GEMM_ROWS, nearest
+    set_float32_policy()
+    rs = np.random.RandomState(12)
+    a = torch.from_numpy(rs.randn(n, D).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rs.randn(K, D).astype(np.float32)).to(cuda)
+    b[7] = b[3]
+    want = nearest(a, b, k, chunk=K)
+    for chunk in (GEMM_ROWS, 3 * GEMM_ROWS, 1000):
+        got = nearest(a, b, k, chunk=chunk)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool((want[1] == 7).any())
+
+
+@pytest.mark.parametrize("top", [None, 24])
+def test_grouping_hard_path_bit_equal_twice_on_card(cuda, top):
+    """The hard path (res, top-1, uniform, l2norm, maxass), with and
+    without top-centroid reduction, twice on the card: descriptors,
+    weights and the gradients into the features and the codebook bit for
+    bit (its sums per centroid add with no atomics); within 1e-5 of the
+    CPU port."""
+    from gandtr_tpu_torch.models.grouping import Codebook
+    rs = np.random.RandomState(13)
+    book = rs.randn(96, 32).astype(np.float32)
+    feats = [book[rs.randint(96, size=n)] + 0.3 * rs.randn(n, 32)
+             for n in (700, 650, 500)]
+    runs = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        cb = Codebook(book, "res", "top", "uniform", "l2norm", "maxass",
+                      top_centroids=top).to(dev)
+        ims = [(torch.tensor(f, dtype=torch.float32, device=dev,
+                             requires_grad=True),
+                torch.ones(f.shape[0], 1, device=dev)) for f in feats]
+        d, w = cb(ims)
+        R = torch.from_numpy(rs.__class__(14).randn(*d.shape).astype(
+            np.float32)).to(dev)
+        (d * R).sum().backward()
+        runs.append([t.detach().cpu() for t in
+                     [d, w, cb.codebook.grad] + [f.grad for f, _ in ims]])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    for a, b in zip(runs[0], runs[2]):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))

@@ -442,7 +442,7 @@ def test_loss_value_arithmetic_against_jax():
     assert float(p[3]) == float(j[3])
 
 
-@pytest.mark.parametrize("name", ["multihead_loss", "cycle_loss",
+@pytest.mark.parametrize("name", ["discriminator_loss", "cycle_loss",
                                   "multilayer_patchnce_loss"])
 def test_step_computed_criteria_raise_by_name(name):
     with pytest.raises(NotImplementedError, match=name):

@@ -211,8 +211,19 @@ def test_build_refuses_what_is_not_ported(tmp_path, path, value, match):
     """The blur-pool and U-Net members, once refused, are ported: the
     blur-pool cases now build, with the blur steps the config names; the
     U-Net takes none of the ResNet generator's keys (`no_antialias`, ...)
-    and raises TypeError on them, as the JAX package's does."""
+    and raises TypeError on them, as the JAX package's does. The
+    MultiheadNetwork and SingleNetworkLink members are ported too
+    (tests/test_torch_containers.py; the ids keep their old match text):
+    a SingleNetwork's keys name no `network_order` and no link target, so
+    both packages raise KeyError."""
     cfg = _cfg_with(tmp_path, path, value)
+    if value in ("MultiheadNetwork", "SingleNetworkLink"):
+        from gandtr_tpu.learning.network import build_model_set
+        with pytest.raises(KeyError):
+            build_model_set(copy.deepcopy(cfg["network"]))
+        with pytest.raises(KeyError, match="network_order|no member"):
+            build_gan_experiment(cfg, device="cpu")
+        return
     if "blur-pool" in match:
         exp = build_gan_experiment(cfg, device="cpu")
         module = exp["models"][path[1]].module

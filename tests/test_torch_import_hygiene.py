@@ -32,7 +32,8 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "serving.pq", "scenarios.index_stage", "scenarios.export_stage",
           "utils.file_readers", "learning.teacher_cache",
           "learning.tensorboard", "models.unet", "models.extra_layers",
-          "ops.colorspace", "learning.wrappers", "data.histogram_consts")
+          "ops.colorspace", "learning.wrappers", "data.histogram_consts",
+          "models.grouping")
 
 torch.set_num_threads(1)
 
@@ -81,6 +82,44 @@ def test_the_data_side_runs_without_jax(tmp_path):
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
                          cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_model_side_runs_without_jax():
+    """The grouping layers (hard and soft assignment, per-batch
+    clustering, a computed codebook), a multi-head member with a link,
+    GlobalLocalModule and the compound criteria load nothing of JAX when
+    they run."""
+    code = (
+        "import sys, torch\n"
+        "from gandtr_tpu_torch.models import grouping as G\n"
+        "from gandtr_tpu_torch.learning import network as N\n"
+        "from gandtr_tpu_torch.learning.criteria import "
+        "initialize_criterion\n"
+        "f, a = torch.rand(20, 4), torch.rand(20, 1)\n"
+        "for near in ('top', 'all'):\n"
+        "    G.LoadedCodebook(torch.rand(8, 4).numpy(), 'res', near, "
+        "'softmax-2', 'l2norm', 'maxass')([(f, a)])\n"
+        "G.BatchClustering(3, 'res', 'top', 'uniform', 'l2norm', 'maxass', "
+        "'kmeans', 2, outputdim=4)([(f, a)])\n"
+        "G.ClusteringCodebook(3, 'res', 'top', 'uniform', 'l2norm', "
+        "'maxass', outputdim=4).compute_codebook(f)\n"
+        "sub = {'model': {'architecture': 'identity'}}\n"
+        "nets, _ = N.build_network_set({'m': {'type': 'MultiheadNetwork', "
+        "'network_order': 'b,s,h', 'runtime': {'default_output': 'b'}, "
+        "'b': sub, 's': sub, 'h': sub}, 'l': {'type': 'SingleNetworkLink', "
+        "'link': 'm'}})\n"
+        "nets['l'].apply(torch.rand(1, 4, 4, 3))\n"
+        "N.GlobalLocalModule(nets['m']).forward_local(torch.rand(1, 8, 8, "
+        "3))\n"
+        "initialize_criterion({'loss': 'combination_loss', 'weights': 1, "
+        "'x': {'loss': 'l1'}})(f, a)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'gandtr_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
 
