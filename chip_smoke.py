@@ -352,7 +352,34 @@
    group's lr and weight decay as configured, each subnet moved by at
    most its lr, the weights within 1e-5 of the same step on the CPU port.
    Prints each part and the phase's seconds.
-19. Stage breakdowns of one batch of each served path, the `{"kernels":
+19. Data parallelism, the sharded artifacts and the native decoder
+   (`run_parallel`, parallel/mesh.py), each part with every launch count
+   set to 0 just before it and read just after: (a) two ranks on the one
+   card over gloo (torch.multiprocessing, CUDA tensors; NCCL refuses two
+   ranks on one device): finetune.yml's bf16 step at T=4 of S=7 in the
+   364 bucket (2 tuples a rank, K2 2 and K4 1 a tuple on each rank)
+   against one process's step on the same global batch by §2's step rule
+   (loss 1%, tuple 0's descriptors 5e-3 after the step, weights 1e-4 of
+   their largest), and one HED^N-GAN step of train_hedngan.yml at full
+   width, batch 10 of 256² (5 a rank, BatchNorm over the global batch)
+   against one process's: the gradients each optimizer steps with (after
+   the all-reduce) bit-equal on both ranks and within PAR_GAN_GRAD_REL
+   relative norm (G 0.1, D and the student 1e-3), a control (the ranks
+   with the all-reduce off) beyond it on every optimizer, losses 1e-3
+   relative, weights within 2 lr, statistics 1e-5 (G) and 1e-3 (D);
+   (b) one rank over NCCL: the fine-tune step bit-equal
+   to the run without a group; (c) eval.yml's extraction of 8 of (8)'s
+   seeded photos over the two ranks, exact (K1) and bucketed (K4), each
+   rank 4, bit-equal to one process's; (d) the served generator (K3) and
+   descriptor (K1) artifacts exported sharded 2 ways at 4 rows a share and
+   loaded on [cuda:0, cuda:0] (a stream a share) against the unsharded
+   artifacts on 8 photos: 1 uint8 level, 1e-4; K3 18 and K1 2 a batch;
+   (e) which decoder runs (the build error where the native one did not
+   build); where it built, 24 seeded JPEGs and PNGs decoded byte-equal to
+   PIL, and its 6-thread pool's images/s beside PIL's on 6 threads. Times
+   are the card's own (this card, one process or two ranks sharing it);
+   no multi-card speed is claimed.
+20. Stage breakdowns of one batch of each served path, the `{"kernels":
    [...]}` line (each kernel with its launches by path, K1 and K4 with
    their times at the eval's geometry and the r101 inputs), the card's
    line again, and last `{"ok": true, "device": {...}}`.
@@ -7301,6 +7328,455 @@ def _scale1(image, local):
     return image[0][:h * w], image[1][:h * w]
 
 
+# ---- 20. data parallelism, sharded artifacts and the native decoder
+PAR_T = 4            # the 2-rank fine-tune step's tuples (2 a rank)
+PAR_GAN_BATCH = 10   # the HED^N-GAN step's global batch (5 a rank)
+PAR_GAN_HW = 256
+PAR_EVAL_IMAGES = 8  # eval photos extracted over the ranks
+PAR_GAN_METRIC_REL = 1e-3    # §2: a GAN step's losses, card vs card
+# the gradients each optimizer steps with, relative norm against one
+# process's: G's pass the L1 edge loss on 256² maps, whose subgradient
+# turns sign at near-ties, so rounding that turns a few pixels moves
+# them by percents (PERF.md §6, call 5)
+PAR_GAN_GRAD_REL = {"generator_X": 0.1, "discriminator_Y": 1e-3,
+                    "detector": 1e-3}
+PAR_DECODE = 24      # photos decoded by the native pool and by PIL
+
+
+def _par_gan_cfg(parallel):
+    """train_hedngan.yml as shipped at full width (GAN_TRAIN), the HED
+    files seeded, without its data section: the step alone."""
+    import copy
+    cfg = copy.deepcopy(GAN_TRAIN)
+    for k in ("detector", "detector_frozen"):
+        cfg["network"][k]["model"]["pretrained"] = None
+    cfg["learning"]["training"]["parallel"] = parallel
+    cfg.pop("data", None)
+    return cfg
+
+
+def _par_ft_cfg(parallel):
+    cfg = finetune_config()
+    cfg["learning"]["training"]["parallel"] = parallel
+    cfg["data"]["train"]["loader"]["batch_size"] = PAR_T
+    return cfg
+
+
+def _par_finetune(dev, parallel):
+    """finetune.yml's bf16 step at T=PAR_T on `dev` (the build data-
+    parallel under a group): its launches, loss, embed weights after Adam
+    and tuple 0's descriptors after the step."""
+    from gandtr_tpu_torch.scenarios.finetune_build import \
+        build_finetune_experiment
+    exp = build_finetune_experiment(_par_ft_cfg(parallel), device=dev)
+    batch = finetune_batch(dev, T=PAR_T)
+    torch.cuda.synchronize()
+    reset_launches()
+    state, m = exp["step"](exp["state"], *batch)
+    torch.cuda.synchronize()
+    counts = launches()
+    x, masks = exp["stage"](batch[0], batch[1])
+    return {"launches": counts, "loss": float(m["total"]),
+            "dp": bool(getattr(exp["step"], "gandtr_dp", False)),
+            "weights": {k: v.cpu() for k, v in _embed_params(exp).items()},
+            "desc": _descriptors(exp, x, masks, batch[3]).cpu()}
+
+
+def _step_grads(exp):
+    """A pre-step hook on each optimizer, registered after the build's
+    own (the data-parallel all-reduce), that keeps the gradients it steps
+    with on the host: {name: [one flat float32 tensor a step call]}."""
+    grads = {}
+    for name, o in exp["optimizers"].items():
+        opt = o if isinstance(o, torch.optim.Optimizer) else o.optimizer
+        grads[name] = []
+
+        def hook(opt, args, kwargs, _into=grads[name]):
+            _into.append(torch.cat([
+                p.grad.detach().reshape(-1).float()
+                for g in opt.param_groups for p in g["params"]
+                if p.grad is not None]).cpu())
+        opt.register_step_pre_hook(hook)
+    return grads
+
+
+def _par_gan(dev, parallel, X, Y, control=False):
+    """One HED^N-GAN step at full width on the global batch (X, Y): its
+    metrics, every net's weights and statistics after it, and the
+    gradients each optimizer stepped with. `control`: the same step with
+    the gradients' all-reduce off (each rank steps with its own rows'
+    gradients), the reading a broken step gives."""
+    from gandtr_tpu_torch.parallel import mesh
+    from gandtr_tpu_torch.scenarios.build import build_gan_experiment
+    exp = build_gan_experiment(_par_gan_cfg(parallel), device=dev)
+    grads = _step_grads(exp)
+    reduce_grads = mesh.all_reduce_grads
+    if control:
+        mesh.all_reduce_grads = lambda params, scale=1.0: None
+    try:
+        state, m, _ = exp["step"](exp["state"],
+                                  torch.from_numpy(X).to(dev),
+                                  torch.from_numpy(Y).to(dev))
+        torch.cuda.synchronize()
+    finally:
+        mesh.all_reduce_grads = reduce_grads
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "dp": bool(getattr(exp["step"], "gandtr_dp", False)),
+            "state": _gan_snapshot(exp), "grads": grads,
+            "lr": {n: max(g["lr"] for g in o.param_groups)
+                   for n, o in exp["optimizers"].items()}}
+
+
+def _grad_hashes(grads):
+    import hashlib
+    return {n: [hashlib.sha256(g.numpy().tobytes()).hexdigest()
+                for g in gs] for n, gs in grads.items()}
+
+
+def _par_extract(dev, root, lw_path, paths):
+    """Eval extraction of `paths` by eval.yml's chain, exact (K1) and
+    bucketed (K4): {bucket: ((D, N) descriptors, launches)}."""
+    from gandtr_tpu_torch.eval.retrieval import extract_vectors
+    from gandtr_tpu_torch.scenarios.validate_stage import build_eval
+    out = {}
+    for bucket in (None, 64):
+        setup = build_eval(eval_params(root, lw_path, bucket), dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        vecs = extract_vectors(setup["extractor"], paths,
+                               EVAL["data"]["image_size"],
+                               setup["transform"])
+        out[bucket] = (vecs, launches())
+    return out
+
+
+def _parallel_rank(rank, world, port, job):
+    """One rank of run_parallel's gloo group on the one card: the 2-rank
+    fine-tune step, HED^N-GAN step and extraction; rank 0 writes what it
+    holds, every rank its launches."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    spec = torch.load(job, weights_only=False)
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
+                            rank=rank, world_size=world)
+    try:
+        dev = torch.device("cuda", 0)
+        out = {"finetune": _par_finetune(dev, {"devices": world}),
+               "gan": _par_gan(dev, {"devices": world}, *spec["gan_batch"]),
+               "gan_control": _par_gan(dev, {"devices": world},
+                                       *spec["gan_batch"], control=True),
+               "extract": _par_extract(dev, spec["root"], spec["lw"],
+                                       spec["paths"])}
+        out["gan"]["grad_hashes"] = _grad_hashes(out["gan"]["grads"])
+        if rank:
+            out = {"finetune": {"launches": out["finetune"]["launches"],
+                                "loss": out["finetune"]["loss"]},
+                   "extract": {b: (None, c) for b, (_, c)
+                               in out["extract"].items()},
+                   "gan": {"grad_hashes": out["gan"]["grad_hashes"]}}
+        torch.save(out, "%s.%d" % (job, rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rel_max(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / max(float(b.double().abs().max()), 1e-30))
+
+
+def _par_check_finetune(r0, r1, one):
+    """PERF.md §2's step rule, 2 ranks against one process on the same
+    global batch: the loss within 1%, tuple 0's descriptors within 5e-3,
+    the updated weights' largest difference within 1e-4 of their largest
+    value; K2 2 and K4 1 a tuple on each rank."""
+    loss_rel = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+    desc = float((r0["desc"] - one["desc"]).abs().max())
+    w = max(_rel_max(r0["weights"][k], v) for k, v in one["weights"].items())
+    per_rank = PAR_T // 2
+    out = {"loss_rel": loss_rel, "desc_max": desc, "weights_rel": w,
+           "launches_rank0": r0["launches"], "launches_rank1": r1["launches"]}
+    print("parallel (a) fine-tune step, 2 ranks vs one process: %s"
+          % json.dumps(out))
+    for r in (r0, r1):
+        if r["launches"]["K2"] != 2 * per_rank or \
+                r["launches"]["K4"] != per_rank:
+            raise AssertionError("a rank launched %s for %d tuples"
+                                 % (r["launches"], per_rank))
+    if not (r0["dp"] and loss_rel <= 1e-2
+            and desc <= 5e-3 and w <= 1e-4):
+        raise AssertionError("the 2-rank fine-tune step is off: %s" % out)
+    return out
+
+
+def _gan_distance(r, one):
+    """(each optimizer's gradients: the largest relative norm of the
+    difference over its step calls, each net's BatchNorm statistics: the
+    largest difference over their size, each trained net's largest
+    weight difference in units of its largest group lr) of run `r`
+    against `one`."""
+    lr = one["lr"]
+    grads = {n: max(float(torch.linalg.vector_norm((a - b).double())
+                          / torch.linalg.vector_norm(b.double()))
+                    for a, b in zip(r["grads"][n], gs))
+             for n, gs in one["grads"].items() if gs}
+    worst, stats = {}, {}
+    for name, sd in one["state"].items():
+        for k, v in sd.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            got = r["state"][name][k]
+            if "running" in k:
+                stats[name] = max(stats.get(name, 0.0), _rel_max(got, v))
+            elif name in lr:
+                d = float((got.double() - v.double()).abs().max())
+                worst[name] = max(worst.get(name, 0.0), d / lr[name])
+    return grads, stats, worst
+
+
+def _par_check_gan(r0, r1, control, one):
+    """The 2-rank HED^N-GAN step with global BatchNorm against one
+    process: the gradients each optimizer steps with (summed over the
+    ranks and scaled) within their PAR_GAN_GRAD_REL relative norm of one
+    process's, and bit-equal on both ranks; the losses within
+    PAR_GAN_METRIC_REL relative (phase 11's card-vs-CPU rule); every
+    trained weight within 2 lr (Adam's first step, at each net's largest
+    group lr); the generator's BatchNorm statistics (one forward, before
+    any update) within 1e-5 of their size, the discriminator's within
+    1e-3 (its third forward runs after its update, on weights that may
+    differ by 2 lr). The control (the same ranks with the all-reduce off)
+    must be beyond its PAR_GAN_GRAD_REL on every optimizer, so the
+    gradient rule can tell a broken step; its readings are printed
+    beside."""
+    rel = max(abs(r0["metrics"][k] - v) / max(abs(v), 1e-6)
+              for k, v in one["metrics"].items())
+    grads, stats, worst = _gan_distance(r0, one)
+    c_grads, c_stats, c_worst = _gan_distance(control, one)
+    out = {"metrics_rel": rel, "grads_rel": grads, "bn_stats_rel": stats,
+           "weights_in_lr": worst,
+           "grads_ranks_equal": r0["grad_hashes"] == r1["grad_hashes"],
+           "control": {"grads_rel": c_grads, "bn_stats_rel": c_stats,
+                       "weights_in_lr": c_worst}}
+    print("parallel (a) HED^N-GAN step, batch %d at %d², 2 ranks vs one "
+          "process: %s" % (PAR_GAN_BATCH, PAR_GAN_HW, json.dumps(out)))
+    if not (r0["dp"] and out["grads_ranks_equal"]
+            and sorted(grads) == sorted(PAR_GAN_GRAD_REL)
+            and all(grads[n] <= PAR_GAN_GRAD_REL[n] for n in grads)
+            and all(c_grads.get(n, 0.0) > PAR_GAN_GRAD_REL[n] for n in grads)
+            and rel <= PAR_GAN_METRIC_REL
+            and stats.get("generator_X", 1.0) <= 1e-5
+            and stats.get("discriminator_Y", 1.0) <= 1e-3
+            and all(v <= 2.0 for v in worst.values())):
+        raise AssertionError("the 2-rank GAN step is off: %s" % out)
+    return out
+
+
+def _par_nccl(dev, one):
+    """(b) one rank over NCCL: the fine-tune step bit-equal to the run
+    without a process group."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:%d"
+                            % _free_port(), rank=0, world_size=1)
+    try:
+        r = _par_finetune(dev, {"devices": 1})
+    finally:
+        dist.destroy_process_group()
+    same = (r["dp"] and r["loss"] == one["loss"]
+            and all(torch.equal(r["weights"][k], v)
+                    for k, v in one["weights"].items())
+            and torch.equal(r["desc"], one["desc"]))
+    print("parallel (b) NCCL world 1: data-parallel %s, bit-equal to no "
+          "group %s, launches %s" % (r["dp"], same, r["launches"]))
+    if not same:
+        raise AssertionError("the NCCL world-1 step differs")
+    return r["launches"]
+
+
+def _par_artifacts(dev, tmp):
+    """(d) the served generator (hub cyclegan, bf16) and descriptor (hub
+    GeM-VGG16, 3 scales, the seeded Lw) as artifacts sharded 2 ways on
+    [cuda:0, cuda:0] (4 rows a share, each on its own stream) against
+    their unsharded artifacts (bucket 8) on the same 8 photos: the
+    generator within one uint8 level, the descriptors within 1e-4; K3 9
+    and K1 once a share; ms a batch of 8 each way (the card's own)."""
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.serving.export import (export_hub_model,
+                                                 export_sharded_model,
+                                                 load_artifact)
+    images = np.random.RandomState(5).randint(
+        0, 256, (N_REQ,) + HW + (3,), dtype=np.uint8)
+    gen = hub.cyclegan(pretrained=False)
+    gen.net.compute_dtype = torch.bfloat16
+    emb = hub.gem_vgg16_hedngan(pretrained=False, whitening=seeded_lw())
+    out, counts = {}, {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    for kind, model in (("generator", gen), ("descriptor", emb)):
+        t0 = time.perf_counter()
+        sp, up = os.path.join(tmp, kind + "_sharded"), \
+            os.path.join(tmp, kind + "_plain")
+        export_sharded_model(model, sp, HW, 2, batch_per_device=N_REQ // 2)
+        export_hub_model(model, up, HW, batch_buckets=(N_REQ,))
+        export_s = time.perf_counter() - t0
+        sharded = load_artifact(sp, devices=[dev, dev])
+        plain = load_artifact(up, device=dev)
+        want = plain(images)
+        sharded(images)     # loads the programs
+        torch.cuda.synchronize()
+        reset_launches()
+        got = sharded(images)
+        torch.cuda.synchronize()
+        c = launches()
+        for k in counts:
+            counts[k] += c[k]
+        ms = {"sharded_ms": 1e3 * _wall(lambda: sharded(images)),
+              "plain_ms": 1e3 * _wall(lambda: plain(images))}
+        if kind == "generator":
+            diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+            ok = got.shape == want.shape and diff <= 1 and c["K3"] == 18
+        else:
+            diff = float(np.abs(got - want).max())
+            ok = got.shape == want.shape and diff <= 1e-4 and c["K1"] == 2
+        out[kind] = {"max_diff": diff, "launches": c, "export_s": export_s,
+                     **ms}
+        if not ok:
+            raise AssertionError("sharded %s artifact: %s" % (kind,
+                                                              out[kind]))
+    print("parallel (d) sharded artifacts on [cuda:0, cuda:0]: %s"
+          % json.dumps(out))
+    return out, counts
+
+
+def _wall(fn, reps=3):
+    """Median host seconds of fn() ending in a synchronise."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def _par_decoder(tmp, card):
+    """(e) which decoder runs, and where the native one built: its decode
+    of seeded JPEGs and PNGs byte-equal to PIL's, its 6-thread batch
+    decode against PIL on 6 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+    from gandtr_tpu_torch import native
+    from gandtr_tpu_torch.scenarios.run import decoder_line
+    print("parallel (e) %s" % decoder_line())
+    if not native.available():
+        return {"native": False, "build_error": str(native.build_error())}
+    rs = np.random.RandomState(9)
+    paths = []
+    for i in range(PAR_DECODE):
+        img = _photo(rs, *EVAL_SHAPES[i % len(EVAL_SHAPES)])
+        paths.append(os.path.join(tmp, "d%02d.%s" % (
+            i, "png" if i % 6 == 5 else "jpg")))
+        img.save(paths[-1], **({} if i % 6 == 5 else {"quality": 90}))
+
+    def pil(p):
+        with Image.open(p) as im:
+            return np.asarray(im.convert("RGB"))
+    with native.DecodePool(6) as pool:
+        outs = pool.decode_batch(paths)
+        for o, p in zip(outs, paths):
+            if o is None or not np.array_equal(o, pil(p)):
+                raise AssertionError("native decode of %s is not PIL's" % p)
+        t_nat = _host_s(lambda: pool.decode_batch(paths))
+    with ThreadPoolExecutor(6) as ex:
+        t_pil = _host_s(lambda: list(ex.map(pil, paths)))
+    out = {"native": True, "byte_equal_images": len(paths),
+           "native_images_per_s": len(paths) / t_nat,
+           "pil_images_per_s_6_threads": len(paths) / t_pil}
+    print("parallel (e) decode of %d photos up to 1280x960 (%s): %s"
+          % (len(paths), card, json.dumps(out)))
+    return out
+
+
+def _host_s(fn, reps=3):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def run_parallel(dev):
+    """Phase 19 (docstring item 19): data parallelism over torch.distributed
+    on the one card, the sharded artifacts and the native decoder. The
+    launch counts of the counted parts: each rank's of the 2-rank step and
+    extraction, and the parent's of the NCCL step and the artifacts."""
+    import tempfile
+    import torch.multiprocessing as mp
+    card = card_line()
+    t_phase = time.perf_counter()
+    totals = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+    def add(c):
+        for k in totals:
+            totals[k] += c[k]
+    with tempfile.TemporaryDirectory() as tmp:
+        lw_path = os.path.join(tmp, "lw.pkl")
+        import pickle
+        with open(lw_path, "wb") as f:
+            pickle.dump(seeded_lw(), f)
+        paths = make_eval_set(tmp)[:PAR_EVAL_IMAGES]
+        X, Y = _seeded_gan_batches(1, PAR_GAN_BATCH, PAR_GAN_HW, 3)[0]
+        job = os.path.join(tmp, "job.pt")
+        torch.save({"gan_batch": (X, Y), "root": tmp, "lw": lw_path,
+                    "paths": paths}, job)
+        t0 = time.perf_counter()
+        mp.spawn(_parallel_rank, args=(2, _free_port(), job), nprocs=2,
+                 join=True)
+        ranks_s = time.perf_counter() - t0
+        print("parallel: the two ranks took %.1f s" % ranks_s)
+        r0, r1 = (torch.load("%s.%d" % (job, r), weights_only=False)
+                  for r in (0, 1))
+
+        # the same work in one process, no group
+        one_ft = _par_finetune(dev, {"devices": 2})
+        ft = _par_check_finetune(r0["finetune"], r1["finetune"], one_ft)
+        gan = _par_check_gan(r0["gan"], r1["gan"], r0["gan_control"],
+                             _par_gan(dev, False, X, Y))
+        ex = {}
+        one_ex = _par_extract(dev, tmp, lw_path, paths)
+        for bucket, (vecs, c) in one_ex.items():
+            c0, c1 = r0["extract"][bucket][1], r1["extract"][bucket][1]
+            kern = "K4" if bucket else "K1"
+            equal = bool(np.array_equal(r0["extract"][bucket][0], vecs))
+            ex["bucketed" if bucket else "exact"] = {
+                "bit_equal": equal, kern + "_rank0": c0[kern],
+                kern + "_rank1": c1[kern]}
+            add(c0)
+            add(c1)
+            if not equal or c0[kern] != PAR_EVAL_IMAGES // 2 or \
+                    c1[kern] != PAR_EVAL_IMAGES // 2:
+                raise AssertionError("rank-sharded extraction: %s" % ex)
+        print("parallel (c) extraction of %d photos over 2 ranks: %s"
+              % (PAR_EVAL_IMAGES, json.dumps(ex)))
+        add(r0["finetune"]["launches"])
+        add(r1["finetune"]["launches"])
+        add(_par_nccl(dev, one_ft))
+        arts, c = _par_artifacts(dev, tmp)
+        add(c)
+        dec = _par_decoder(tmp, card)
+    out = {"finetune": ft, "gan": gan, "extract": ex, "artifacts": arts,
+           "decoder": dec, "ranks_s": ranks_s, "launches": totals,
+           "seconds": time.perf_counter() - t_phase}
+    print("parallel phase (%s): %.1f s, launches %s"
+          % (card, out["seconds"], json.dumps(totals)))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7518,6 +7994,12 @@ def main():
     torch.cuda.empty_cache()
     lm = run_local_multihead(dev)
     lap("local_multihead")
+
+    # ---- data parallelism over torch.distributed on the one card, the
+    # sharded artifacts, the native decoder
+    torch.cuda.empty_cache()
+    par = run_parallel(dev)
+    lap("parallel")
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
                    "finetune_loop": loop["launches"][k],
@@ -7530,7 +8012,8 @@ def main():
                    "training_options": opts["launches"][k],
                    "architectures": arch["launches"][k],
                    "data_side": data["launches"][k],
-                   "local_multihead": lm["launches"][k]}
+                   "local_multihead": lm["launches"][k],
+                   "parallel": par["launches"][k]}
                for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{

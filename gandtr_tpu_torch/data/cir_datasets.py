@@ -1,13 +1,19 @@
-"""Tuple datasets of the GeM fine-tune (counterpart of
-gandtr_tpu/data/cir_datasets.py; the reference's CirTuples and
-CirDiverseAnchors).
+"""Tuple datasets of the GeM fine-tune and the eval image list
+(counterpart of gandtr_tpu/data/cir_datasets.py; the reference's
+CirTuples, CirDiverseAnchors and CirImageList).
 
 Each epoch the miner picks the tuples [anchor, positive, negatives...];
 an item is one tuple as padded uint8 images in a square bucket with each
 image's valid (h, w), its loss labels and its augmentation gate. The
 generator's elementwise transform (/255, normalize) runs on the device in
 the step, so only uint8 crosses to the card; the JAX package's float host
-pipeline is not ported.
+pipeline is not ported (a dataset label's `transform` is not applied to
+tuples: its elementwise part runs in the step).
+
+An image root ending in `.h5` is an h5 image store (the reference's
+`flat_by_cid` layout, checked before use): its images are read lazily as
+`store.h5#<key>` paths (data/datasets.py::imread), keyed by cid for the
+tuple datasets and by the image's basename for `CirImageListDataset`.
 """
 import os
 import re
@@ -15,7 +21,7 @@ import re
 import numpy as np
 from PIL import Image
 
-from gandtr_tpu_torch.data.datasets import imread
+from gandtr_tpu_torch.data.datasets import imread, path_join
 from gandtr_tpu_torch.data.mining import TuplesMiner, cid2filename
 from gandtr_tpu_torch.learning.wrappers import (cir_hash_passthrough,
                                                 metadata_name)
@@ -51,6 +57,8 @@ def load_u8_padded(path, image_size, bucket):
 class TupleEpochDataset:
     """Mined tuples as padded uint8 buckets. An item is (imgs (S, B, B, 3)
     uint8, hws (S, 2) int32, labels (S,) float32, pass_mask (S,) bool)."""
+
+    loader_params = {"drop_last": True}
 
     def __init__(self, db, images, image_size, miner, augment_ratio=0.25,
                  augment_label="anc"):
@@ -121,13 +129,31 @@ def load_tuples_db(dataset_pkl, split, ims_root, dataset_name=None):
     db = load_pickle(path)[split]
     root = resolve_path(ims_root or "")
     if root.endswith(".h5"):
-        raise NotImplementedError("h5 image stores (%r) are not ported yet"
-                                  % root)
-    if "cids" in db:
+        # an h5 store keyed by cid: lazy `store.h5#cid` paths (the
+        # reference decodes the whole store up front)
+        _check_h5_store(root)
+        images = ["%s#%s" % (root, cid) for cid in db["cids"]]
+    elif "cids" in db:
         images = [cid2filename(cid, root) for cid in db["cids"]]
     else:
         images = [os.path.join(root, x) for x in db["ids"]]
     return db, images
+
+
+def _check_h5_store(path):
+    """The store's layout, as the reference asserts it before use
+    (traindataset.py:69, genericdataset.py:48): `storage_type` is
+    "flat_by_cid" (a str, bytes, or the reference's array form)."""
+    import h5py
+    with h5py.File(path, "r") as f:
+        storage = f.attrs["storage_type"]
+        if isinstance(storage, bytes):
+            storage = storage.decode("utf8")
+        elif not isinstance(storage, str):
+            storage = np.asarray(storage).tobytes().decode("utf8")
+        if storage != "flat_by_cid":
+            raise ValueError("h5 store %s has storage_type %r, not "
+                             "'flat_by_cid'" % (path, storage))
 
 
 def _count(value, default):
@@ -169,13 +195,104 @@ def _dataset(params, diverse):
     return TupleEpochDataset(db, images, image_size, miner)
 
 
-def cir_tuples_dataset(**params):
+def cir_tuples_dataset(data=(), transform=None, **params):
     """`CirTuples` (cirtorch_datasets.py): random-query hard-negative
-    mining."""
+    mining. `data` must be empty (the pickle names the images)."""
+    if data:
+        raise ValueError("CirTuples takes its images from its pickle")
     return _dataset(params, diverse=False)
 
 
-def cir_diverse_anchors_dataset(**params):
+def cir_diverse_anchors_dataset(data=(), transform=None, **params):
     """`CirDiverseAnchors` (cirtorch_datasets.py): diverse-anchor
     mining."""
+    if data:
+        raise ValueError("CirDiverseAnchors takes its images from its pickle")
     return _dataset(params, diverse=True)
+
+
+class CirImageListDataset:
+    """`CirImageList` (cirtorch_datasets.py:33-50 with ImagesFromList): a
+    list of images (with bbxs, and labels when `image_labels`), each
+    decoded, cropped to its bbx, resized by its longest side and
+    transformed; `ignore_errors` gives {} for an image that fails to load.
+    With `load_images_with_bbx` the queries are pre-cropped files named
+    `base.x1_y1_x2_y2.ext`. An `image_dir` ending in `.h5` is a store keyed
+    by each image's basename."""
+
+    loader_params = {}
+
+    def __init__(self, data, transform, image_dir="", image_size=None,
+                 image_labels=False, ignore_errors=False,
+                 load_images_with_bbx=False, **params):
+        if params:
+            raise ValueError("unused CirImageList params: %s"
+                             % sorted(params))
+        if image_labels:
+            *data, self.labels = data
+        else:
+            self.labels = None
+        self.images, self.bbxs = (data[0], None) if len(data) == 1 \
+            else data[:2]
+        image_dir = resolve_path(image_dir)
+        is_h5 = image_dir.endswith(".h5")
+        if not is_h5:
+            # the reference joins each name with the directory by
+            # path_join before ImagesFromList: the '*' extension rules and
+            # the default .jpg apply, and the bbx renaming works on the
+            # joined names
+            self.images = [path_join(image_dir, img) for img in self.images]
+            image_dir = ""
+        if load_images_with_bbx and self.bbxs:
+            # the +1e-10 gives the reference's rounding of half-integer
+            # coordinates
+            self.images = [self._bbx_filename(img, bbx) if bbx else img
+                           for img, bbx in zip(self.images, self.bbxs)]
+            self.bbxs = None
+        if is_h5:
+            _check_h5_store(image_dir)
+            self.images = ["%s#%s" % (image_dir, img.rsplit("/", 1)[-1])
+                           for img in self.images]
+            image_dir = ""
+        self.image_dir = image_dir
+        self.image_size = image_size
+        self.transform = transform
+        self.ignore_errors = ignore_errors
+
+    @staticmethod
+    def _bbx_filename(image, bbx):
+        dirpath, fname = image.rsplit("/", 1) if "/" in image \
+            else (None, image)
+        basename, ext = fname.split(".", 1) if "." in fname \
+            else (fname, None)
+        out = "%s.%d_%d_%d_%d" % (
+            (basename,) + tuple(round(x + 1e-10) for x in bbx))
+        if ext:
+            out = "%s.%s" % (out, ext)
+        if dirpath:
+            out = "%s/%s" % (dirpath, out)
+        return out
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        # a plain join (ImagesFromList's), no extension rules
+        name = self.images[i]
+        path = os.path.join(self.image_dir, name) if self.image_dir else name
+        try:
+            img = imread(path)
+        except Exception:
+            if self.ignore_errors:
+                return {}
+            raise
+        imfullsize = max(img.size)
+        cropped = self.bbxs is not None and self.bbxs[i]
+        if cropped:
+            img = img.crop(self.bbxs[i])
+        if self.image_size is not None:
+            scale = max(img.size) / imfullsize if cropped else 1.0
+            img = imresize(img, self.image_size * scale)
+        if self.transform:
+            img = self.transform(img)
+        return img

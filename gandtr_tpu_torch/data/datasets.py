@@ -10,13 +10,17 @@ makes item i's transform draws from the images' header sizes, and the
 loader calls it for its items in order, so a pool of threads gives every
 item the draws of the sequential loop.
 
-PIL decodes; the JAX package's native libjpeg decoder and its `store.h5#key`
-form are not ported yet. The two decoders give equal arrays on the same
-JPEGs (tests/test_torch_eval.py holds it), so descriptors do not depend on
-which one ran.
+`imread` decodes RGB images with the native decoder (native/, libjpeg
+and libpng on a C++ thread pool) where it built, else with PIL; the two
+give equal arrays (tests/test_torch_native_loader.py), so nothing
+downstream depends on which one ran. `GANDTR_TPU_NATIVE_LOADER=0` turns
+the native path off, as in the JAX package. A path `store.h5#key` reads
+the image from an HDF5 store (the reference's h5 image storage), through
+a cache of read handles.
 """
 import os
 import random
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -26,11 +30,45 @@ from PIL import Image, ImageFile
 ImageFile.LOAD_TRUNCATED_IMAGES = True
 
 
+# the native decode path, on by default (GANDTR_TPU_NATIVE_LOADER=0 off)
+_NATIVE_OK = os.environ.get("GANDTR_TPU_NATIVE_LOADER", "1") != "0"
+
+# Read handles of h5 stores: the loader's threads read a store once an
+# image an epoch, and opening the file each time pays HDF5's metadata cost
+# every time. h5py is not thread-safe without a thread-safe HDF5 build, so
+# the reads serialize under one lock (the decode dominates, not the read).
+_H5_HANDLES = {}
+_H5_LOCK = threading.Lock()
+
+
+def _h5_read(h5path, key):
+    import h5py
+    with _H5_LOCK:
+        f = _H5_HANDLES.get(h5path)
+        if f is None:
+            f = _H5_HANDLES[h5path] = h5py.File(h5path, "r")
+        try:
+            return np.asarray(f[key])
+        except KeyError:
+            # the store may have been written again since it was opened:
+            # reopen it once before failing
+            _H5_HANDLES.pop(h5path).close()
+            f = _H5_HANDLES[h5path] = h5py.File(h5path, "r")
+            return np.asarray(f[key])
+
+
 def imread(path, mode="RGB"):
-    """A PIL image of `path`, converted to `mode`."""
+    """A PIL image of `path`, converted to `mode`; `store.h5#key` reads
+    dataset `key` of an h5 store."""
     if ".h5#" in path:
-        raise NotImplementedError("h5 image stores (%r) are not ported yet"
-                                  % path)
+        h5path, key = path.split("#", 1)
+        return Image.fromarray(_h5_read(h5path, key)).convert(mode)
+    if _NATIVE_OK and mode == "RGB":
+        from gandtr_tpu_torch import native
+        if native.available():
+            arr = native.decode(path)
+            if arr is not None:
+                return Image.fromarray(arr)
     with open(path, "rb") as f:
         return Image.open(f).convert(mode)
 
@@ -272,12 +310,22 @@ class RandomDomainsPairDataset(_Planned):
         return self._load(idx)
 
 
+def _lazy_cir(name):
+    def build(data, transform, **params):
+        from gandtr_tpu_torch.data import cir_datasets
+        return getattr(cir_datasets, name)(data, transform, **params)
+    return build
+
+
 DATASET_LABELS = {
     "ImageList": ImageListDataset,
     "InferImageList": InferImageListDataset,
     "RandomImageTuple": RandomImageTupleDataset,
     "PregeneratedImageTuple": PregeneratedImageTupleDataset,
     "RandomDomainsPair": RandomDomainsPairDataset,
+    "CirTuples": _lazy_cir("cir_tuples_dataset"),
+    "CirDiverseAnchors": _lazy_cir("cir_diverse_anchors_dataset"),
+    "CirImageList": _lazy_cir("CirImageListDataset"),
 }
 
 
@@ -298,8 +346,9 @@ def initialize_dataset_loader(data, params, loader_defaults=None):
     name = dparams.pop("name")
     if name not in DATASET_LABELS:
         raise NotImplementedError("dataset %r is not ported yet" % name)
-    for key in ("dataset", "dataset_X", "dataset_Y", "image_dir",
-                "image_dir_Y"):
+    # the cir datasets resolve their own paths (their `dataset` is a name)
+    for key in () if name.startswith("Cir") else (
+            "dataset", "dataset_X", "dataset_Y", "image_dir", "image_dir_Y"):
         if isinstance(dparams.get(key), str):
             dparams[key] = resolve_path(dparams[key])
     dataset = DATASET_LABELS[name](data, transforms, **dparams)

@@ -14,6 +14,14 @@ image of a dataset is enqueued. With `shape_bucket`, images pad up to
 multiples of it and a mask rides along: the masked net (ops/maskprop.py)
 gives the exact-shape descriptors, CLAHE takes each image's own geometry
 (K4 on the card), and multiscale resizes each image's rectangle.
+
+Extraction is data-parallel two ways, as in the JAX package: an
+extractor given `devices` sends its successive batches round-robin to
+them, and under a process group (parallel/mesh.py) each rank extracts
+every N-th image and the descriptors are gathered back in input order.
+An image's descriptor does not depend on which rank or device ran it, so
+both give one process's descriptors bit for bit (with batch_size 1; a
+larger batch groups each rank's images among themselves).
 """
 import os
 from collections import deque
@@ -28,6 +36,7 @@ from gandtr_tpu_torch.device import upload
 from gandtr_tpu_torch.ops.maskprop import mask_from_sizes
 from gandtr_tpu_torch.ops.ranking import (compute_map_protocols,
                                           rank_descriptors)
+from gandtr_tpu_torch.parallel import mesh
 from gandtr_tpu_torch.utils.io import load_pickle
 
 DATASETS = ["oxford5k", "paris6k", "roxford5k", "rparis6k", "247tokyo1k"]
@@ -97,19 +106,28 @@ def qim_fname(cfg, i):
 
 
 class ShapeCachedExtractor:
-    """Descriptor extraction on one device.
+    """Descriptor extraction on a device, or round-robin over several.
 
     `forward(x)` (exact shapes) or `forward(x, mask, host_hw)` (with
     `shape_bucket`) maps an uploaded (N, H, W, C) batch to (N, D)
     descriptors on the device; `host_hw` is the list of each row's valid
     (h, w). Images that share a `group_key` can go through one `batch`.
     PyTorch needs no per-shape compile, so unlike the JAX package's class of
-    this name it caches nothing; the name is kept for the reader."""
+    this name it caches nothing; the name is kept for the reader.
 
-    def __init__(self, forward, shape_bucket=None, device="cpu"):
+    With `devices` (a list), successive calls go round-robin to them, as
+    the JAX package's do: the batch is uploaded there and `forward` must
+    run on the device it is given (the caller keeps a model on each). The
+    descriptors stay where they were made until the caller reads them."""
+
+    def __init__(self, forward, shape_bucket=None, device="cpu",
+                 devices=None):
         self.forward = forward
         self.shape_bucket = shape_bucket
         self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in devices] if devices \
+            else None
+        self._rr = 0
 
     def group_key(self, img_np):
         """The padded bucket shape when bucketing, else the exact shape."""
@@ -132,13 +150,21 @@ class ShapeCachedExtractor:
     def _upload(self, arr):
         return upload(arr, self.device)
 
+    def _next_device(self):
+        if not self.devices:
+            return self.device
+        d = self.devices[self._rr % len(self.devices)]
+        self._rr += 1
+        return d
+
     @torch.inference_mode()
     def _run(self, imgs_np):
+        dev = self._next_device()
         if not self.shape_bucket:
-            return self.forward(self._upload(np.stack(imgs_np)))
+            return self.forward(upload(np.stack(imgs_np), dev))
         padded, sizes = zip(*(self._pad_and_mask(im) for im in imgs_np))
-        x = self._upload(np.stack(padded))
-        hw = self._upload(np.asarray(sizes, np.int64))
+        x = upload(np.stack(padded), dev)
+        hw = upload(np.asarray(sizes, np.int64), dev)
         mask = mask_from_sizes((hw[:, 0], hw[:, 1]), x.shape[1], x.shape[2])
         return self.forward(x, mask, list(sizes))
 
@@ -196,8 +222,13 @@ def extract_vectors(extractor, image_paths, image_size, transform, bbxs=None,
     With batch_size > 1, images of one `group_key` are buffered and run
     together; the buffer is capped, and at the cap the fullest group runs as
     a partial batch. Descriptors stay on the device until all are enqueued.
+    Under a process group this rank extracts images r, r + N, ... and the
+    descriptors of all are gathered back in input order.
     """
-    n = len(image_paths)
+    n_all = len(image_paths)
+    owners = [mesh.strided_share(n_all, r) for r in range(mesh.world_size())]
+    mine = owners[mesh.rank()]
+    n = len(mine)
     vecs = [None] * n
     done = 0
 
@@ -212,7 +243,8 @@ def extract_vectors(extractor, image_paths, image_size, transform, bbxs=None,
         if done % print_freq < len(batch) or done == n:
             print("\r>>>> {}/{} done...".format(done, n), end="")
 
-    def load(i):
+    def load(j):
+        i = mine[j]
         return _load_preprocessed(image_paths[i], image_size, transform,
                                   bbxs[i] if bbxs is not None else None)
 
@@ -233,7 +265,14 @@ def extract_vectors(extractor, image_paths, image_size, transform, bbxs=None,
     for batch in buffers.values():
         flush(batch)
     print("")
-    return torch.stack(vecs, dim=1).float().cpu().numpy()
+    # one device for the stack and the gather: a round-robin extractor's
+    # rows move to its first
+    home = (getattr(extractor, "devices", None) or [extractor.device])[0]
+    local = torch.stack([v.to(home) for v in vecs]).float() if vecs \
+        else torch.zeros((0, 0), device=home)
+    if mesh.world_size() == 1:
+        return local.T.cpu().numpy()
+    return mesh.gather_positions(local, owners).T.cpu().numpy()
 
 
 def evaluate_dataset(extractor, cfg, image_size, transform, batch_size=1):

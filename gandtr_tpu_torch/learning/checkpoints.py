@@ -26,6 +26,8 @@ import shutil
 
 import torch
 
+from gandtr_tpu_torch.parallel import mesh
+
 BEST_SUFFIX = "_best"
 LAST_SUFFIX = "_last"
 FROZEN_SUFFIX = "_frozen"
@@ -88,7 +90,10 @@ class Checkpoints:
 
     def save_notrain(self, net_files):
         """Zero-epoch training: each network as `<name>_notrain.ckpt`, with
-        `_best` and `_last` linked to it."""
+        `_best` and `_last` linked to it. Under a process group only rank
+        0 writes."""
+        if not mesh.is_writer():
+            return
         for name, net_file in net_files.items():
             path = os.path.join(self.epochs_dir, "%s_notrain.ckpt" % name)
             self._atomic_write(path, _serialize(net_file))
@@ -102,7 +107,10 @@ class Checkpoints:
         written with the epoch files. A frozen network is stored once and
         linked; the epoch files and the training file are written on
         `checkpoint_every` / `store_every` epochs and the last one, and
-        `_best` / `_last` of another epoch get the network file itself."""
+        `_best` / `_last` of another epoch get the network file itself.
+        Under a process group only rank 0 writes."""
+        if not mesh.is_writer():
+            return
         is_checkpointed = (self.checkpoint_every > 0
                            and epoch % self.checkpoint_every == 0) or is_last
         is_stored = self.store_every > 0 and epoch % self.store_every == 0

@@ -25,6 +25,8 @@ from collections import defaultdict
 
 import numpy as np
 
+from gandtr_tpu_torch.parallel import mesh
+
 
 class MetadataKeeper:
     """Per-key epoch series with the reference's best-epoch rules:
@@ -420,8 +422,12 @@ def initialize_processor(params, directory=None, decisive_criterion=None):
     {print_each: ...}, htmlreport: {}, tensorboard: {}}). With a
     directory, `htmlreport` adds the HTML report sink and `tensorboard`
     the event-file writer (learning/tensorboard.py). Without a directory
-    both are dropped, as in the JAX package."""
+    both are dropped, as in the JAX package. Under a process group only
+    rank 0 writes and prints: the other ranks keep the metadata alone."""
     params = dict(params or {})
+    if not mesh.is_writer():
+        directory = None
+        params.pop("progress", None)
     broker_type = params.pop("type", "EventBroker")
     if broker_type != "EventBroker":
         raise KeyError("Unsupported event broker type %r" % broker_type)

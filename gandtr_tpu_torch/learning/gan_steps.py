@@ -48,6 +48,7 @@ import torch
 
 from gandtr_tpu_torch.learning.supervised import _to_cpu
 from gandtr_tpu_torch.ops import losses as L
+from gandtr_tpu_torch.parallel import mesh
 
 
 @dataclass
@@ -315,6 +316,14 @@ def build_cut_step(models, optimizers, weights, nce_layers=(4, 8, 12, 16),
                                   generator=generator)
         pool_q, _ = F.apply(feat_q, train=True, num_patches=num_patches,
                             patch_ids=ids)
+        ctx = mesh.active()
+        if ctx is not None and ctx.world > 1:
+            # the negatives are the global batch's keys: every rank draws
+            # the same positions, and its queries are rows of the whole
+            pool_k = [mesh.gather_rows(k) for k in pool_k]
+            return L.multilayer_patch_nce_loss(
+                pool_q, pool_k, batch_dim_for_bmm, temperature, w_nce,
+                query_block=ctx.rank)[0]
         return L.multilayer_patch_nce_loss(pool_q, pool_k, batch_dim_for_bmm,
                                            temperature, w_nce)[0]
 
@@ -352,6 +361,16 @@ def build_cut_step(models, optimizers, weights, nce_layers=(4, 8, 12, 16),
         return state, metrics, debug
 
     return step
+
+
+def _pool_query(pool, fakes):
+    """The pool's answer to a batch of fakes; in a data-parallel step the
+    pool scans the gathered global batch with the same draws on every rank
+    (so every rank keeps the same pool), and each takes its rows."""
+    ctx = mesh.active()
+    if ctx is None or ctx.world == 1:
+        return pool.query(fakes)
+    return ctx.local(pool.query(mesh.gather_rows(fakes)))
 
 
 def build_cyclegan_step(models, optimizers, weights_GX, weights_GY):
@@ -405,8 +424,8 @@ def build_cyclegan_step(models, optimizers, weights_GX, weights_GY):
         # (2) the D steps on the pools' answers
         fake_Y, fake_X = fake_Y.detach(), fake_X.detach()
         with torch.no_grad():
-            fake_Y_pool = state.pools["fake_X_pool"].query(fake_Y)
-            fake_X_pool = state.pools["fake_Y_pool"].query(fake_X)
+            fake_Y_pool = _pool_query(state.pools["fake_X_pool"], fake_Y)
+            fake_X_pool = _pool_query(state.pools["fake_Y_pool"], fake_X)
         dx_loss = _d_step(DX, optimizers["discriminator_X"], real_Y,
                           fake_Y_pool, 1.0)[0]
         dy_loss = _d_step(DY, optimizers["discriminator_Y"], real_X,

@@ -34,6 +34,7 @@ import torch
 
 from gandtr_tpu_torch.data import transforms as T
 from gandtr_tpu_torch.learning.optimizers import set_learning_rate
+from gandtr_tpu_torch.parallel import mesh
 
 
 class EpochLoop:
@@ -207,6 +208,8 @@ class Training:
             state = self.loop.run_epoch(state, epoch)
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
+        if not mesh.is_writer():
+            return state
         os.makedirs(self.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             self.profile_dir, "epoch_%02d.trace.json" % epoch))
@@ -283,6 +286,8 @@ class Training:
                      cached))
         if self.events and train_meta and train_meta.get("events"):
             self.events.load_state_dict(train_meta["events"])
+        # every rank loaded the same files; rank 0's copy is the one
+        mesh.replicate_tree(state)
         return state, epoch + 1
 
 

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gandtr_tpu_torch.ops.norm import batch_norm_inference, instance_norm
+from gandtr_tpu_torch.parallel import mesh
 
 _PAD_MODES = {"zero": "constant", "constant": "constant",
               "reflect": "reflect", "refl": "reflect",
@@ -160,18 +161,47 @@ class BatchNorm(FrozenBatchNorm):
     moves the running statistics by momentum 0.1 towards the batch mean
     and the unbiased variance, in float32 for a bf16 or float32 input (a
     float64 one, a reference, stays float64), and counts the batch in
-    `num_batches_tracked`, as torch's BatchNorm2d does."""
+    `num_batches_tracked`, as torch's BatchNorm2d does.
+
+    Inside a data-parallel step (parallel/mesh.py) the batch is the global
+    one: the mean and variance are all-reduced over the ranks, each rank
+    holding an equal share of the rows."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         x = x.to(torch.promote_types(x.dtype, torch.float32))
+        ctx = mesh.active()
+        if ctx is not None and ctx.sync_batchnorm and ctx.world > 1:
+            return self._global_forward(x, ctx.world)
         y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
                          self.running_var, self.weight, self.bias,
                          training=True, momentum=self.momentum, eps=self.eps)
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
         return y.permute(0, 2, 3, 1)
+
+    def _global_forward(self, x, world):
+        """The training form over the global batch: the mean, then the
+        biased variance about it, each a sum all-reduced over the ranks
+        (autograd carries the gradients of the statistics back to every
+        rank's rows)."""
+        C = x.shape[-1]
+        flat = x.reshape(-1, C)
+        count = flat.shape[0] * world
+        mean = mesh.all_reduce_sum(flat.sum(0)) / count
+        centred = flat - mean
+        var = mesh.all_reduce_sum((centred * centred).sum(0)) / count
+        y = centred * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight + self.bias
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean.detach())
+            self.running_var.mul_(1 - m).add_(
+                m * var.detach() * (count / (count - 1)))
+            self.num_batches_tracked.add_(1)
+        return y.reshape(x.shape)
 
 
 def make_norm(norm_type):

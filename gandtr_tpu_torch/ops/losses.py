@@ -66,14 +66,23 @@ def discriminator_loss(output, is_target_real, criterion=mse_loss):
     return criterion(output, adversarial_target(output, is_target_real)), {}
 
 
-def patch_nce_loss(feat_q, feat_k, batch_dim_for_bmm=1, temperature=0.07):
+def patch_nce_loss(feat_q, feat_k, batch_dim_for_bmm=1, temperature=0.07,
+                   query_offset=None):
     """PatchNCE per patch, no reduction. feat_q, feat_k: (P, dim) sampled
     features of the same P positions; the key takes no gradient. Each
     query's positive is its own key, its negatives the other keys of its
     bmm batch (the diagonal there set to -10); cross entropy to class 0
-    of the logits over `temperature`. Returns (P,)."""
+    of the logits over `temperature`. Returns (P,).
+
+    With `query_offset` (a data-parallel step), feat_k holds the keys of
+    the whole global batch and feat_q the queries of rows [query_offset,
+    query_offset + P_q) of it: each query takes its negatives from its bmm
+    batch of the global keys. Returns (P_q,)."""
     dim = feat_q.shape[1]
     feat_k = feat_k.detach()
+    if query_offset is not None:
+        return _patch_nce_rows(feat_q, feat_k, batch_dim_for_bmm,
+                               temperature, query_offset)
     l_pos = (feat_q * feat_k).sum(dim=1, keepdim=True)
     fq = feat_q.reshape(batch_dim_for_bmm, -1, dim)
     fk = feat_k.reshape(batch_dim_for_bmm, -1, dim)
@@ -85,12 +94,33 @@ def patch_nce_loss(feat_q, feat_k, batch_dim_for_bmm=1, temperature=0.07):
     return -torch.log_softmax(logits, dim=1)[:, 0]
 
 
+def _patch_nce_rows(feat_q, feat_k, batch_dim_for_bmm, temperature, offset):
+    """patch_nce_loss for the queries of global rows [offset, offset +
+    P_q) against the global keys: the logits of each query against all
+    keys, then its own bmm batch's columns."""
+    P = feat_k.shape[0]
+    group = P // batch_dim_for_bmm
+    rows = offset + torch.arange(feat_q.shape[0], device=feat_q.device)
+    l_pos = (feat_q * feat_k[rows]).sum(dim=1, keepdim=True)
+    cols = (rows // group * group)[:, None] + torch.arange(
+        group, device=feat_q.device)[None]
+    l_neg = torch.gather(feat_q @ feat_k.T, 1, cols)
+    l_neg = l_neg.masked_fill(cols == rows[:, None], -10.0)
+    logits = torch.cat([l_pos, l_neg], dim=1) / temperature
+    return -torch.log_softmax(logits, dim=1)[:, 0]
+
+
 def multilayer_patch_nce_loss(feats_q, feats_k, batch_dim_for_bmm=1,
-                              temperature=0.07, weight=1.0):
+                              temperature=0.07, weight=1.0,
+                              query_block=None):
     """(total, partial): each tap's mean PatchNCE times `weight`, under
-    layer<i>, and their mean over the taps."""
+    layer<i>, and their mean over the taps. With `query_block` r (a
+    data-parallel step), each tap's keys are the global batch's and its
+    queries block r of it (patch_nce_loss's `query_offset` r P_q)."""
     partial = {}
     for i, (fq, fk) in enumerate(zip(feats_q, feats_k)):
+        offset = None if query_block is None else query_block * fq.shape[0]
         partial["layer%d" % i] = (patch_nce_loss(
-            fq, fk, batch_dim_for_bmm, temperature) * weight).mean()
+            fq, fk, batch_dim_for_bmm, temperature, offset)
+            * weight).mean()
     return sum(partial.values()) / len(partial), partial

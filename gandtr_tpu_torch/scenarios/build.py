@@ -64,7 +64,17 @@ one: their `has_batch_stats` is a WrappedNet method the multi-head
 container lacks). A `SingleNetworkLink` member is its target's network
 and is not drawn again.
 
-Not ported: data-parallel training (ROADMAP A.6).
+Data parallelism (parallel/mesh.py) is on by default under a process
+group (`torchrun --nproc-per-node N`), as the JAX package's is over its
+visible devices: `learning.training.parallel: false` turns it off,
+`parallel: {devices: N}` takes min(N, world size) and raises below the
+world size; a batch that does not divide warns and every rank runs the
+whole step. The data-parallel step (and the teacher cache's two steps,
+and the device scalecrop's) runs each rank's rows of the global batch
+with the gradients all-reduced and BatchNorm over the global batch; the
+weights and the optimizers' state are broadcast from rank 0, and rank 0
+alone writes. `dispatch_chunk` is off under it, with the JAX package's
+warning.
 """
 import copy
 import os
@@ -94,6 +104,7 @@ from gandtr_tpu_torch.learning.training import (MultiCriterialValidation,
                                                 Training, VisualValidation)
 from gandtr_tpu_torch.models.init import initialize_weights
 from gandtr_tpu_torch.ops.resize import dynamic_bilinear_resize_u8
+from gandtr_tpu_torch.parallel import mesh
 from gandtr_tpu_torch.utils.io import resolve_path
 from gandtr_tpu_torch.utils.weights import load_pretrained
 
@@ -108,13 +119,6 @@ EPOCH_ITERATION_FAMILIES = {
 }
 GAN_MEAN_STD = [[0.5, 0.5, 0.5], [0.5, 0.5, 0.5]]
 VISUAL_IMAGES = 4   # the first images of the validation directory
-
-
-def _refuse_data_parallel(train_cfg):
-    par = train_cfg.get("parallel", True)
-    if isinstance(par, dict) and int(par.get("devices", 1) or 1) > 1:
-        raise NotImplementedError("data-parallel GAN training is not ported "
-                                  "yet (ROADMAP A.6)")
 
 
 def adopt_path_members(config):
@@ -286,7 +290,6 @@ def build_gan_experiment(params, directory=None, device=None):
     family = EPOCH_ITERATION_FAMILIES[it_cfg.get("type",
                                                  "SupervisedHEDNGANEpoch")]
     opt_cfg = dict(train_cfg.get("optimizer") or {})
-    _refuse_data_parallel(train_cfg)
     crit = dict(train_cfg.get("criterion") or {})
     check_criterion_losses(crit, family)
     seed = int(train_cfg.get("seed", 0))
@@ -345,18 +348,35 @@ def build_gan_experiment(params, directory=None, device=None):
     else:
         step = gan_steps.GAN_STEPS[family](nets, optimizers, *weights,
                                            **step_options)
+    # data parallelism over the process group, if there is one (the JAX
+    # package's _maybe_data_parallel); the batch the loader will use
+    par_cfg = train_cfg.get("parallel", True)
+    batch_size = int(((data_cfg.get("train") or {}).get("loader") or {})
+                     .get("batch_size", 0) or 0)
+
+    def parallel(s):
+        return mesh.maybe_data_parallel(s, par_cfg, batch_size)
+
     if cache_cfg:
         step = TeacherTargetCachingStep(
-            step, gan_steps.build_hedngan_step(
+            parallel(step), parallel(gan_steps.build_hedngan_step(
                 nets, optimizers, *weights,
                 concat_student=step_options["concat_student"],
-                external_targets=True),
+                external_targets=True)),
             dev, max_items=(cache_cfg.get("max_items", 64)
                             if isinstance(cache_cfg, dict) else 64))
         batch_to_args = step.batch_to_args
     elif dsc is not None:
-        step = _device_scalecrop_step(step, dsc)
+        step = parallel(_device_scalecrop_step(step, dsc))
         batch_to_args = lambda b: tuple(upload(a, dev) for a in b)  # noqa
+    else:
+        step = parallel(step)
+    data_parallel = getattr(
+        getattr(step, "internal_step", step), "gandtr_dp", False)
+    if data_parallel:
+        mesh.attach_optimizers(optimizers.values())
+    # one set of weights and optimizer state on every rank
+    mesh.replicate_tree(nets, optimizers)
     state = gan_steps.make_gan_state(nets, optimizers, pools, rngs)
 
     loader = None
@@ -388,6 +408,9 @@ def build_gan_experiment(params, directory=None, device=None):
 
     # the cache decides on the host, batch by batch, which step runs
     chunk = 0 if cache_cfg else int(train_cfg.get("dispatch_chunk", 0) or 0)
+    if chunk > 1 and data_parallel:
+        warnings.warn("dispatch_chunk disabled: data-parallel step active")
+        chunk = 0
     training = None
     if loader is not None:
         if chunk > 1:

@@ -65,6 +65,7 @@ from gandtr_tpu_torch.learning.wrappers import (cir_hash_passthrough,
                                                 metadata_name)
 from gandtr_tpu_torch.models.init import initialize_weights
 from gandtr_tpu_torch.ops import losses as L
+from gandtr_tpu_torch.parallel import mesh
 from gandtr_tpu_torch.utils.io import resolve_path
 from gandtr_tpu_torch.utils.weights import load_pretrained
 
@@ -204,9 +205,21 @@ def build_finetune_experiment(params, directory=None, db=None, images=None,
     def step(state, imgs_u8, hws, labels, pass_mask):
         return raw_step(state, *stage(imgs_u8, hws), labels, pass_mask)
 
+    # data parallelism over the process group (the JAX package's
+    # finetune_build.py:226-230): the tuples split over the ranks, the
+    # loss a sum over tuples, so the gradients are summed, not averaged
+    loader_cfg = dict((data_cfg.get("train") or {}).get("loader") or {})
+    step = mesh.maybe_data_parallel(
+        step, train_cfg.get("parallel", True),
+        int(loader_cfg.get("batch_size", 5) or 5), grad_reduction="sum",
+        sync_batchnorm=False)
+    data_parallel = getattr(step, "gandtr_dp", False)
+    if data_parallel:
+        mesh.attach_optimizers([optimizer])
+    mesh.replicate_tree(models, optimizer)
+
     # --- mining, the tuple dataset and its loader
     image_size = int(ds_cfg.get("image_size", 362))
-    loader_cfg = dict((data_cfg.get("train") or {}).get("loader") or {})
     if db is None and ds_cfg.get("dataset_pkl"):
         db, images = load_tuples_db(ds_cfg["dataset_pkl"],
                                     ds_cfg.get("split", "train"),
@@ -258,6 +271,9 @@ def build_finetune_experiment(params, directory=None, db=None, images=None,
     # dispatch_chunk: the same steps in the same order; metrics are read
     # back once a chunk, and the loader prefetches past a chunk
     chunk = int(train_cfg.get("dispatch_chunk", 0) or 0)
+    if chunk > 1 and data_parallel:
+        warnings.warn("dispatch_chunk disabled: data-parallel step active")
+        chunk = 0
     if chunk > 1 and loader is not None:
         loader.prefetch = max(loader.prefetch, chunk + 2)
 
@@ -363,7 +379,9 @@ def _make_extract_fn(state, images, image_size, stage_flat, augment_ratio,
     batch, so the two partitions run apart, in batches of up to
     EXTRACT_BATCH, and their results go back into input order. A thread
     decodes the next batch while the device runs this one; the host waits
-    once a partition."""
+    once a partition. Under a process group each rank runs every N-th
+    batch of a partition (the same batches, so the same descriptors bit for
+    bit) and the descriptors are gathered back in input order."""
     holder = {"state": state}
     bucket = generator_safe_bucket(image_size)
     gate_re = re.compile(augment_label or "anc")
@@ -387,17 +405,28 @@ def _make_extract_fn(state, images, image_size, stage_flat, augment_ratio,
         return models["embed"].apply(x, train=False, mask=masks)
 
     def run_partition(idxs, augmented):
-        chunks = [idxs[i:i + EXTRACT_BATCH]
-                  for i in range(0, len(idxs), EXTRACT_BATCH)]
+        starts = list(range(0, len(idxs), EXTRACT_BATCH))
+        owners = [mesh.strided_share(len(starts), r)
+                  for r in range(mesh.world_size())]
+        chunks = [idxs[starts[k]:starts[k] + EXTRACT_BATCH]
+                  for k in owners[mesh.rank()]]
         outs = []
-        with ThreadPoolExecutor(1) as ex:
-            fut = ex.submit(prep_u8, chunks[0])
-            for nxt in chunks[1:] + [None]:
-                imgs_u8, hws = fut.result()
-                if nxt is not None:
-                    fut = ex.submit(prep_u8, nxt)
-                outs.append(forward(imgs_u8, hws, augmented))
-        return torch.cat(outs).float().cpu().numpy()
+        if chunks:
+            with ThreadPoolExecutor(1) as ex:
+                fut = ex.submit(prep_u8, chunks[0])
+                for nxt in chunks[1:] + [None]:
+                    imgs_u8, hws = fut.result()
+                    if nxt is not None:
+                        fut = ex.submit(prep_u8, nxt)
+                    outs.append(forward(imgs_u8, hws, augmented))
+        vecs = torch.cat(outs).float() if outs else \
+            torch.zeros((0, 0), device=device)
+        if mesh.world_size() > 1:
+            vecs = mesh.gather_positions(vecs, [
+                [i for k in own for i in range(
+                    starts[k], min(starts[k] + EXTRACT_BATCH, len(idxs)))]
+                for own in owners])
+        return vecs.cpu().numpy()
 
     def extract(idxs, label="anc-mine"):
         idxs = list(idxs)

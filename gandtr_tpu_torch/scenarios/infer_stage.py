@@ -42,6 +42,7 @@ from gandtr_tpu_torch.hub import (_checkpoint_data_params,
 from gandtr_tpu_torch.learning.network import build_single_net
 from gandtr_tpu_torch.learning.wrappers import apply_wrapped
 from gandtr_tpu_torch.ops import colorspace as cs
+from gandtr_tpu_torch.parallel import mesh
 from gandtr_tpu_torch.utils.io import resolve_path
 
 GAN_MEAN_STD = [[0.5] * 3, [0.5] * 3]
@@ -201,7 +202,9 @@ class RgbImageSaver:
         """Queue the write of one (H, W, C) output: a float one is turned
         into uint8 here, a uint8 one (quantized on the device) is written
         as it is. `input_hwc` is the network's input, for the sinks that
-        need it."""
+        need it. Under a process group only rank 0 writes."""
+        if not mesh.is_writer():
+            return
         out = np.asarray(image_hwc)
         if input_hwc is not None:
             if "chan42" in self.transforms:

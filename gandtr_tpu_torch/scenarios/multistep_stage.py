@@ -18,6 +18,7 @@ import pickle
 
 from gandtr_tpu_torch.device import resolve_device
 from gandtr_tpu_torch.ops import whiten as whiten_ops
+from gandtr_tpu_torch.parallel import mesh
 from gandtr_tpu_torch.scenarios.infer_stage import infer
 from gandtr_tpu_torch.utils.io import load_pickle, resolve_path
 
@@ -66,7 +67,7 @@ def infer_and_learn_whitening(params, data, device=None):
         raise ValueError("whitening type %r" % whitening["type"])
 
     whit = {"m": m, "P": P}
-    if path:
+    if path and mesh.is_writer():
         with open(path, "wb") as f:
             pickle.dump(whit, f)
     return ({"infer": meta, "whitening_path": path,

@@ -16,6 +16,14 @@ stages.*`, `mdir.stages.*`, the download names, the whitening stages and
 under $GANDTR_ROOT. An infer step (the `output` target) takes its image
 names from stdin, one a line. The stages run on cuda unless `--device
 cpu` (or `run_target(..., device="cpu")`).
+
+Data-parallel over N cards, one process a card (parallel/mesh.py):
+
+    torchrun --nproc-per-node N -m gandtr_tpu_torch.scenarios.run <target>
+        scenario.yml ...
+
+Every rank runs the target; the train steps split each batch over the
+ranks, extraction splits the images, and rank 0 alone writes.
 """
 import argparse
 import copy
@@ -25,6 +33,7 @@ import sys
 
 import torch
 
+from gandtr_tpu_torch.parallel import mesh
 from gandtr_tpu_torch.scenarios.engine import (load_yaml_scenario,
                                                resolve_variables)
 from gandtr_tpu_torch.scenarios import stages as whiten_stages
@@ -173,14 +182,30 @@ def run_target(scenario, target, scenario_name, stdin_data=None,
     return results
 
 
+def decoder_line():
+    """Which image decoder the data path runs: the native one (native/)
+    where it built and is on, else PIL, with the build error."""
+    import os
+    from gandtr_tpu_torch import native
+    if os.environ.get("GANDTR_TPU_NATIVE_LOADER", "1") == "0":
+        return "decoder: PIL (GANDTR_TPU_NATIVE_LOADER=0)"
+    if native.available():
+        return "decoder: native (%s)" % native.library_path().name
+    lines = str(native.build_error()).strip().splitlines() or ["?"]
+    why = next((ln for ln in lines if "error" in ln), lines[-1])
+    return "decoder: PIL (the native decoder did not build: %s)" % why.strip()
+
+
 def doctor():
     """The card, the compiler and the kernels: torch's version, the CUDA
-    device's name and count, nvcc, and whether each csrc/*.cu source
-    builds (kernels/_build.py). Returns 1 on any failure."""
+    device's name and count, nvcc, whether each csrc/*.cu source builds
+    (kernels/_build.py), and which image decoder runs (native/: PIL where
+    it did not build, which is no failure). Returns 1 on any failure."""
     from gandtr_tpu_torch.kernels import _build
     ok = True
     print("gandtr_tpu_torch doctor")
     print("  torch %s, CUDA %s" % (torch.__version__, torch.version.cuda))
+    print("  " + decoder_line())
     if torch.cuda.is_available():
         print("  device: %s, %d visible" % (torch.cuda.get_device_name(0),
                                             torch.cuda.device_count()))
@@ -215,6 +240,8 @@ def main(argv=None):
 
     if args.action == "doctor":
         return doctor()
+    # under torchrun: join the process group (nothing without WORLD_SIZE)
+    mesh.init_distributed()
     if not args.scenario:
         parser.error("scenario yaml required for action %r" % args.action)
 

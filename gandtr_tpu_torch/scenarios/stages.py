@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from gandtr_tpu_torch.ops import whiten as whiten_ops
+from gandtr_tpu_torch.parallel import mesh
 from gandtr_tpu_torch.utils.io import load_pickle, resolve_path
 
 
@@ -38,9 +39,10 @@ def _store(result, output):
     if not output:
         return result
     output = resolve_path(output)
-    os.makedirs(os.path.dirname(output), exist_ok=True)
-    with open(output, "wb") as f:
-        pickle.dump(result, f)
+    if mesh.is_writer():
+        os.makedirs(os.path.dirname(output), exist_ok=True)
+        with open(output, "wb") as f:
+            pickle.dump(result, f)
     return output
 
 

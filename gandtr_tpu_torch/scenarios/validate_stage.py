@@ -31,6 +31,7 @@ from gandtr_tpu_torch.eval.retrieval import (ShapeCachedExtractor,
 from gandtr_tpu_torch.learning.wrappers import (CirMultiscaleAggregation,
                                                 CirtorchWhiten,
                                                 multiscale_msp)
+from gandtr_tpu_torch.parallel import mesh
 from gandtr_tpu_torch.scenarios.infer_stage import _load_network
 from gandtr_tpu_torch.utils.io import load_pickle, resolve_path
 
@@ -85,15 +86,10 @@ def _plan(val_cfg, image_size):
     return plan
 
 
-def build_eval(params, device):
-    """The stage's set-up from its network and data sections: {"extractor":
-    a ShapeCachedExtractor on `device`, "transform": the host transform its
-    images take, "model": the WrappedNet with its eval wrappers, "pre": the
-    device preprocessing (uint8 or float batch, mask) -> normalized batch,
-    "ctx": the forward's context}. The infer stage's embedding output
-    extracts through the same set-up."""
-    net_cfg = dict(params["network"])
-    data_cfg = dict(params.get("data") or {})
+def _eval_model(net_cfg, device):
+    """(the WrappedNet with its eval wrappers on `device`, the multiscale
+    power) of a network section."""
+    net_cfg = dict(net_cfg)
     wrappers_cfg = (net_cfg.get("runtime") or {}).get("wrappers")
     if isinstance(wrappers_cfg, dict):
         # eval.yml's {"eval": {"<i>_<name>": {...}}} form, built here
@@ -107,7 +103,41 @@ def build_eval(params, device):
         model = _load_network(net_cfg, device)
         msp = multiscale_msp(model.loaded_model_cfg or net_cfg.get("model"),
                              model.module)
+    return model, msp
 
+
+def _extract_devices(data_cfg, device):
+    """The cards a single process extracts on round-robin
+    (`data.parallel_extract`, on by default as in the JAX package): every
+    visible card when there are several and no process group shares them
+    out; else None."""
+    if (not data_cfg.get("parallel_extract", True) or device.type != "cuda"
+            or mesh.is_initialized() or torch.cuda.device_count() < 2):
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def build_eval(params, device):
+    """The stage's set-up from its network and data sections: {"extractor":
+    a ShapeCachedExtractor on `device`, "transform": the host transform its
+    images take, "model": the WrappedNet with its eval wrappers, "pre": the
+    device preprocessing (uint8 or float batch, mask) -> normalized batch,
+    "ctx": the forward's context}. The infer stage's embedding output
+    extracts through the same set-up. With several cards in one process the
+    extractor goes round-robin over them, with a copy of the model on each
+    (built from the same section and files); under a process group each
+    rank extracts its share (eval/retrieval.py)."""
+    data_cfg = dict(params.get("data") or {})
+    model, msp = _eval_model(params["network"], device)
+    devices = _extract_devices(data_cfg, device)
+    models = {}
+    if devices:
+        # `model` serves its own card; each other card gets a copy
+        home = device if device.index is not None \
+            else torch.device("cuda", torch.cuda.current_device())
+        models = {d: model if d == home
+                  else _eval_model(params["network"], d)[0]
+                  for d in devices}
     # transform defaults: the network's own data params (a checkpoint's),
     # else the published eval pipeline
     net_defaults = model.data_params if isinstance(model.data_params, dict) \
@@ -130,16 +160,20 @@ def build_eval(params, device):
 
     ctx = {"msp": msp}
     shape_bucket = data_cfg.get("shape_bucket")
+
+    def model_on(x):
+        return models.get(x.device, model)
+
     if shape_bucket:
         def forward(x, mask, host_hw):
-            return model.apply(pre(x, mask), ctx=ctx, mask=mask,
-                               host_hw=host_hw)
+            return model_on(x).apply(pre(x, mask), ctx=ctx, mask=mask,
+                                     host_hw=host_hw)
     else:
         def forward(x):
-            return model.apply(pre(x), ctx=ctx)
+            return model_on(x).apply(pre(x), ctx=ctx)
     extractor = ShapeCachedExtractor(
         forward, shape_bucket=int(shape_bucket) if shape_bucket else None,
-        device=device)
+        device=device, devices=devices)
     return {"extractor": extractor, "transform": transform, "model": model,
             "pre": pre, "ctx": ctx}
 

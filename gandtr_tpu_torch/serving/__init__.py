@@ -4,7 +4,8 @@ retrieval indexes behind `:search` (`serving.index`, `serving.pq`)."""
 import numpy as _np
 
 from gandtr_tpu_torch.serving.export import (  # noqa: F401
-    ArtifactServable, Servable, export_hub_model, load_artifact)
+    ArtifactServable, Servable, export_hub_model, export_sharded_model,
+    load_artifact)
 from gandtr_tpu_torch.serving.index import RetrievalIndex  # noqa: F401
 from gandtr_tpu_torch.serving.pq import PQRetrievalIndex  # noqa: F401
 from gandtr_tpu_torch.serving.service import (  # noqa: F401

@@ -18,14 +18,23 @@ symbolic sizes. K1 and K3 are custom operators (ops/library.py), so an
 exported program calls the kernels on the card and the plain versions on
 the CPU, and the kernels' launch counts see the calls.
 
+`export_sharded_model` writes the data-parallel form, the JAX package's
+SPMD artifact: one program at `batch_per_device` rows, with meta
+`sharded: {n_devices, axis, batch_per_device}`; a loaded one needs exactly
+`n_devices` devices and runs each request batch split over them in row
+order, each share on its own device and stream, and the outputs
+concatenated.
+
 `Servable(model, image_hw)` is the same forward in memory, the form an
 exported program is checked against; `load_artifact(path)` loads a
-directory into an `ArtifactServable`. Both take numpy (N, H, W, 3) images
-of the artifact's input dtype (and with `with_mask`, (N, H, W) masks) and
-return numpy: (N, D) float32 descriptors, or uint8 (N, H, W, 3) images
+directory into an `ArtifactServable`, which with `devices=[...]` sends an
+unsharded artifact's request chunks round-robin to them. Both take numpy
+(N, H, W, 3) images of the artifact's input dtype (and with `with_mask`,
+(N, H, W) masks) and return numpy: (N, D) float32 descriptors, or uint8 (N, H, W, 3) images
 for a generator (quantized on the device), or with `from_uint8=False`
 its normalized float32 output.
 """
+import contextlib
 import glob
 import json
 import os
@@ -187,33 +196,97 @@ def export_hub_model(model, path, image_hw, batch_buckets=(1, 4, 8),
     return meta
 
 
-def export_sharded_model(*args, **kwargs):
-    """One SPMD program over several cards is not ported (ROADMAP A.6)."""
-    raise NotImplementedError(
-        "export_sharded_model (one program batch-sharded over several "
-        "cards) is not ported yet (ROADMAP A.6)")
+def export_sharded_model(model, path, image_hw, n_devices,
+                         batch_per_device=1, from_uint8=True, axis="data",
+                         devices=None, platforms=None, kind=None):
+    """Export the data-parallel serving artifact of a hub model: one
+    program at `batch_per_device` rows (b<batch_per_device>.pt2), which a
+    loaded artifact runs on each of exactly `n_devices` devices, each on
+    its share of a request batch of n_devices x batch_per_device rows. The
+    JAX package's SPMD program becomes a program a device here; the meta
+    records `sharded: {n_devices, axis, batch_per_device}` as JAX's does.
+    `devices`, when given, must hold at least `n_devices` devices (the
+    JAX package's check); the program is exported on the model's device.
+    Returns the meta."""
+    kind = kind or _artifact_kind(model)
+    dev = torch.device(model.device)
+    if platforms is not None and list(platforms) != [dev.type]:
+        raise ValueError("an artifact runs on the device type its model "
+                         "lives on (%s); platforms=%r" % (dev.type,
+                                                          platforms))
+    if devices is not None and len(devices) < n_devices:
+        raise ValueError("export_sharded_model needs %d devices, have %d"
+                         % (n_devices, len(devices)))
+    h, w = int(image_hw[0]), int(image_hw[1])
+    bpd = int(batch_per_device)
+    tf_str, mean_std, forward = _export_forward(model, from_uint8, kind)
+    os.makedirs(path, exist_ok=True)
+    with torch.no_grad():
+        ep = torch.export.export(
+            _Program(model, forward),
+            _example_inputs(bpd, h, w, from_uint8, False, dev), strict=False)
+    out_node = next(n for n in ep.graph.nodes if n.op == "output")
+    torch.export.save(ep, os.path.join(path, "b%d.pt2" % bpd))
+    meta = _base_meta(model, kind, (h, w), [int(n_devices) * bpd],
+                      from_uint8, False,
+                      list(out_node.args[0][0].meta["val"].shape[1:]),
+                      tf_str, mean_std, dev)
+    meta["sharded"] = {"n_devices": int(n_devices), "axis": axis,
+                       "batch_per_device": bpd}
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1, sort_keys=True)
+    return meta
+
+
+def _pad_rows(a, rows):
+    if a is None or a.shape[0] == rows:
+        return a
+    return np.pad(a, [(0, rows - a.shape[0])] + [(0, 0)] * (a.ndim - 1),
+                  mode="edge")
 
 
 class _Bucketed:
     """Pads and chunks as the JAX package's Servable: requests above the
     largest bucket are cut into chunks of it, a partial chunk is padded
     (edge rows) up to the next bucket and the outputs sliced. A subclass
-    gives `meta`, `device`, `buckets` and `_program(bucket)`."""
+    gives `meta`, `device`, `buckets` and `_program(bucket, device)`; and
+    may give `devices` (chunks round-robin over them) and `sharded` (each
+    chunk split over the devices, each share on its own stream)."""
 
-    def _run_chunk(self, x, mask):
+    devices = None
+    sharded = None
+    streams = None
+
+    def _launch(self, program, args, k):
+        """Run `program` on its device's k-th stream (the current one on
+        the CPU or without streams); the output stays on the device."""
+        stream = self.streams[k] if self.streams else None
+        if stream is not None:
+            # the inputs were uploaded on the device's current stream
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.inference_mode(), (torch.cuda.stream(stream)
+                                      if stream is not None
+                                      else contextlib.nullcontext()):
+            return program(*args)
+
+    def _run_chunk(self, x, mask, k=0):
         n = x.shape[0]
         bucket = next((b for b in self.buckets if b >= n), self.buckets[-1])
-        if bucket > n:
-            x = np.pad(x, [(0, bucket - n)] + [(0, 0)] * (x.ndim - 1),
-                       mode="edge")
-            if mask is not None:
-                mask = np.pad(mask, [(0, bucket - n), (0, 0), (0, 0)],
-                              mode="edge")
-        args = [upload(x, self.device)]
+        device = self.devices[k] if self.devices else self.device
+        x, mask = _pad_rows(x, bucket), _pad_rows(mask, bucket)
+        args = [upload(x, device)]
         if mask is not None:
-            args.append(upload(mask, self.device))
-        with torch.inference_mode():
-            return self._program(bucket)(*args)[:n].cpu().numpy()
+            args.append(upload(mask, device))
+        if not self.sharded:
+            return self._launch(self._program(bucket, device), args, k)[:n]
+        # one share a device, in row order
+        per = self.sharded["batch_per_device"]
+        outs = [self._launch(self._program(per, d),
+                             [a[i * per:(i + 1) * per] for a in args], i)
+                for i, d in enumerate(self.devices)]
+        for s in self.streams or ():
+            s.synchronize()
+        return torch.cat([o.cpu() for o in outs])[:n]
 
     def __call__(self, images, masks=None):
         x = np.asarray(images)
@@ -234,10 +307,14 @@ class _Bucketed:
         elif masks is not None:
             raise ValueError("artifact was exported without mask input")
         cap = self.buckets[-1]
-        return np.concatenate([
-            self._run_chunk(x[i:i + cap],
-                            None if masks is None else masks[i:i + cap])
-            for i in range(0, x.shape[0], cap)], 0)
+        rr = len(self.devices) if self.devices and not self.sharded else 1
+        outs = [self._run_chunk(x[i:i + cap],
+                                None if masks is None else masks[i:i + cap],
+                                c % rr)
+                for c, i in enumerate(range(0, x.shape[0], cap))]
+        for s in self.streams or ():
+            s.synchronize()
+        return np.concatenate([o.cpu().numpy() for o in outs], 0)
 
 
 class Servable(_Bucketed):
@@ -258,7 +335,7 @@ class Servable(_Bucketed):
                                with_mask, _output_shape(model, kind, h, w),
                                tf_str, mean_std, self.device)
 
-    def _program(self, bucket):
+    def _program(self, bucket, device=None):
         return self._forward
 
 
@@ -277,10 +354,15 @@ def _output_shape(model, kind, h, w):
 
 class ArtifactServable(_Bucketed):
     """A loaded serving artifact (the JAX package's `Servable`): each
-    bucket's exported program is loaded at its first call."""
+    bucket's exported program is loaded at its first call, once a device.
 
-    def __init__(self, path, device=None):
-        self.device = resolve_device(device)
+    `devices`: an unsharded artifact's request chunks go round-robin to
+    them; a sharded one needs exactly its `n_devices` (by default the
+    first cards of `device`'s type), and each gets its own stream."""
+
+    def __init__(self, path, device=None, devices=None):
+        self.device = resolve_device(device if device is not None or
+                                     not devices else devices[0])
         with open(os.path.join(path, "meta.json")) as f:
             self.meta = json.load(f)
         if glob.glob(os.path.join(path, "b*.jaxexp")) or (
@@ -293,28 +375,44 @@ class ArtifactServable(_Bucketed):
         if self.meta.get("format_version") != FORMAT_VERSION:
             raise ValueError("Unsupported artifact format_version %r"
                              % self.meta.get("format_version"))
-        if self.meta.get("sharded"):
-            raise NotImplementedError("sharded artifacts are not ported yet "
-                                      "(ROADMAP A.6)")
-        if self.meta["device"] != self.device.type:
-            raise ValueError(
-                "artifact %s was exported for %s and cannot run on %s: "
-                "export it again from a model on %s"
-                % (path, self.meta["device"], self.device.type,
-                   self.device.type))
+        self.sharded = self.meta.get("sharded")
+        self.devices = [resolve_device(d) for d in devices] if devices \
+            else None
+        if self.sharded:
+            n = self.sharded["n_devices"]
+            if self.devices is None:
+                self.devices = ([torch.device("cuda", i) for i in range(
+                    min(n, torch.cuda.device_count()))]
+                    if self.device.type == "cuda" else [self.device] * n)
+            if len(self.devices) != n:
+                raise ValueError(
+                    "sharded artifact needs exactly %d devices, got %d"
+                    % (n, len(self.devices)))
+        for d in self.devices or [self.device]:
+            if self.meta["device"] != d.type:
+                raise ValueError(
+                    "artifact %s was exported for %s and cannot run on %s: "
+                    "export it again from a model on %s"
+                    % (path, self.meta["device"], d.type, d.type))
+        if self.devices and self.devices[0].type == "cuda":
+            self.streams = [torch.cuda.Stream(d) for d in self.devices]
         self.path = path
         self.buckets = list(self.meta["batch_buckets"])
         self._programs = {}
 
-    def _program(self, bucket):
-        if bucket not in self._programs:
+    def _program(self, bucket, device=None):
+        """Bucket `bucket`'s program on `device` ({bucket: {device:
+        program}})."""
+        device = self.device if device is None else device
+        on = self._programs.setdefault(bucket, {})
+        if str(device) not in on:
             ep = torch.export.load(os.path.join(self.path,
                                                 "b%d.pt2" % bucket))
-            self._programs[bucket] = ep.module()
-        return self._programs[bucket]
+            on[str(device)] = ep.module().to(device)
+        return on[str(device)]
 
 
-def load_artifact(path, device=None):
+def load_artifact(path, device=None, devices=None):
     """Load an artifact directory to run on `device` (cuda by default),
-    which must be the device type it was exported for."""
-    return ArtifactServable(path, device=device)
+    or over `devices`, of the device type it was exported for."""
+    return ArtifactServable(path, device=device, devices=devices)

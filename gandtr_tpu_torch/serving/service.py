@@ -10,13 +10,15 @@ POST /v1/models/<name>:predict and, for an embedding model with an index
 (`indices[name]`, a RetrievalIndex or PQRetrievalIndex),
 POST /v1/models/<name>:search?k=10 (image in, the top k {name, score}
 out). A model is an artifact directory, a loaded artifact or an
-in-memory `Servable`. (The JAX package's native decoder is not ported:
-PIL decodes.)
+in-memory `Servable`. JPEG and PNG bodies decode with the native decoder
+(native/) where it built, else with PIL, to the same pixels
+(`GANDTR_TPU_NATIVE_LOADER=0` turns the native path off).
 """
 import io
 import json
 import os
 import queue
+import tempfile
 import threading
 import time
 from concurrent.futures import Future
@@ -136,13 +138,26 @@ class BatchingService:
 
 
 def _decode_image_bytes(body, content_type):
-    """bytes -> uint8 (H, W, 3) RGB: npy as it is, anything else via PIL."""
+    """bytes -> uint8 (H, W, 3) RGB: npy as it is, JPEG and PNG through
+    the native decoder where it built, anything else via PIL."""
     if content_type == "application/octet-stream" or body[:6] == b"\x93NUMPY":
         arr = np.load(io.BytesIO(body), allow_pickle=False)
         if not (arr.dtype == np.uint8 and arr.ndim == 3 and arr.shape[2] == 3):
             raise ValueError("npy body must be uint8 (H, W, 3) RGB, got %s %s"
                              % (arr.dtype, arr.shape))
         return arr
+    from gandtr_tpu_torch import native
+    if os.environ.get("GANDTR_TPU_NATIVE_LOADER", "1") != "0" \
+            and native.available():
+        fd, tmp = tempfile.mkstemp(suffix=".img")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(body)
+            arr = native.decode(tmp)
+            if arr is not None:
+                return arr
+        finally:
+            os.unlink(tmp)
     from PIL import Image
     return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
 

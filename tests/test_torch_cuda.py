@@ -854,3 +854,113 @@ def test_grouping_hard_path_bit_equal_twice_on_card(cuda, top):
     for a, b in zip(runs[0], runs[2]):
         assert float((a - b).abs().max()) <= 1e-5 * max(
             1.0, float(b.abs().max()))
+
+
+def test_parallel_nccl_world_one_bit_equal(cuda):
+    """One rank over NCCL: finetune.yml's bf16 step (chip_smoke's phase
+    19 (b), T=4) bit-equal to the run without a process group, K2 and K4
+    launched."""
+    import chip_smoke as c
+    one = c._par_finetune(cuda, {"devices": 2})
+    counts = c._par_nccl(cuda, one)
+    assert counts["K2"] == 2 * c.PAR_T and counts["K4"] == c.PAR_T
+
+
+def test_parallel_two_ranks_gan_step_on_card(cuda):
+    """Two gloo ranks sharing the card (tests/torch_dp_workers.py) run
+    train_hedngan.yml's step at full width on a global batch of 4 at 64²,
+    BatchNorm over the global batch: the metrics equal on both ranks and
+    within 1e-3 relative of one process's step."""
+    import chip_smoke as c
+    from torch_dp_workers import gan_steps, spawn
+    X, Y = c._seeded_gan_batches(1, 4, 64, 7)[0]
+    r0, r1 = spawn("gan_steps", cfg=c._par_gan_cfg({"devices": 2}),
+                   batches=[(X, Y)], device="cuda")
+    one = gan_steps(c._par_gan_cfg(False), [(X, Y)], device="cuda")
+    assert r0["data_parallel"] and not one["data_parallel"]
+    assert r0["metrics"] == r1["metrics"]
+    for k, v in one["metrics"][0].items():
+        assert abs(r0["metrics"][0][k] - v) <= 1e-3 * max(abs(v), 1e-6), k
+
+
+def _two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    return torch.cuda.device_count()
+
+
+def test_round_robin_extraction_over_distinct_cards(cuda, tmp_path):
+    """eval.yml's extractor in one process over every card (the default
+    `parallel_extract`): successive photos go to each card in turn, and
+    the descriptors, moved to the first card, equal one card's bit for
+    bit, exact and bucketed."""
+    import pickle
+    import chip_smoke
+    from PIL import Image
+    from gandtr_tpu_torch.eval.retrieval import extract_vectors
+    from gandtr_tpu_torch.scenarios.validate_stage import build_eval
+    n_cards = _two_cards(cuda)
+    lw = tmp_path / "lw.pkl"
+    with open(lw, "wb") as f:
+        pickle.dump(chip_smoke.seeded_lw(), f)
+    rng = np.random.RandomState(4)
+    paths = []
+    for i, (h, w) in enumerate([(300, 400), (400, 300), (320, 320),
+                                (240, 360), (360, 240)]):
+        paths.append(str(tmp_path / ("p%d.jpg" % i)))
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)) \
+            .save(paths[-1], quality=90)
+    for bucket in (None, 64):
+        params = chip_smoke.eval_params(str(tmp_path), str(lw), bucket)
+        size = params["data"]["image_size"]
+        setup = build_eval(params, cuda)
+        many, tf = setup["extractor"], setup["transform"]
+        assert len(many.devices) == n_cards
+        params["data"]["parallel_extract"] = False
+        one = build_eval(params, cuda)["extractor"]
+        assert one.devices is None
+        got = extract_vectors(many, paths, size, tf)
+        assert many._rr == len(paths)
+        np.testing.assert_array_equal(
+            got, extract_vectors(one, paths, size, tf))
+
+
+def test_nccl_gathers_across_cards(cuda):
+    """parallel/mesh.py's NCCL all-gather with a rank on each card (up
+    to 4): the equal split's rows and the strided split's (unequal
+    counts) come back whole and in input order on every rank."""
+    from torch_dp_workers import spawn
+    world = min(_two_cards(cuda), 4)
+    n_items = 4 * world + 1
+    want = torch.arange(n_items, dtype=torch.float32)[:, None] \
+        * torch.tensor([1.0, 2.0, 3.0])
+    for r, out in enumerate(spawn("gather", world=world, backend="nccl",
+                                  n_items=n_items)):
+        assert out["device"] == "cuda:%d" % r
+        assert torch.equal(out["equal"], want[:4 * world])
+        assert torch.equal(out["strided"], want)
+
+
+def test_sharded_generator_artifact_on_card(cuda, tmp_path):
+    """The bf16 generator sharded 2 ways on [cuda, cuda] (a stream a
+    share) against its unsharded artifact at 64x96: within one uint8
+    level; K3 9 launches a share."""
+    import chip_smoke as c
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.serving.export import (export_hub_model,
+                                                 export_sharded_model,
+                                                 load_artifact)
+    gen = hub.cyclegan(pretrained=False)
+    gen.net.compute_dtype = torch.bfloat16
+    hw = (64, 96)
+    export_sharded_model(gen, str(tmp_path / "s"), hw, 2,
+                         batch_per_device=2)
+    export_hub_model(gen, str(tmp_path / "u"), hw, batch_buckets=(4,))
+    x = np.random.RandomState(3).randint(0, 256, (4,) + hw + (3,),
+                                         dtype=np.uint8)
+    sharded = load_artifact(str(tmp_path / "s"), devices=[cuda, cuda])
+    c.reset_launches()
+    got = sharded(x)
+    assert c.launches()["K3"] == 18
+    want = load_artifact(str(tmp_path / "u"), device=cuda)(x)
+    assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1

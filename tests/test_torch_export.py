@@ -125,8 +125,13 @@ def test_refusals(emb, tmp_path):
     with pytest.raises(ValueError, match="platforms"):
         export_hub_model(gen_tm, str(tmp_path / "d"), GEN_HW,
                          platforms=["tpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        export_sharded_model(tm, str(tmp_path / "e"), EMB_HW, 4)
+    # once refused, the sharded export now writes its artifact
+    # (tests/test_torch_export_sharded.py runs it)
+    meta = export_sharded_model(_single_scale(tm), str(tmp_path / "e"),
+                                EMB_HW, 4)
+    assert meta["sharded"] == {"n_devices": 4, "axis": "data",
+                               "batch_per_device": 1}
+    assert sorted(os.listdir(tmp_path / "e")) == ["b1.pt2", "meta.json"]
     # a JAX artifact (b<N>.jaxexp) is refused with a clear message
     with pytest.raises(ValueError, match="JAX package"):
         load_artifact(jpath, device="cpu")

@@ -208,7 +208,9 @@ def _cfg_with(tmp_path, path, value):
       "loss"), "bce", "'bce' is not implemented by the hedngan step"),
 ])
 def test_build_refuses_what_is_not_ported(tmp_path, path, value, match):
-    """The blur-pool and U-Net members, once refused, are ported: the
+    """Data parallelism is ported: without a process group a
+    `parallel: {devices: N}` build runs the single-process step. The
+    blur-pool and U-Net members, once refused, are ported: the
     blur-pool cases now build, with the blur steps the config names; the
     U-Net takes none of the ResNet generator's keys (`no_antialias`, ...)
     and raises TypeError on them, as the JAX package's does. The
@@ -217,6 +219,15 @@ def test_build_refuses_what_is_not_ported(tmp_path, path, value, match):
     a SingleNetwork's keys name no `network_order` and no link target, so
     both packages raise KeyError."""
     cfg = _cfg_with(tmp_path, path, value)
+    if path[-1] == "parallel":
+        # ported (parallel/mesh.py): without a process group the build
+        # runs the single-process step, as the JAX build does on one device
+        exp = build_gan_experiment(cfg, device="cpu")
+        assert not getattr(exp["step"], "gandtr_dp", False)
+        X = torch.from_numpy(_batches(1)[0][0])
+        _, metrics, _ = exp["step"](exp["state"], X, X)
+        assert np.isfinite(float(metrics["total"]))
+        return
     if value in ("MultiheadNetwork", "SingleNetworkLink"):
         from gandtr_tpu.learning.network import build_model_set
         with pytest.raises(KeyError):

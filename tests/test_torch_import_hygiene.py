@@ -33,7 +33,8 @@ NEEDED = ("hub", "device", "ops.clahe", "ops.norm", "ops.resblock",
           "utils.file_readers", "learning.teacher_cache",
           "learning.tensorboard", "models.unet", "models.extra_layers",
           "ops.colorspace", "learning.wrappers", "data.histogram_consts",
-          "models.grouping")
+          "models.grouping", "parallel.mesh", "native", "utils.imgtools",
+          "utils.modelviz", "utils.fs_api", "models.pretrained_urls")
 
 torch.set_num_threads(1)
 
@@ -122,6 +123,64 @@ def test_the_model_side_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_parallel_and_native_run_without_jax(tmp_path):
+    """A data-parallel step over a one-rank gloo group and the native
+    decoder's build and decode load nothing of JAX when they run."""
+    code = (
+        "import sys, os, torch, numpy as np, torch.distributed as dist\n"
+        "from PIL import Image\n"
+        "from gandtr_tpu_torch.parallel import mesh\n"
+        "from gandtr_tpu_torch import native\n"
+        "dist.init_process_group('gloo', init_method='tcp://127.0.0.1:%d' "
+        "% int(sys.argv[2]), rank=0, world_size=1)\n"
+        "lin = torch.nn.Linear(3, 2)\n"
+        "opt = torch.optim.Adam(lin.parameters())\n"
+        "mesh.attach_optimizers([opt])\n"
+        "def step(state, x):\n"
+        "    opt.zero_grad(); loss = lin(x).square().mean(); loss.backward()"
+        "; opt.step(); return state, {'total': loss.detach()}\n"
+        "s = mesh.data_parallel_step(step)\n"
+        "assert s.gandtr_dp and s(None, torch.ones(4, 3))[1]['total'] > 0\n"
+        "p = os.path.join(sys.argv[1], 'a.png')\n"
+        "Image.fromarray(np.zeros((4, 5, 3), np.uint8)).save(p)\n"
+        "assert native.decode(p).shape == (4, 5, 3), native.build_error()\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'gandtr_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    from torch_dp_workers import free_port
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path),
+                          str(free_port())], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_native_and_parallel_are_the_ports_own():
+    """native/loader.cc is the port's own copy of the JAX package's source
+    (its C API and ABI the same, its header naming the port), built into
+    the port's ignored _build/ and never committed as a .so; no path in
+    native/ or parallel/ points into gandtr_tpu/."""
+    ours = (PKG / "native" / "loader.cc").read_text()
+    theirs = (PKG.parent / "gandtr_tpu" / "native" / "loader.cc").read_text()
+    assert ours != theirs and "gandtr_tpu_torch" in ours.split("#include")[0]
+    body = ours[ours.index("#include <cstdio>"):]
+    assert body == theirs[theirs.index("#include <cstdio>"):]
+    assert not list(PKG.rglob("*.so")) or all(
+        p.parent.name == "_build" for p in PKG.rglob("*.so"))
+    tracked = subprocess.run(["git", "ls-files", "gandtr_tpu_torch"],
+                             cwd=PKG.parent, capture_output=True, text=True)
+    assert not [f for f in tracked.stdout.split() if f.endswith(".so")]
+    for sub in ("native", "parallel"):
+        for path in (PKG / sub).rglob("*"):
+            if path.suffix in (".py", ".cc"):
+                text = path.read_text()
+                assert "gandtr_tpu/" not in text.replace(
+                    "gandtr_tpu/native/__init__.py", "").replace(
+                    "gandtr_tpu/parallel/mesh.py", ""), path
+                assert "import gandtr_tpu\n" not in text, path
 
 
 def test_no_source_file_names_jax():
