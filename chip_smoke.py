@@ -97,7 +97,8 @@
    published epoch's mining on seeded random descriptors, and a labelled
    projection of a published epoch.
 10. The ResNet-101 chain of finetune_r101 and eval_r101 (`run_r101`), at
-   full width and depth (2048-d, a 2048x2048 Lw), seeded weights, each
+   full width (2048-d, a 2048x2048 Lw) with 2 blocks a stage in place of
+   (3, 4, 23, 3) (`R101_DEPTH`), seeded weights, each
    part with every launch count set to 0 just before it: (a) the hub's
    gem_resnet101_cyclegan served (8 concurrent 768x1024 npy requests, K1
    once a batch): finite unit-norm descriptors equal to the direct call,
@@ -266,7 +267,9 @@
    (`official_unet_generator`, num_downs 8, ngf 64, batch norm) for both
    generators, 2 epochs of 4 steps at 256², the visual validation off
    (unet_256 takes 256² only): no launch, epoch 2 resumed bit for bit,
-   one step at 256² against float64 (phase 12's rule); the loops' busy
+   one step against float64 (phase 12's rule) cut in depth to unet_128
+   (num_downs 7) at 128², the same blocks one level fewer, since a
+   float64 step at 256² takes a minute of a slow host; the loops' busy
    shares are the union of the card's event intervals (`_device_busy_us`,
    as every GAN loop's since); (a) the blur-pool generator_X of (b) through
    hub.cyclegan in bf16, served by serve_http to rounds of 8 concurrent
@@ -379,7 +382,35 @@
    PIL, and its 6-thread pool's images/s beside PIL's on 6 threads. Times
    are the card's own (this card, one process or two ranks sharing it);
    no multi-card speed is claimed.
-20. Stage breakdowns of one batch of each served path, the `{"kernels":
+20. Spatial sharding (`run_spatial`, parallel/spatial.py): four gloo
+   ranks sharing the one card as a 2 x 2 data x sp grid (two data rows of
+   one image, two bands of rows an image) run, through `spatial_apply`
+   with every launch count set to 0 just before and read just after:
+   (a) the hub's cyclegan generator (ngf 64, 9 blocks, instance norm) at
+   batch 2 of 1024x1024, with kaiming_p2p and with its served normal_p2p
+   weights, in float32 and in bf16 (K3 declines under a grid: its
+   instance norm would see one band); (b) the hub's GeM-VGG16 single-scale
+   with the seeded Lw on batch 2 of uint8 1024x1024 photos through its
+   device preprocessing (LAB CLAHE: K1 on each data row's whole image,
+   the band kept), float32 and with the net in bf16 (K2 at conv1_2 and
+   conv2_2 on each halo-extended band); (c) HED at width 1.0 on batch 2
+   of 256² (max_spatial_shards(256, 16, 2) = 8). Against one process
+   without a grid on the same seeded weights and inputs: float32 within
+   rtol 1e-4, atol 1e-5 of the unsharded output's largest value (the JAX
+   test's bound; printed only for normal_p2p, a chaotic net: see 6); bf16
+   by the C.2 rule (`_chain_bound`: the sharded output's largest distance
+   from the float32 output within CHAIN_FACTOR of the unsharded bf16
+   output's); descriptors unit norm to 1e-4; each rank's launches equal to
+   `SP_LAUNCHES` (K1 2, K2 2, K3 0, K4 0). After the counts are read,
+   K1 and K2 on the very inputs the counted runs gave them: K1 on the
+   gathered (1, 1024, 1024) lightness bit for bit against its plain
+   version; K2 on each halo-extended band ((1, 513, 1024, 64),
+   (1, 257, 512, 128)) within 2e-2 of its plain version and, cropped,
+   bit-equal to K2 on the whole tensor. Prints each check, each net's
+   ms a batch sharded (the slowest rank, between barriers) and unsharded,
+   and the phase's seconds; the ranks share the card's SMs, so the times
+   are a record, not a speed-up.
+21. Stage breakdowns of one batch of each served path, the `{"kernels":
    [...]}` line (each kernel with its launches by path, K1 and K4 with
    their times at the eval's geometry and the r101 inputs), the card's
    line again, and last `{"ok": true, "device": {...}}`.
@@ -1630,6 +1661,10 @@ def finetune_loop_config(dataset_pkl, image_dir):
 # by eval.yml from both; tests/test_torch_finetune_r101.py holds them to
 # the YAML files
 R101_EPOCHS = 2
+# the blocks of layer1..4 the r101 chain builds: ResNet-101's (3, 4, 23, 3)
+# cut for the script's time limit to a projection block and an identity
+# block a stage; every width as published
+R101_DEPTH = (2, 2, 2, 2)
 R101_TRAIN = {"network.embed.model.cir_architecture": "resnet101",
               "learning.training.criterion.margin": 0.85}
 WHITENING = {
@@ -1679,7 +1714,37 @@ def cid_path(cid):
     return "/".join([cid[-2:], cid[-4:-2], cid[-6:-4], cid])
 
 
+_DATA_CACHE = {}
+
+
+def _seeded_data(key, make):
+    """The directory that `make(directory)` filled for `key`: made on the
+    first call and kept until the script exits, so that the phases which
+    write the same seeded set copy it in place of drawing and encoding it
+    again."""
+    if key not in _DATA_CACHE:
+        import atexit
+        import shutil
+        import tempfile
+        d = tempfile.mkdtemp(prefix="smoke_data_",
+                             dir=os.environ.get("TMPDIR"))
+        atexit.register(shutil.rmtree, d, True)
+        make(d)
+        _DATA_CACHE[key] = d
+    return _DATA_CACHE[key]
+
+
 def make_tuple_set(root, seed=0, cids=False):
+    """`_draw_tuple_set` under root, drawn once a (seed, cids) and copied
+    on later calls. Returns the pkl's path."""
+    import shutil
+    src = _seeded_data(("tuples", seed, cids),
+                       lambda d: _draw_tuple_set(d, seed, cids))
+    shutil.copytree(src, root, dirs_exist_ok=True)
+    return os.path.join(root, "retrieval-SfM-120k.pkl" if cids else "db.pkl")
+
+
+def _draw_tuple_set(root, seed=0, cids=False):
     """A seeded retrieval-SfM-style tuple set under root: LOOP_CLUSTERS
     clusters of LOOP_PER JPEGs (a scene of its own: a hue and 3 plane waves,
     each photo at another offset, with noise), shapes cycling through
@@ -1994,8 +2059,7 @@ def run_finetune_loop(dev, bare_step_ms):
 
         # --- the parts of the run and the card's busy share
         prof = rec.pop("prof")
-        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy_us = _device_sum_us(prof)
         ep2 = rec["epochs"][1]
         steps_s = ep2["run_s"] - ep2["mining_s"]
         loop_step_ms = 1e3 * steps_s / per_epoch
@@ -2120,6 +2184,18 @@ EVAL_DB, EVAL_Q = 48, 6
 
 def make_eval_set(root, seed=0, name="roxford5k", n_db=EVAL_DB,
                   n_q=EVAL_Q):
+    """`_draw_eval_set` under root/<name>, drawn once for its arguments
+    and copied on later calls. Returns the database paths."""
+    import shutil
+    src = _seeded_data(("eval", seed, name, n_db, n_q),
+                       lambda d: _draw_eval_set(d, seed, name, n_db, n_q))
+    shutil.copytree(os.path.join(src, name), os.path.join(root, name))
+    return [os.path.join(root, name, "jpg", "db%02d.jpg" % i)
+            for i in range(n_db)]
+
+
+def _draw_eval_set(root, seed=0, name="roxford5k", n_db=EVAL_DB,
+                   n_q=EVAL_Q):
     """A seeded synthetic roxford5k-style set under root/<name>: n_q
     scenes, each seen by one query (cropped to a bbx) and by n_db // n_q
     database photos at other offsets, with noise; sizes cycle through
@@ -2324,9 +2400,8 @@ def eval_busy_share(params, label="eval"):
         validate_stage.evaluate_dataset = original
         ShapeCachedExtractor.__call__ = call
     wall = window["wall"]
-    device = [e for e in window["prof"].events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    device = _device_spans(window["prof"])
+    busy_us = sum(b - a for a, b in device) / 1e3
     share = busy_us / 1e6 / wall
     call_ms = 1e3 * float(np.mean(in_calls))
     print("%s bucketed, the dataset's evaluation under the profiler (set-"
@@ -2690,8 +2765,7 @@ def r101_finetune(dev, tmp, calls):
                              "extraction batches, %d steps of %d tuples)"
                              % (counts, want, batches, len(losses), t))
     prof = rec.pop("prof")
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us = _device_sum_us(prof)
     ep2 = rec["epochs"][-1]
     loop_step_ms = 1e3 * (ep2["run_s"] - ep2["mining_s"]) / per_epoch
     ckpt = os.path.join(directory, "epochs", "embed_best.ckpt")
@@ -2854,16 +2928,20 @@ def _clahe_summary(cases):
 
 
 def run_r101(dev):
-    """The ResNet-101 chain on the card, at full width and depth (2048-d,
-    a 2048x2048 Lw), seeded weights: (a) the hub served, (b) finetune_r101's
-    step 1, (c) its step 2 from step 1's file, (d) its step 4 (eval_r101
-    with a network file and an Lw), (e) K1 and K4 held bit for bit against
-    their plain versions on the very inputs (a) to (d) gave them. Each part
-    counts its launches from 0; their sum is the r101 path's."""
+    """The ResNet-101 chain on the card, at full width (2048-d, a
+    2048x2048 Lw) and the depth R101_DEPTH, seeded weights: (a) the hub
+    served, (b) finetune_r101's step 1, (c) its step 2 from step 1's file,
+    (d) its step 4 (eval_r101 with a network file and an Lw), (e) K1 and K4
+    held bit for bit against their plain versions on the very inputs (a)
+    to (d) gave them. Each part counts its launches from 0; their sum is
+    the r101 path's."""
     import shutil
     import tempfile
+    from gandtr_tpu_torch.models import backbones
     calls = {"K4": [], "K1": []}
     tmp = tempfile.mkdtemp(prefix="r101_", dir=os.environ.get("TMPDIR"))
+    full = backbones.RESNET_LAYERS["resnet101"]
+    backbones.RESNET_LAYERS["resnet101"] = R101_DEPTH
     try:
         hub_out = r101_hub(calls)
         print("r101 (a) hub gem_resnet101_cyclegan served (%d concurrent "
@@ -2889,6 +2967,7 @@ def run_r101(dev):
               "bit-equal to their plain versions, one kernel a call: %s"
               % json.dumps(summary))
     finally:
+        backbones.RESNET_LAYERS["resnet101"] = full
         shutil.rmtree(tmp, ignore_errors=True)
     parts = [hub_out["launches"], ft["launches"], wh["launches"]] + list(
         ev["launches"].values())
@@ -3473,8 +3552,7 @@ def run_gan_train(dev):
 
         # --- the parts of the run and the card's busy share
         prof = rec.pop("prof")
-        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy_us = _device_sum_us(prof)
         batch = cfg["data"]["train"]["loader"]["batch_size"]
         loop_ms = 1e3 * rec["epochs"][1]["steps_s"] / per_epoch
         out = {"setup_s": setup_s, "run_s": wall, "steps": len(metrics),
@@ -3744,14 +3822,28 @@ def _instrumented_gan_builds(recs, profile_epoch=2, snapshot=False):
     return orig
 
 
+def _device_spans(prof):
+    """[(start ns, end ns)] of the card's events (kernels, copies, memsets)
+    in a finished torch.profiler run, read from the raw kineto events:
+    `prof.events()` builds a FunctionEvent a record first, which takes tens
+    of seconds for a long trace."""
+    return [(e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def _device_sum_us(prof):
+    """The sum of the card's event durations in a finished profiler run,
+    in microseconds (overlapping events count twice)."""
+    return sum(b - a for a, b in _device_spans(prof)) / 1e3
+
+
 def _device_busy_us(prof):
     """The card's busy time in a finished torch.profiler run: the union of
     its device events' intervals, read from the raw kineto events (kernels
     that overlap on two streams count once; building the FunctionEvent
     list of a long trace takes tens of seconds)."""
-    spans = sorted((e.start_ns(), e.end_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    spans = sorted(_device_spans(prof))
     busy, end = 0, None
     for a, b in spans:
         if end is None or a > end:
@@ -5319,9 +5411,7 @@ def _opt_dsc(dev, root, lists):
                 state = _run(state, epoch)
                 torch.cuda.synchronize()
                 _rec["wall"] = time.perf_counter() - t0
-            _rec["busy_us"] = sum(
-                e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+            _rec["busy_us"] = _device_sum_us(prof)
             return state
 
         def recording_draw(sizes, _draw=draw, _rec=rec, _knob=knob):
@@ -5773,6 +5863,11 @@ ARCH_UNET_OVR = tuple("%snetwork.%s.model=%s" % (ARCH_PRE, g,
                                                  json.dumps(ARCH_UNET))
                       for g in ("generator_X", "generator_Y")) + (
     ARCH_PRE + "learning.validation.visual.frequency=null",)
+#: the float64 parity step's U-Net: unet_128, one level fewer, at 128²
+ARCH_UNET_PARITY = tuple("%snetwork.%s.model=%s" % (
+    ARCH_PRE, g, json.dumps(dict(ARCH_UNET, num_downs=7)))
+    for g in ("generator_X", "generator_Y")) + ARCH_UNET_OVR[2:]
+ARCH_UNET_PARITY_HW = 128
 ARCH_VGG = {"architecture": "cirnet", "cir_architecture": "vgg16",
             "local_whitening": False, "whitening": False}
 #: eval.yml's network with each descriptor net of the registry the path
@@ -5850,8 +5945,8 @@ def _arch_cyclegan_unet(dev, tmp):
     """cyclegan.yml's `train` target through the CLI with unet_256 for
     both generators (cyclegan_overrides: 2 epochs of 4 steps at batch 1 of
     256², no visual validation): finite losses, no launch, the resume of
-    epoch 2 bit for bit, one step at 256² against float64 (normal_p2p as
-    shipped)."""
+    epoch 2 bit for bit, one step of the same nets cut to unet_128 at 128²
+    against float64 (normal_p2p as shipped)."""
     from gandtr_tpu_torch.scenarios import build
     recs, cap = [], {}
     orig_build = _instrumented_gan_builds(recs)
@@ -5905,7 +6000,8 @@ def _arch_cyclegan_unet(dev, tmp):
     del recs, resumed
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    out["parity"] = _cyclegan_parity(dev, ARCH_UNET_OVR, hw=256,
+    out["parity"] = _cyclegan_parity(dev, ARCH_UNET_PARITY,
+                                     hw=ARCH_UNET_PARITY_HW,
                                      inits=("normal_p2p",))
     laps["parity_s"] = time.perf_counter() - t1
     return out
@@ -7777,6 +7873,300 @@ def run_parallel(dev):
     return out
 
 
+# ---- spatial sharding over a data x spatial grid of ranks (run_spatial)
+SP_GRID = (2, 2)          # data x sp: four gloo ranks sharing the one card
+SP_BATCH = 2              # one image a data row
+SP_HW = 1024              # the generator's and the descriptor's photos
+SP_HED_HW = 256           # HED^N-GAN's training size
+SP_RTOL, SP_ATOL = 1e-4, 1e-5     # tests/test_spatial_sharding.py's bound
+SP_GEN_INITS = ("kaiming_p2p", "normal_p2p")
+# each rank's launches, by design: K1 once a descriptor pass, on its data
+# row's whole image (float32 and bf16); K2 at conv1_2 and conv2_2 of the
+# bf16 pass, on its halo-extended band; K3 never (it declines under a
+# grid: ops/resblock.py::eligible); K4 never (no mask)
+SP_LAUNCHES = {"K1": 2, "K2": 2, "K3": 0, "K4": 0}
+
+
+def _sp_inputs():
+    rs = np.random.RandomState(19)
+    return {"gen": rs.uniform(-1, 1, (SP_BATCH, SP_HW, SP_HW, 3))
+            .astype(np.float32),
+            "photos": rs.randint(0, 256, (SP_BATCH, SP_HW, SP_HW, 3),
+                                 dtype=np.uint8),
+            "hed": rs.uniform(-1, 1, (SP_BATCH, SP_HED_HW, SP_HED_HW, 3))
+            .astype(np.float32)}
+
+
+def _sp_runs(dev):
+    """[(name, forward, input key, total downsampling)] of the phase, each
+    net built from seeds through the entry points: the hub's cyclegan
+    generator (its normal_p2p weights and, as generator_parity holds it,
+    kaiming_p2p), float32 and bf16; the hub's GeM-VGG16 single-scale with
+    the seeded Lw on uint8 photos through its device preprocessing (LAB
+    CLAHE with K1, normalize), float32 and with the net in bf16 (K2);
+    HED at width 1.0, float32."""
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.data.transforms import split_device_transform
+    from gandtr_tpu_torch.models import initialize_model
+    runs = []
+
+    def generator(gen, dtype):
+        def fn(x):
+            gen.net.compute_dtype = dtype
+            return gen.net.apply(x)
+        return fn
+    for init in SP_GEN_INITS:
+        gen = hub._generator("instance", pretrained=False, init_weights=init,
+                             device=dev)
+        for tag, dt in (("f32", None), ("bf16", torch.bfloat16)):
+            runs.append(("generator_%s_%s" % (init, tag),
+                         generator(gen, dt), "gen", 4))
+    desc = hub.gem_vgg16_hedngan(pretrained=False, whitening=seeded_lw(),
+                                 device=dev, multiscale=False)
+    _, pre = split_device_transform(desc.net.data_params["transforms"],
+                                    desc.net.data_params["mean_std"])
+
+    def descriptor(dtype):
+        def fn(x):
+            desc.net.compute_dtype = dtype
+            return desc.net.apply(pre(x.float() / 255.0))
+        return fn
+    for tag, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        runs.append(("descriptor_" + tag, descriptor(dt), "photos", 16))
+    hed = initialize_model({"architecture": "hed_interpolation"})
+    hub._init_random(hed, seed=5)
+    runs.append(("hed_f32", hed.to(dev).eval(), "hed", 16))
+    return runs
+
+
+def _sp_timed(fn, reps=2):
+    """ms of one call on the card (host clock around it, synchronized),
+    the median of `reps` after the call already made."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _sp_kernel_checks(calls, sm):
+    """K1 and K2 on the very inputs this rank's counted runs gave them
+    (`calls`: {"K1": [(args, kwargs)], "K2": [...]}), after the counts were
+    read. K1, on the gathered (1, H, W) lightness, bit for bit against its
+    plain version. K2, on the halo-extended band: within 2e-2 of
+    1 + |plain| (check_k2's bf16 bound) against the float32 conv of the
+    same bf16 values, and its band rows bit-equal to K2 on the whole
+    tensor (the bands gathered over sp, exact through float32), cropped to
+    this rank's band. Every rank runs the same calls in the same order
+    (the gathers are collective). Raises on a mismatch."""
+    from gandtr_tpu_torch.kernels import clahe as kclahe
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.ops.clahe import clahe_u8_plain
+    from gandtr_tpu_torch.ops.vggconv import conv3x3_same_plain
+    from gandtr_tpu_torch.parallel import spatial
+    out = {"K1": [], "K2": []}
+    for args, kwargs in calls["K1"]:
+        got = kclahe.clahe_u8_cuda(*args, **kwargs)
+        want = clahe_u8_plain(*args, **kwargs)
+        d = int((got.int() - want.int()).abs().max())
+        out["K1"].append({"shape": list(args[0].shape), "max_abs_err": d})
+        if d:
+            raise AssertionError("spatial K1 at %s: max |kernel - plain| %d"
+                                 % (tuple(args[0].shape), d))
+    for (x, wmat, bias, relu, out_dtype), kwargs in calls["K2"]:
+        C = x.shape[-1]
+        got = kvgg.conv3x3_same_cuda(x, wmat, bias, relu, out_dtype)
+        want = conv3x3_same_plain(x, wmat.view(3, 3, C, C), bias, relu,
+                                  out_dtype)
+        ok, err = _within(got, want, 2e-2)
+        lo = int(sm.above is not None)
+        rows = x.shape[1] - lo - int(sm.below is not None)
+        band = x[:, lo:lo + rows].float().contiguous()
+        whole = spatial.gather_image_rows(band, sm).to(x.dtype).contiguous()
+        ref = spatial.band_of(kvgg.conv3x3_same_cuda(
+            whole, wmat, bias, relu, out_dtype), sm)
+        equal = torch.equal(got[:, lo:lo + rows], ref)
+        out["K2"].append({"shape": list(x.shape), "max_abs_err": err,
+                          "whole_bit_equal": equal})
+        if not ok or not equal:
+            raise AssertionError("spatial K2 at %s: max |kernel - plain| %g,"
+                                 " bit-equal to the whole tensor %s"
+                                 % (tuple(x.shape), err, equal))
+    torch.cuda.synchronize()
+    return out
+
+
+def _spatial_rank(rank, world, port, job, device):
+    """One rank of run_spatial's 2 x 2 grid on the one card (`device`):
+    every run of `_sp_runs` through `spatial_apply` with the launch counts
+    set to 0 just before and read just after, K1's and K2's calls recorded
+    and then checked (`_sp_kernel_checks`); then each run timed between
+    barriers. Rank 0 writes the gathered outputs."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    torch.set_num_threads(2)          # four ranks on the host's cores
+    inputs = torch.load(job, weights_only=False)
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
+                            rank=rank, world_size=world)
+    try:
+        from gandtr_tpu_torch.parallel import mesh, spatial
+        sm = mesh.spatial_mesh(*SP_GRID)
+        runs = _sp_runs(dev)
+        xs = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+        out = {"outputs": {}, "ms": {}}
+        from gandtr_tpu_torch.kernels import clahe as kclahe
+        from gandtr_tpu_torch.kernels import vggconv as kvgg
+        calls = {"K1": [], "K2": []}
+        restore = [_recording_calls(kclahe, "clahe_u8_cuda", calls["K1"]),
+                   _recording_calls(kvgg, "conv3x3_same_cuda", calls["K2"])]
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            for name, fn, key, down in runs:
+                with torch.inference_mode():
+                    y = spatial.spatial_apply(fn, xs[key], sm,
+                                              downsample=down)
+                if rank == 0:
+                    out["outputs"][name] = y.float().cpu()
+            torch.cuda.synchronize()
+            out["launches"] = launches()
+        finally:
+            for r in restore:
+                r()
+        with torch.inference_mode():
+            out["kernel_checks"] = _sp_kernel_checks(calls, sm)
+        del calls
+        for name, fn, key, down in runs:
+            def call(fn=fn, key=key, down=down):
+                dist.barrier()
+                spatial.spatial_apply(fn, xs[key], sm, downsample=down)
+                torch.cuda.synchronize()
+                dist.barrier()
+            out["ms"][name] = _sp_timed(call)
+        torch.save(out, "%s.%d" % (job, rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_spatial(dev):
+    """Phase 20 (docstring item 20): spatial sharding (parallel/spatial.py)
+    over four gloo ranks sharing the one card as a 2 x 2 data x sp grid,
+    against one process without a grid on the same seeded weights and
+    inputs. The launch counts are each rank's of the counted runs."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from gandtr_tpu_torch.parallel import mesh
+    card = card_line()
+    t_phase = time.perf_counter()
+    world = SP_GRID[0] * SP_GRID[1]
+    if mesh.max_spatial_shards(SP_HED_HW, 16, 2) < SP_GRID[1]:
+        raise AssertionError("HED at %d cannot take %d bands"
+                             % (SP_HED_HW, SP_GRID[1]))
+    inputs = _sp_inputs()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.pt")
+        torch.save(inputs, job)
+        t0 = time.perf_counter()
+        mp.spawn(_spatial_rank, args=(world, _free_port(), job, str(dev)),
+                 nprocs=world, join=True)
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load("%s.%d" % (job, r), weights_only=False)
+                 for r in range(world)]
+    print("spatial: the %d ranks took %.1f s" % (world, ranks_s))
+    per_rank = [r["launches"] for r in ranks]
+    print("spatial launches a rank (design %s): %s"
+          % (json.dumps(SP_LAUNCHES), json.dumps(per_rank)))
+    if any(c != SP_LAUNCHES for c in per_rank):
+        raise AssertionError("spatial launches %s, by design %s"
+                             % (per_rank, SP_LAUNCHES))
+    # each rank raised if its kernels disagreed; the recorded calls are
+    # its counted launches, one check a launch
+    checks = [r["kernel_checks"] for r in ranks]
+    for c in checks:
+        if [len(c["K1"]), len(c["K2"])] != [SP_LAUNCHES["K1"],
+                                            SP_LAUNCHES["K2"]]:
+            raise AssertionError("spatial kernel checks %s" % c)
+    print("spatial K1 and K2 on the inputs the counted runs gave them, a "
+          "rank: K1 bit-equal to plain at %s; K2 against plain (2e-2) and "
+          "bit-equal to K2 on the whole tensor: %s"
+          % ([c["shape"] for c in checks[0]["K1"]],
+             json.dumps([c["K2"] for c in checks])))
+
+    # the same runs in one process, no grid
+    xs = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+    plain, plain_ms, k3_plain = {}, {}, {}
+    for name, fn, key, _ in _sp_runs(dev):
+        torch.cuda.synchronize()
+        reset_launches()
+        with torch.inference_mode():
+            plain[name] = fn(xs[key]).float()
+        torch.cuda.synchronize()
+        k3_plain[name] = launches()["K3"]
+        plain_ms[name] = _sp_timed(lambda fn=fn, key=key: fn(xs[key]))
+    got = {k: v.to(dev) for k, v in ranks[0]["outputs"].items()}
+    res = {}
+
+    def f32_rule(name):
+        d = float((got[name] - plain[name]).abs().max())
+        bound = SP_ATOL + SP_RTOL * float(plain[name].abs().max())
+        return {"max_abs": d, "bound": bound, "within": d <= bound}
+    for init in SP_GEN_INITS:
+        f32 = "generator_%s_f32" % init
+        bf16 = "generator_%s_bf16" % init
+        res[f32] = f32_rule(f32)
+        res[bf16] = _chain_bound(got[bf16], plain[bf16], plain[f32])
+        res[bf16]["unsharded_k3_launches"] = k3_plain[bf16]
+    res["descriptor_f32"] = f32_rule("descriptor_f32")
+    res["descriptor_bf16"] = _chain_bound(got["descriptor_bf16"],
+                                          plain["descriptor_bf16"],
+                                          plain["descriptor_f32"])
+    for name in ("descriptor_f32", "descriptor_bf16"):
+        norms = got[name].norm(dim=1)
+        res[name]["norm_err"] = float((norms - 1).abs().max())
+        if got[name].shape != (SP_BATCH, 512) or \
+                not torch.isfinite(got[name]).all():
+            raise AssertionError("spatial %s: %s" % (name,
+                                                     tuple(got[name].shape)))
+    res["hed_f32"] = f32_rule("hed_f32")
+    for name, y in got.items():
+        if y.shape != plain[name].shape or not torch.isfinite(y).all():
+            raise AssertionError("spatial %s: shape %s against %s"
+                                 % (name, tuple(y.shape),
+                                    tuple(plain[name].shape)))
+    times = {name: {"sharded_ms": max(r["ms"][name] for r in ranks),
+                    "unsharded_ms": plain_ms[name]} for name in plain}
+    for name in plain:
+        print("spatial %s: %s; ms a batch of %d on %s: sharded %.2f, "
+              "unsharded %.2f" % (name, json.dumps(res[name]), SP_BATCH,
+                                  card, times[name]["sharded_ms"],
+                                  times[name]["unsharded_ms"]))
+    # the served normal_p2p weights make a chaotic net (generator_parity):
+    # its float32 distance is printed, the kaiming_p2p net's is held
+    held = [n for n in res if n != "generator_normal_p2p_f32"]
+    bad = [n for n in held if not res[n]["within"]
+           or res[n].get("norm_err", 0) > 1e-4]
+    if bad:
+        raise AssertionError("spatial: %s" % {n: res[n] for n in bad})
+    totals = {k: sum(c[k] for c in per_rank) for k in SP_LAUNCHES}
+    out = {"checks": res, "times": times, "ranks_s": ranks_s,
+           "kernel_checks": checks,
+           "launches": totals, "launches_per_rank": per_rank,
+           "seconds": time.perf_counter() - t_phase}
+    del plain, got, xs
+    torch.cuda.empty_cache()
+    print("spatial phase (%s): %.1f s, launches %s"
+          % (card, out["seconds"], json.dumps(totals)))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8000,6 +8390,12 @@ def main():
     torch.cuda.empty_cache()
     par = run_parallel(dev)
     lap("parallel")
+
+    # ---- spatial sharding: the generator, GeM-VGG16 with K1 and K2, and
+    # HED row-sharded over a 2 x 2 data x sp grid of ranks on the one card
+    torch.cuda.empty_cache()
+    spat = run_spatial(dev)
+    lap("spatial")
     by_path = {k: {"serve": desc_launches[k] + gen_launches[k],
                    "finetune": ft["launches"][k],
                    "finetune_loop": loop["launches"][k],
@@ -8013,7 +8409,8 @@ def main():
                    "architectures": arch["launches"][k],
                    "data_side": data["launches"][k],
                    "local_multihead": lm["launches"][k],
-                   "parallel": par["launches"][k]}
+                   "parallel": par["launches"][k],
+                   "spatial": spat["launches"][k]}
                for k in ("K1", "K2", "K3", "K4")}
 
     print(json.dumps({"kernels": [{

@@ -163,19 +163,19 @@ def _embedding(architecture, checkpoint=None, whitening=None,
 
 
 def gem_vgg16_cyclegan(pretrained=False, device=None, checkpoint=None,
-                       whitening=None):
+                       whitening=None, multiscale=True):
     """GeM VGG16 descriptor net fine-tuned with CycleGAN augmentation +
     CLAHE (published as cyclegan_embed_vgg16.pth and its _lw.pkl)."""
     return _embedding("vgg16", checkpoint, whitening, pretrained,
-                      device=device)
+                      multiscale=multiscale, device=device)
 
 
 def gem_vgg16_hedngan(pretrained=False, device=None, checkpoint=None,
-                      whitening=None):
+                      whitening=None, multiscale=True):
     """GeM VGG16 descriptor net fine-tuned with HED^N-GAN augmentation +
     CLAHE (published as hedngan_embed_vgg16.pth and its _lw.pkl)."""
     return _embedding("vgg16", checkpoint, whitening, pretrained,
-                      device=device)
+                      multiscale=multiscale, device=device)
 
 
 def gem_resnet101_cyclegan(pretrained=False, device=None, checkpoint=None,

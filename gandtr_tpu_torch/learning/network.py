@@ -48,6 +48,7 @@ from gandtr_tpu_torch.ops.maskprop import MaskState
 from gandtr_tpu_torch.ops.norm import l2n
 from gandtr_tpu_torch.ops.pooling import gem
 from gandtr_tpu_torch.ops.resize import scale_resize
+from gandtr_tpu_torch.parallel import spatial
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
@@ -323,9 +324,11 @@ class GlobalLocalModule:
         self.scales = tuple(scales) if scales else self.SCALES
 
     def forward_global(self, x):
+        spatial.refuse("GlobalLocalModule")
         return l2n(self.pool_fn(self.features.apply(x)))
 
     def forward_local(self, x):
+        spatial.refuse("GlobalLocalModule")
         out = []
         for s in self.scales:
             f = self.features.apply(scale_resize(x, s) if s != 1.0 else x)

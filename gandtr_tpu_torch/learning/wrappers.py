@@ -31,6 +31,7 @@ from gandtr_tpu_torch.models.layers import pad2d
 from gandtr_tpu_torch.ops import clahe as clahe_ops
 from gandtr_tpu_torch.ops.maskprop import MaskState
 from gandtr_tpu_torch.ops.resize import masked_scale_resize, scale_resize
+from gandtr_tpu_torch.parallel import spatial
 
 
 class ScaleList(list):
@@ -55,6 +56,7 @@ class ReflectPadMakeDivisible(Wrapper):
         self.divisible_by = int(divisible_by)
 
     def pre(self, x, ctx):
+        spatial.refuse("reflectpad_divisible")
         d = self.divisible_by
         pady = -(x.shape[1] // -d) * d - x.shape[1]
         padx = -(x.shape[2] // -d) * d - x.shape[2]

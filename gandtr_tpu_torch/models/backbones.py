@@ -33,12 +33,22 @@ conv computes in float32 (`layers.Conv`), as in the JAX package.
 In the masked mode it re-zeroes the band where the JAX net does: after the
 first ReLU, before each block's 3x3 conv (not after the residual: 1x1
 convs do not mix positions) and once at the end.
+
+Under a row-sharded grid (parallel/spatial.py) `VGG16Features` runs its
+band of rows: a cuDNN conv takes the band with a zero-mode halo row above
+and below and no row padding; K2 takes the band extended by a neighbour's
+row at each inner edge only (its own SAME zero pad is the image's pad at
+the true edges), and the neighbours' rows are cropped from its output; a
+max-pool stays local on bands of an even number of rows. A mask, and
+`ResNetFeatures` (its 3x3 max-pool), refuse the grid (ROADMAP A.6.6).
 """
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gandtr_tpu_torch.models.layers import Conv, FrozenBatchNorm
 from gandtr_tpu_torch.ops import maskprop, vggconv
+from gandtr_tpu_torch.parallel import spatial
 
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512)  # last maxpool dropped
@@ -68,6 +78,7 @@ class VGG16Features(nn.Sequential):
         """x: (N, 3, H, W) (an NHWC tensor seen as NCHW). Returns the
         features, and with `mask` also their valid mask (N, h, w)."""
         ms = maskprop.MaskState.maybe(mask)
+        sm = spatial.banded()
         layers = list(self)
         h = x.permute(0, 2, 3, 1)            # NHWC view, as maskprop takes
         h = ms.apply(h)
@@ -75,6 +86,8 @@ class VGG16Features(nn.Sequential):
         while i < len(layers):
             layer = layers[i]
             if isinstance(layer, nn.MaxPool2d):
+                if sm is not None:
+                    spatial.check_divisible(h.shape[1], 2, "a 2x2 max-pool")
                 h, ms = maskprop.masked_max_pool(h, ms, 2, 2)
                 i += 1
                 continue
@@ -83,8 +96,19 @@ class VGG16Features(nn.Sequential):
                                 layer.stride[0], layer.dilation[0],
                                 layer.padding[0]):
                 w = layer.weight.permute(2, 3, 1, 0)   # OIHW -> HWIO
-                h = vggconv.Conv3x3Same.apply(h, w, layer.bias, True,
-                                              h.dtype)
+                if sm is None:
+                    h = vggconv.Conv3x3Same.apply(h, w, layer.bias, True,
+                                                  h.dtype)
+                else:
+                    rows = h.shape[1]
+                    lo = int(sm.above is not None)
+                    h = vggconv.Conv3x3Same.apply(
+                        spatial.halo_rows(h, 1, 1, None), w, layer.bias,
+                        True, h.dtype)[:, lo:lo + rows]
+            elif sm is not None:
+                h = torch.relu_(F.conv2d(
+                    spatial.halo_rows(h, 1, 1, "zero").permute(0, 3, 1, 2),
+                    layer.weight, layer.bias, 1, (0, 1))).permute(0, 2, 3, 1)
             else:
                 h = torch.relu_(layer(h.permute(0, 3, 1, 2))).permute(
                     0, 2, 3, 1)
@@ -150,6 +174,7 @@ class ResNetFeatures(nn.Sequential):
     def forward(self, x, mask=None):
         """x: (N, 3, H, W) (an NHWC tensor seen as NCHW). Returns the
         features, and with `mask` also their valid mask (N, h, w)."""
+        spatial.refuse("ResNet's features (a padded 3x3 max-pool)")
         ms = maskprop.MaskState.maybe(mask)
         h = ms.apply(x.permute(0, 2, 3, 1))
         h = self[1](self[0](h))

@@ -6,6 +6,8 @@ attention map and the learnable edge-map filter.
 import torch
 from torch import nn
 
+from gandtr_tpu_torch.parallel import spatial
+
 
 class HordeCascadedKOrder(nn.Module):
     """HORDE cascaded high-order pooling regularizer (layers/pooling.py:
@@ -39,6 +41,7 @@ def geometric_median_weiszfeld(x, iterations=3, intermediate_gradients=False):
     feature vectors (layers/pooling.py:44-68): (N, H, W, C) -> (N, 1, 1,
     C). The weights are computed on detached features unless
     `intermediate_gradients`; the last weighted mean takes x's gradient."""
+    spatial.refuse("the geometric median")
     eff = x if intermediate_gradients else x.detach()
     w = torch.ones((1,) + tuple(x.shape[1:3]) + (1,), dtype=x.dtype,
                    device=x.device)
@@ -65,6 +68,7 @@ def weighted_geometric_median_weiszfeld(x, attention_map, iterations=3,
 def l2norm_attention(x, normalize_max=True):
     """The spatial L2-norm attention map (layers/attention.py:4-15):
     (N, H, W, C) -> (N, H, W, 1), divided by each image's maximum."""
+    spatial.refuse("attention")
     m = torch.sqrt((x ** 2).sum(dim=-1, keepdim=True) + 1e-10)
     if normalize_max:
         m = m / m.amax(dim=(1, 2, 3), keepdim=True)
@@ -89,6 +93,8 @@ class EdgeFilter(nn.Module):
         self.tau = nn.Parameter(torch.full((1,), float(tau_init)))
 
     def forward(self, x):
+        # per pixel, but listed as refused under a grid (ROADMAP A.6.6)
+        spatial.refuse("the edge filter")
         tau = torch.clamp(self.tau, 0.01, 0.9)
         num = self.w * torch.clamp(x, min=self.eps) ** self.p
         den = torch.exp(torch.clamp(-self.beta * (x - tau), max=50.0)) + 1.0

@@ -59,6 +59,7 @@ from gandtr_tpu_torch.models.layers import (BatchNorm, BlurDownsample,
                                             Dropout, InstanceNorm, Pad,
                                             make_norm, tensor_key)
 from gandtr_tpu_torch.ops import resblock
+from gandtr_tpu_torch.parallel import spatial
 from gandtr_tpu_torch.ops.maskprop import (MaskState, masked_instance_norm,
                                            masked_reflect_pad)
 
@@ -344,4 +345,5 @@ class UnetGenerator(nn.Module):
         self.meta = {"in_channels": input_nc, "out_channels": output_nc}
 
     def forward(self, x):
+        spatial.refuse("the U-Nets")
         return self.model(x)

@@ -50,6 +50,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from gandtr_tpu_torch.parallel import spatial
+
 SIZE_SHORTCUTS = {"1k": 1024, "2k": 2048, "4k": 4096, "8k": 8192, "16k": 16384,
                   "32k": 32768, "64k": 65536, "128k": 131072, "256k": 262144,
                   "512k": 524288}
@@ -365,6 +367,7 @@ class Grouping(nn.Module):
         return torch.stack(grouped), torch.stack(weights)
 
     def forward(self, images):
+        spatial.refuse("the grouping layers")
         return self._forward([(torch.as_tensor(f), torch.as_tensor(a))
                               for f, a in images])
 

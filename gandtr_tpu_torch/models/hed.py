@@ -12,6 +12,12 @@ the JAX package's `hed_key_map` names each of its parameters
 (utils/weights.py). `width_mult` scales the VGG widths (at least 4
 channels), the JAX package's knob for small tests; 1.0 is the published
 net.
+
+Under a row-sharded grid (parallel/spatial.py) each rank runs its band of
+rows: the convs exchange their halos, a max-pool stays local on bands of
+an even number of rows, and each score map's resize to the band's size
+gathers the map's rows and applies the band's rows of the interpolation
+(ops/resize.py::bilinear_resize).
 """
 import torch
 import torch.nn.functional as F
@@ -19,15 +25,21 @@ from torch import nn
 
 from gandtr_tpu_torch.models.layers import Conv
 from gandtr_tpu_torch.ops.resize import bilinear_resize
+from gandtr_tpu_torch.parallel import spatial
 
 _BLOCKS = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512),
            (512, 512, 512))
 
 
-class MaxPool(nn.Module):
+class MaxPool(nn.MaxPool2d):
     """2x2 max-pool with stride 2 (floor), NHWC."""
 
+    def __init__(self):
+        super().__init__(2, 2)
+
     def forward(self, x):
+        if spatial.banded() is not None:
+            spatial.check_divisible(x.shape[1], 2, "a 2x2 max-pool")
         return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 

@@ -16,6 +16,13 @@ dtype rules follow jnp's: a conv computes in promote(x, weight), so a bf16
 activation after a float32 BatchNorm stays float32 through every later
 conv, as in the JAX package (layers.py:57-59); a transposed conv computes in
 the input's dtype; biases are added after the conv, in its dtype.
+
+Under a row-sharded grid (parallel/spatial.py) each tensor is a band of
+image rows: `pad2d` takes its rows from the neighbouring bands and tags
+them for the `Conv` that follows, a `Conv` with its own padding exchanges
+its halo, a `ConvTranspose` takes the row below and crops its band, and
+instance norm and a training BatchNorm reduce over the grid. The blur-pool
+layers refuse it (ROADMAP A.6.6).
 """
 import numpy as np
 import torch
@@ -23,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gandtr_tpu_torch.ops.norm import batch_norm_inference, instance_norm
-from gandtr_tpu_torch.parallel import mesh
+from gandtr_tpu_torch.parallel import mesh, spatial
 
 _PAD_MODES = {"zero": "constant", "constant": "constant",
               "reflect": "reflect", "refl": "reflect",
@@ -66,11 +73,29 @@ def pad2d(x, pad, mode="zero"):
         raise NotImplementedError("pad mode %s" % mode)
     t, b, l, r = (pad,) * 4 if isinstance(pad, int) else pad
     kind = _PAD_MODES[mode]
+    if spatial.banded() is not None:
+        if spatial.halo_of(x) != (0, 0):
+            raise NotImplementedError("a pad of a padded band %s"
+                                      % spatial.REFUSED)
+        y = _pad_cols(spatial.halo_rows(x, t, b, kind), l, r, kind)
+        return spatial.tag_halo(y, t, b)
     if kind == "reflect":
         return _reflect_cat(_reflect_cat(x, t, b, 1), l, r, 2)
     if kind == "replicate":
         return _replicate_cat(_replicate_cat(x, t, b, 1), l, r, 2)
     y = F.pad(x.permute(0, 3, 1, 2), (l, r, t, b))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _pad_cols(x, lo, hi, kind):
+    """Pad the columns of an NHWC tensor alone (a band's own pad)."""
+    if not (lo or hi):
+        return x
+    if kind == "reflect":
+        return _reflect_cat(x, lo, hi, 2)
+    if kind == "replicate":
+        return _replicate_cat(x, lo, hi, 2)
+    y = F.pad(x.permute(0, 3, 1, 2), (lo, hi, 0, 0))
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -97,16 +122,55 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         dt = torch.promote_types(x.dtype, self.weight.dtype)
-        x = x.to(dt)
-        zero = _PAD_MODES.get(self.pad_mode) == "constant"
-        if self.pad and not zero:
-            x = pad2d(x, self.pad, self.pad_mode)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt), None,
-                     self.stride, self.pad if zero else 0, self.dilation)
-        y = y.permute(0, 2, 3, 1)
+        if spatial.banded() is not None:
+            y = self._band_forward(x, dt)
+        else:
+            x = x.to(dt)
+            zero = _PAD_MODES.get(self.pad_mode) == "constant"
+            if self.pad and not zero:
+                x = pad2d(x, self.pad, self.pad_mode)
+            y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt), None,
+                         self.stride, self.pad if zero else 0, self.dilation)
+            y = y.permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
+
+    def _band_forward(self, x, dt):
+        """The conv of a band of rows: the rows above and below it that its
+        output band reads (a pad's tagged rows, or its own halo), then a
+        conv with no row padding. Output row o of the image reads input
+        rows o s - top + [0, d (k - 1)], so with its output band starting at
+        row a / s the band needs `top` rows above and d (k - 1) - top - s +
+        1 below; the image's rows split evenly only where the conv keeps H
+        / s rows."""
+        t, b = spatial.halo_of(x)
+        k, s, d, p = (self.kernel_size[0], self.stride[0], self.dilation[0],
+                      self.pad)
+        if (t or b) and p:
+            raise NotImplementedError("a padded conv of a padded band %s"
+                                      % spatial.REFUSED)
+        rows = x.shape[1] - t - b
+        spatial.check_divisible(rows, s, "a stride-%d conv" % s)
+        top, bottom = t + p, b + p
+        if not -s <= top + bottom - d * (k - 1) - 1 < 0:
+            raise NotImplementedError(
+                "a conv that does not keep H / stride rows (k %d, stride %d, "
+                "pad %d + %d) %s" % (k, s, top, bottom, spatial.REFUSED))
+        hi = d * (k - 1) - top - s + 1     # rows below the band it reads
+        x = x.to(dt)
+        col, below = p, b
+        if p:
+            kind = _PAD_MODES[self.pad_mode]
+            x = spatial.halo_rows(x, p, max(hi, 0), kind)
+            below = max(hi, 0)
+            if kind != "constant":
+                x, col = _pad_cols(x, p, p, kind), 0
+        if below > hi:
+            x = x[:, :x.shape[1] - (below - hi)]
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt), None,
+                     self.stride, (0, col), self.dilation)
+        return y.permute(0, 2, 3, 1)
 
 
 class ConvTranspose(nn.ConvTranspose2d):
@@ -119,10 +183,37 @@ class ConvTranspose(nn.ConvTranspose2d):
                          bias=use_bias)
 
     def forward(self, x):
+        sm = spatial.banded()
+        if sm is not None:
+            return self._band_forward(x)
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
                                self.weight.to(x.dtype), None, self.stride,
                                self.padding, self.output_padding)
         y = y.permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+    def _band_forward(self, x):
+        """The transposed conv of a band: output row o reads input rows
+        (o + p - kh) / s, so the band's output rows [s a, s (a + rows)) read
+        (k - 1 - p) // s rows above it and (p - 1) // s + 1 below (zero
+        below the image); the local output is cropped to the band. The
+        image's rows split evenly where k + output_padding - 2 p = s."""
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        op = self.output_padding[0]
+        if spatial.halo_of(x) != (0, 0) or self.dilation[0] != 1 \
+                or k + op - 2 * p != s:
+            raise NotImplementedError(
+                "a transposed conv that does not make stride x H rows %s"
+                % spatial.REFUSED)
+        rows = x.shape[1]
+        lo, hi = max((k - 1 - p) // s, 0), max((p - 1) // s + 1, 0)
+        x = spatial.halo_rows(x, lo, hi, "zero")
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
+                               self.weight.to(x.dtype), None, self.stride,
+                               self.padding, self.output_padding)
+        y = y[:, :, s * lo:s * (lo + rows)].permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -165,14 +256,18 @@ class BatchNorm(FrozenBatchNorm):
 
     Inside a data-parallel step (parallel/mesh.py) the batch is the global
     one: the mean and variance are all-reduced over the ranks, each rank
-    holding an equal share of the rows."""
+    holding an equal share of the rows; under a data x spatial grid
+    (parallel/spatial.py) each rank holds an equal share of the batch's
+    rows and of the image's, and the sums run over the whole grid."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         x = x.to(torch.promote_types(x.dtype, torch.float32))
-        ctx = mesh.active()
-        if ctx is not None and ctx.sync_batchnorm and ctx.world > 1:
+        # a data-parallel step (which may turn the sync off) or a grid
+        ctx = mesh.active() or spatial.active()
+        if ctx is not None and getattr(ctx, "sync_batchnorm", True) \
+                and ctx.world > 1:
             return self._global_forward(x, ctx.world)
         y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
                          self.running_var, self.weight, self.bias,
@@ -263,6 +358,7 @@ class BlurDownsample(_Blur):
         self.pad = (lo + pad_off, hi + pad_off, lo + pad_off, hi + pad_off)
 
     def forward(self, x):
+        spatial.refuse("blur-pool downsampling")
         s = self.stride
         if self.filt_size == 1:
             if self.pad_off:
@@ -285,6 +381,7 @@ class BlurUpsample(_Blur):
         self.stride, self.pad_type = stride, pad_type
 
     def forward(self, x):
+        spatial.refuse("blur-pool upsampling")
         x = pad2d(x, 1, self.pad_type)
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.filt.to(x.dtype),
                                stride=self.stride,

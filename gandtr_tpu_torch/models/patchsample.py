@@ -20,6 +20,8 @@ the spatial axis, as the reference's Normalize does there.
 import torch
 from torch import nn
 
+from gandtr_tpu_torch.parallel import spatial
+
 
 def _safe_norm(x, dim):
     """sqrt(sum(x**2)) with a finite gradient at an all-zero row; the same
@@ -51,6 +53,7 @@ class PatchSampleF(nn.Module):
         sample (B * n, nc) normalised, n = min(num_patches, H * W), or
         (B, H, W, nc) in the full-map mode; ids the positions, one index
         tensor a tap on the maps' device."""
+        spatial.refuse("patch sampling")
         if self.n_mlps != len(feats):
             raise ValueError("PatchSampleF has %d MLPs for %d taps (call "
                              "create_mlp first)" % (self.n_mlps, len(feats)))

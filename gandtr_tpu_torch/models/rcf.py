@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gandtr_tpu_torch.models.layers import Conv
+from gandtr_tpu_torch.parallel import spatial
 
 _STAGES = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512),
            (512, 512, 512))
@@ -65,6 +66,7 @@ class RCF(nn.Module):
                                  persistent=False)
 
     def forward(self, x, no_sigmoid=False):
+        spatial.refuse("RCF")
         H, W = x.shape[1], x.shape[2]
         h, scores = x, []
         for s, widths in enumerate(_STAGES, start=1):

@@ -18,6 +18,7 @@ from torch import nn
 from gandtr_tpu_torch.models.layers import (BatchNorm, Conv, ConvTranspose,
                                             Dropout)
 from gandtr_tpu_torch.ops.resize import bilinear_resize, nearest_resize
+from gandtr_tpu_torch.parallel import spatial
 
 _lrelu = nn.functional.leaky_relu
 _relu = torch.relu
@@ -47,6 +48,7 @@ class _DoubleConv(nn.Module):
         self.conv2 = Conv(features, features, 3, padding=1)
 
     def forward(self, x):
+        spatial.refuse("the U-Nets")
         return _relu(self.conv2(_relu(self.conv1(x))))
 
 
@@ -66,6 +68,7 @@ class OrigUNet(nn.Module):
         self.outconv = Conv(ch[0], out_channels, 1)
 
     def forward(self, x):
+        spatial.refuse("the U-Nets")
         def pool(h):
             return nn.functional.max_pool2d(
                 h.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
@@ -101,6 +104,7 @@ class _P2pSkip(nn.Module):
         self.drop = Dropout(dropout, generator) if dropout else None
 
     def forward(self, x, nested=None):
+        spatial.refuse("the U-Nets")
         h = self.down(x)
         if nested is not None:
             if self.bn_down is not None:
@@ -153,6 +157,7 @@ class P2pUNet(nn.Module):
         self.outconvT = _convt(128, out_channels)
 
     def forward(self, x):
+        spatial.refuse("the U-Nets")
         h = _run_skips(self.skip, _lrelu(self.inconv(x), 0.2))
         return torch.tanh(self.outconvT(h))
 
@@ -178,6 +183,7 @@ class ShallowP2pUNet(nn.Module):
         self.outconv = Conv(64, out_channels, 1)
 
     def forward(self, x):
+        spatial.refuse("the U-Nets")
         def skip(h, k):
             h1 = _relu(self.d1[k](_relu(self.d[k](h))))
             if k + 1 < len(self.blocks):
@@ -208,6 +214,7 @@ class OutconvP2pUNet(nn.Module):
                             padding=outconv_kernel // 2)
 
     def forward(self, x):
+        spatial.refuse("the U-Nets")
         h = _lrelu(self.inconv(x), 0.2)
         if len(self.skip):
             h = _run_skips(self.skip, h)
@@ -247,6 +254,7 @@ class OutconvP2pUNetDynamicInterpolate(nn.Module):
         return nearest_resize(h, *size)
 
     def forward(self, x):
+        spatial.refuse("the U-Nets")
         def skip(h, k):
             size = h.shape[1:3]
             h1 = self.d[k](h)
@@ -281,6 +289,7 @@ class InconvP2pUNet(nn.Module):
         self.outconvT = _convt(128, out_channels)
 
     def forward(self, x):
+        spatial.refuse("the U-Nets")
         h = _lrelu(self.inconv(_lrelu(self.inconv1x1(x), 0.2)), 0.2)
         return torch.tanh(self.outconvT(_run_skips(self.skip, h)))
 
@@ -301,6 +310,7 @@ class AlignedP2pUNet(nn.Module):
         self.outconv = Conv(64, out_channels, 3, padding=1)
 
     def forward(self, x):
+        spatial.refuse("the U-Nets")
         h = _relu(self.in2(_relu(self.in1(x))))
         h = _run_skips(self.skip, h)
         h = _relu(self.out2(_relu(self.out1(h))))

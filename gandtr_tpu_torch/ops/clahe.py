@@ -41,6 +41,7 @@ import torch
 
 from gandtr_tpu_torch.ops import colorspace as cs
 from gandtr_tpu_torch.ops import library
+from gandtr_tpu_torch.parallel import spatial
 
 
 def _grid(grid_size):
@@ -250,6 +251,7 @@ def clahe_u8_masked(img, hw, clip_limit=4.0, grid_size=(8, 8)):
     """Dispatch by device: K4 (LUT build + interpolation, one launch
     for the batch) for a CUDA tensor, the plain version for a CPU tensor.
     img: (N, H, W) uint8; hw: (N, 2) int32 on img's device."""
+    spatial.refuse("masked CLAHE (K4)")
     if img.device.type == "cpu":
         return clahe_u8_masked_plain(img, hw, clip_limit, grid_size)
     from gandtr_tpu_torch.kernels.clahe_masked import clahe_u8_masked_cuda
@@ -276,8 +278,18 @@ def image_clahe_masked(img, hw, clip_limit=4.0, grid_size=8,
 
 def channel_clahe(chan, clip_limit, grid_size):
     """float [0,1] channel (N, H, W) -> truncate to uint8 at 255 -> CLAHE ->
-    /255 float (reference ChannelClahe.apply)."""
+    /255 float (reference ChannelClahe.apply). Under a row-sharded grid
+    (parallel/spatial.py) `chan` is a band: CLAHE's tiles read their
+    neighbours, so the band's uint8 rows are gathered over the grid's sp
+    group, K1 runs on the whole image and the band is kept (exact)."""
     u8 = (chan.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    sm = spatial.banded()
+    if sm is not None:
+        if u8.dim() != 3:
+            spatial.refuse("CLAHE of an unbatched image")
+        whole = clahe_u8(spatial.gather_image_rows(u8, sm), clip_limit,
+                         grid_size)
+        return spatial.band_of(whole, sm).to(torch.float32) / 255.0
     return clahe_u8(u8, clip_limit, grid_size).to(torch.float32) / 255.0
 
 

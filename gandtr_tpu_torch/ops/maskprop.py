@@ -19,6 +19,8 @@ the ops that must slice each image (ops/resize.py::masked_scale_resize).
 import torch
 import torch.nn.functional as F
 
+from gandtr_tpu_torch.parallel import spatial
+
 
 def sizes_from_mask(mask):
     """(N, H, W) top-left rectangle mask -> (h, w), each (N,) int64: row 0
@@ -48,7 +50,10 @@ class MaskState:
     @classmethod
     def maybe(cls, mask, host_hw=None):
         """From an (N, H, W) mask tensor, or None; `host_hw`, the same sizes
-        as N (h, w) pairs on the host, where the caller has them."""
+        as N (h, w) pairs on the host, where the caller has them. A mask
+        is refused under a row-sharded grid (parallel/spatial.py)."""
+        if mask is not None:
+            spatial.refuse("a masked (padded-bucket) input")
         return cls(None if mask is None else sizes_from_mask(mask), host_hw)
 
     def host_hw(self):

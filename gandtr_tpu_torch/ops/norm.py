@@ -5,8 +5,13 @@ float32 and round the result once to bf16; every elementwise op rounds to
 bf16; a Python scalar is taken in the array's dtype (jnp's weak typing).
 A float32 statistic beside a bf16 tensor promotes the result to float32, as
 in JAX.
+
+Under a row-sharded grid (parallel/spatial.py) instance norm's two passes
+are two sums all-reduced over the grid's sp group.
 """
 import torch
+
+from gandtr_tpu_torch.parallel import spatial
 
 
 def l2n(x, eps=1e-6, dim=-1):
@@ -18,8 +23,11 @@ def instance_norm(x, eps=1e-5):
     """Per-sample, per-channel spatial normalization of (N, H, W, C):
     torch InstanceNorm2d (biased variance, eps inside the sqrt)."""
     v = x.float()
-    mean = v.mean(dim=(1, 2), keepdim=True)
-    var = ((v - mean) ** 2).mean(dim=(1, 2), keepdim=True)
+    if spatial.banded() is not None:
+        mean, var = spatial.spatial_moments(v)
+    else:
+        mean = v.mean(dim=(1, 2), keepdim=True)
+        var = ((v - mean) ** 2).mean(dim=(1, 2), keepdim=True)
     mean, var = mean.to(x.dtype), var.to(x.dtype)
     return (x - mean) / torch.sqrt(var + torch.tensor(eps, dtype=x.dtype))
 

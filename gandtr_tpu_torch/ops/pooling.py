@@ -9,15 +9,40 @@ Regional pooling (cirtorch's functional.py:26-126 and Rpool,
 layers/pooling.py:76-113): `rmac` sums the L2-normalized max-pools of the
 R-MAC regions, `roipool` pools each region and `rpool` aggregates them,
 each region whitened. The region grid depends on the shape only and is
-made on the host (`_rmac_regions`)."""
+made on the host (`_rmac_regions`).
+
+Under a row-sharded grid (parallel/spatial.py) mac, spoc and gem take the
+maximum or the sums of their bands over the grid's sp group (every rank
+of a data row then holds the same descriptor); a mask and the regional
+poolings refuse it (ROADMAP A.6.6)."""
 import math
 
 import numpy as np
 import torch
 
+from gandtr_tpu_torch.parallel import spatial
+
+
+def _banded(mask, what):
+    """The active row-sharded grid, refusing a mask under it."""
+    sm = spatial.banded()
+    if sm is not None and mask is not None:
+        spatial.refuse("%s over a mask" % what)
+    return sm
+
+
+def _band_mean(x, sm):
+    """The mean over (H, W) of the image whose band is x: float32 sums
+    all-reduced over sp, rounded once to x's dtype."""
+    count = x.shape[1] * x.shape[2] * sm.n_sp
+    return (spatial.sp_sum(x.float().sum(dim=(1, 2)), sm) / count).to(x.dtype)
+
 
 def mac(x, mask=None):
     """Max pooling over the spatial dims."""
+    sm = _banded(mask, "mac")
+    if sm is not None:
+        return spatial.sp_amax(x, sm)
     if mask is not None:
         x = x.masked_fill(~(mask[..., None] > 0), float("-inf"))
     return x.amax(dim=(1, 2))
@@ -25,6 +50,9 @@ def mac(x, mask=None):
 
 def spoc(x, mask=None):
     """Average pooling over the spatial dims."""
+    sm = _banded(mask, "spoc")
+    if sm is not None:
+        return _band_mean(x, sm)
     if mask is not None:
         m = mask[..., None].to(x.dtype)
         return (x * m).sum(dim=(1, 2)) / m.sum(dim=(1, 2))
@@ -39,7 +67,10 @@ def gem(x, p=3.0, eps=1e-6, mask=None):
     bucket)."""
     if torch.is_tensor(p):
         p = p.to(x.dtype)
+    sm = _banded(mask, "gem")
     xp = x.clamp(min=eps).pow(p)
+    if sm is not None:
+        return _band_mean(xp, sm).pow(1.0 / p)
     if mask is None:
         return xp.mean(dim=(1, 2)).pow(1.0 / p)
     m = mask[..., None].to(x.dtype)
@@ -97,6 +128,7 @@ def _unit(v, eps):
 def rmac(x, L=3, eps=1e-6):
     """Regional MAC (functional.py:26-75): the L2-normalized global max-pool
     plus each region's. (N, H, W, C) -> (N, C)."""
+    spatial.refuse("R-MAC")
     H, W = x.shape[1:3]
     v = _unit(mac(x), eps)
     for i, j, wl in _rmac_regions(W, H, L):
@@ -107,6 +139,7 @@ def rmac(x, L=3, eps=1e-6):
 def roipool(x, rpool_fn, L=3):
     """The global map and each R-MAC region pooled by `rpool_fn`
     (functional.py:78-126): (N, H, W, C) -> (N, R, C)."""
+    spatial.refuse("regional pooling")
     H, W = x.shape[1:3]
     vecs = [rpool_fn(x)] + [rpool_fn(_region(x, i, j, wl))
                             for i, j, wl in _rmac_regions(W, H, L)]

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from gandtr_tpu_torch.ops import library
+from gandtr_tpu_torch.parallel import spatial
 
 BF16 = torch.bfloat16
 
@@ -60,8 +61,13 @@ def eligible(x_shape, dtype, *, train, use_dropout, padding_type, norm_type,
     """Whether a block takes the fused op: resblock_pallas.py:213-229 without
     its TPU-only terms (the enable flag, the VMEM budget, H % 8, C % 128).
     `train` is true in training mode or when autograd records a graph: K3
-    has no backward, as the JAX kernel has none."""
+    has no backward, as the JAX kernel has none. Under a row-sharded grid
+    (parallel/spatial.py) it declines too: its instance-norm statistics
+    cover only the rows it is given, where the block's cover the image
+    (the layered block all-reduces them)."""
     if train or use_dropout or not use_bias:
+        return False
+    if spatial.banded() is not None:
         return False
     if padding_type != "reflect" or norm_type != "instance":
         return False

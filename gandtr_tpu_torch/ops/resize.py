@@ -18,12 +18,18 @@ a gather.
 
 `dynamic_bilinear_resize_u8` is the device half of the GAN train chain's
 scalecrop (`device_scalecrop`): a per-image resize of padded uint8 crops.
+
+Under a row-sharded grid (parallel/spatial.py) `bilinear_resize` takes a
+band and the band's output size: it gathers the input's rows over the
+grid's sp group and applies the band's rows of the row matrix. The other
+resizes refuse a grid (ROADMAP A.6.6).
 """
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from gandtr_tpu_torch.ops.maskprop import MaskState
+from gandtr_tpu_torch.parallel import spatial
 
 
 _MATRICES = {}
@@ -58,7 +64,18 @@ def bilinear_resize(x, out_h, out_w, scale=None):
     N, H, W, C = x.shape
     if (H, W) == (out_h, out_w) and scale in (None, 1, 1.0):
         return x
-    ah = _interp_matrix(out_h, H, x.device, scale).to(x.dtype)
+    sm = spatial.banded()
+    if sm is not None:
+        # a band in, the band's rows out: the whole map's rows, then this
+        # band's rows of the image's row matrix
+        if scale not in (None, 1, 1.0):
+            spatial.refuse("a bilinear resize by a scale")
+        x = spatial.gather_image_rows(x, sm)
+        n = sm.n_sp
+        ah = _interp_matrix(out_h * n, H * n, x.device)[
+            sm.sp_index * out_h:(sm.sp_index + 1) * out_h].to(x.dtype)
+    else:
+        ah = _interp_matrix(out_h, H, x.device, scale).to(x.dtype)
     aw = _interp_matrix(out_w, W, x.device, scale).to(x.dtype)
     y = torch.matmul(ah, x.permute(0, 3, 1, 2))       # (N, C, out_h, W)
     y = torch.matmul(y, aw.T)                          # (N, C, out_h, out_w)
@@ -70,6 +87,7 @@ def nearest_resize(x, out_h, out_w):
     index floorf(dst * float32(in / out)), in float32 as torch computes it
     (an exact integer floor differs where the product rounds across an
     integer)."""
+    spatial.refuse("a nearest resize")
     N, H, W, C = x.shape
 
     def src(out_n, in_n):
@@ -90,6 +108,7 @@ def dynamic_bilinear_resize_u8(imgs_u8, hws, out_h, out_w):
     2) integer valid sizes on the same device. The taps stay inside [0,
     h) x [0, w), so the pad never enters. Gathers and lerps: no host
     value is read."""
+    spatial.refuse("the device scalecrop")
     x = imgs_u8.to(torch.float32) / 255.0
     hws = hws.to(device=x.device, dtype=torch.int64)
 
@@ -117,6 +136,7 @@ def dynamic_bilinear_resize_u8(imgs_u8, hws, out_h, out_w):
 
 def scale_resize(x, scale):
     """x: (N, H, W, C) -> (N, int(H*s), int(W*s), C)."""
+    spatial.refuse("a resize by a scale (multiscale)")
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale,
                       mode="bilinear", align_corners=False)
     return y.permute(0, 2, 3, 1)
@@ -131,6 +151,7 @@ def masked_scale_resize(x, state, scale):
     Returns (y, new_state): y (N, int(H*s), int(W*s), C), zero outside the
     new rectangles of floor(h*s) x floor(w*s). The sizes come from
     `state.host_hw()`, so no size is read from the device here."""
+    spatial.refuse("a masked resize")
     N, H, W, C = x.shape
     y = x.new_zeros((N, int(H * scale), int(W * scale), C))
     sizes = []

@@ -125,9 +125,9 @@ def _collective(fn, t, *args, **kwargs):
     return t
 
 
-def all_reduce_(t):
-    """Sum `t` over the ranks, in place."""
-    return _collective(dist.all_reduce, t)
+def all_reduce_(t, group=None):
+    """Sum `t` over the ranks (of `group`, by default all), in place."""
+    return _collective(dist.all_reduce, t, group=group)
 
 
 def broadcast_(t, src=0):
@@ -135,31 +135,37 @@ def broadcast_(t, src=0):
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """A sum over the ranks whose backward is the sum over the ranks of the
-    gradients: the global statistics of a synchronized BatchNorm."""
+    """A sum over the ranks (of a group) whose backward is the sum over the
+    same ranks of the gradients: the global statistics of a synchronized
+    BatchNorm, and the sums of a row-sharded grid (parallel/spatial.py)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return all_reduce_(x.clone())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_(grad.contiguous().clone())
+        return all_reduce_(grad.contiguous().clone(), ctx.group), None
 
 
-def all_reduce_sum(x):
-    """Differentiable sum of `x` over the ranks."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x, group=None):
+    """Differentiable sum of `x` over the ranks of `group` (all by
+    default)."""
+    return _AllReduceSum.apply(x, group)
 
 
-def gather_rows(x, counts=None):
-    """The rows of every rank stacked in rank order, on every rank, without
-    autograd. `counts` is each rank's number of rows (all equal when not
-    given). Under NCCL an all-gather of each rank's rows padded to the
-    largest count; under gloo (which may hold CUDA tensors of ranks that
-    share a card) an all-reduce: each rank writes its rows into a zero
-    buffer and the sum is exact (x + 0 = x)."""
-    n, r = world_size(), rank()
+def gather_rows(x, counts=None, group=None):
+    """The rows of every rank (of `group`, by default all) stacked in rank
+    order, on every rank, without autograd. `counts` is each rank's number
+    of rows (all equal when not given). Under NCCL an all-gather of each
+    rank's rows padded to the largest count; under gloo (which may hold
+    CUDA tensors of ranks that share a card) an all-reduce: each rank
+    writes its rows into a zero buffer and the sum is exact (x + 0 = x)."""
+    if group is None:
+        n, r = world_size(), rank()
+    else:
+        n, r = dist.get_world_size(group), dist.get_rank(group)
     counts = [x.shape[0]] * n if counts is None else list(counts)
     if x.device.type == "cuda" and dist.get_backend() == "nccl":
         m = max(counts)
@@ -168,14 +174,14 @@ def gather_rows(x, counts=None):
             mine = torch.cat([mine, mine.new_zeros(
                 (m - mine.shape[0],) + tuple(mine.shape[1:]))])
         out = mine.new_empty((n * m,) + tuple(mine.shape[1:]))
-        dist.all_gather_into_tensor(out, mine.contiguous())
+        dist.all_gather_into_tensor(out, mine.contiguous(), group=group)
         if all(c == m for c in counts):
             return out
         return torch.cat([out[i * m:i * m + c] for i, c in enumerate(counts)])
     offsets = [sum(counts[:i]) for i in range(n + 1)]
     out = x.new_zeros((offsets[-1],) + tuple(x.shape[1:]))
     out[offsets[r]:offsets[r + 1]] = x.detach()
-    return all_reduce_(out)
+    return all_reduce_(out, group)
 
 
 def strided_share(n_items, r=None, n=None):
@@ -411,13 +417,13 @@ def maybe_data_parallel(step, par_cfg, batch_size, grad_reduction="mean",
                               sync_batchnorm=sync_batchnorm)
 
 
-def spatial_mesh(*args, **kwargs):
-    """The JAX package's data x spatial mesh shards the image axes of the
-    convolutions (GSPMD inserts the halo exchanges). Not ported: in
-    PyTorch every conv would need a halo exchange, and no stage runs it
-    (only the JAX package's tests do)."""
-    raise NotImplementedError("spatial sharding is not ported yet "
-                              "(ROADMAP A.6.5)")
+def spatial_mesh(n_data, n_sp):
+    """A data x spatial grid of the process group's ranks (n_data rows of
+    n_sp), the counterpart of the JAX package's 2-D ("data", "sp") mesh:
+    parallel/spatial.py's `SpatialMesh`. The world size must be n_data *
+    n_sp (ValueError). Run a net on it with `spatial.spatial_apply`."""
+    from gandtr_tpu_torch.parallel import spatial
+    return spatial.SpatialMesh(n_data, n_sp)
 
 
 def max_spatial_shards(image_hw, total_downsample, max_halo=2):

@@ -964,3 +964,66 @@ def test_sharded_generator_artifact_on_card(cuda, tmp_path):
     assert c.launches()["K3"] == 18
     want = load_artifact(str(tmp_path / "u"), device=cuda)(x)
     assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1
+
+
+@pytest.mark.parametrize("C,n_bands", [(64, 2), (64, 4), (128, 2)])
+def test_k2_on_halo_extended_bands(cuda, C, n_bands):
+    """K2 as a row-sharded VGG16 calls it (models/backbones.py under
+    parallel/spatial.py): each band extended by one neighbour row at each
+    inner edge and none at the image's edges (K2's own SAME zero pad is
+    the image's there), its output cropped to the band; the bands against
+    K2 on the whole tensor within K2's bf16 bound, rtol and atol 2e-2
+    (tests/test_vggconv_pallas.py:51). Whether they are bit-equal is
+    printed: every output pixel reads the same nine input rows either
+    way."""
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.ops.vggconv import conv3x3_same
+    rng = np.random.RandomState(C + n_bands)
+    x = torch.from_numpy(rng.randn(2, 64, 40, C).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3, 3, C, C) / (3 * np.sqrt(C)))
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(C).astype(np.float32)).to(cuda)
+    whole = conv3x3_same(x, w, b, True, torch.bfloat16)
+    rows = x.shape[1] // n_bands
+    before = kvgg.LAUNCHES
+    bands = []
+    for s in range(n_bands):
+        lo, hi = int(s > 0), int(s < n_bands - 1)
+        ext = x[:, s * rows - lo:(s + 1) * rows + hi].contiguous()
+        bands.append(conv3x3_same(ext, w, b, True,
+                                  torch.bfloat16)[:, lo:lo + rows])
+    got = torch.cat(bands, 1)
+    torch.cuda.synchronize()
+    assert kvgg.LAUNCHES == before + n_bands
+    print("K2 on %d halo-extended bands, C=%d: bit-equal to the whole: %s"
+          % (n_bands, C, bool(torch.equal(got, whole))))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               whole.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_spatial_generator_over_four_cards(cuda):
+    """The generator of tests/test_spatial_sharding.py:23-41 (ngf 8, 2
+    blocks, instance norm) at 128², H sharded 4 ways over four NCCL ranks,
+    a card each (parallel/spatial.py's halos as batched isend / irecv,
+    instance norm's sums all-reduced), against one card: rtol 1e-4, atol
+    1e-5, the JAX test's bound."""
+    from gandtr_tpu_torch.models import initialize_model
+    from torch_dp_workers import spatial_net, spawn
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    cfg = {"architecture": "official_resnet_generator", "ngf": 8,
+           "n_blocks": 2, "norm_layer": "instance"}
+    torch.manual_seed(0)
+    state = initialize_model(dict(cfg)).state_dict()
+    x = (np.random.RandomState(0).rand(2, 128, 128, 3) * 2 - 1).astype(
+        np.float32)
+    outs = spawn("spatial_nets", world=4, backend="nccl", device="cuda",
+                 cases=[("generator", cfg, state, x, (1, 4), "float32")])
+    with torch.inference_mode():
+        want = spatial_net(cfg, state, "float32", cuda)(
+            torch.from_numpy(x).to(cuda)).float().cpu().numpy()
+    for out in outs:
+        np.testing.assert_allclose(out["generator"].numpy(), want,
+                                   rtol=1e-4, atol=1e-5)

@@ -229,8 +229,8 @@ def test_mesh_arithmetic_matches_jax():
     """parallel/mesh.py's helpers without a process group: the spatial
     shard count as JAX's for every case, each rank's rows of a global
     batch (rank r takes [r B/N, (r+1) B/N)), the strided shares, world 1
-    everywhere and init_distributed a no-op; spatial sharding refused with
-    its ROADMAP id."""
+    everywhere and init_distributed a no-op; a 2 x 2 spatial grid refused
+    at world size 1."""
     from gandtr_tpu.parallel import mesh as jmesh
     from gandtr_tpu_torch.parallel import mesh
     for hw in (16, 32, 64, 96, 100, 256, 362):
@@ -248,5 +248,5 @@ def test_mesh_arithmetic_matches_jax():
     assert mesh.process_local_batch(5) == 5
     assert mesh.init_distributed() is None and not mesh.is_initialized()
     assert mesh.maybe_data_parallel(len, {"devices": 4}, 5) is len
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6.5"):
+    with pytest.raises(ValueError, match="world is 1"):
         mesh.spatial_mesh(2, 2)

@@ -1,6 +1,7 @@
 """Ranks of a gloo process group on the CPU for the port's data-parallel
-tests (tests/test_torch_data_parallel*.py). The workers import only the
-port, never JAX: `spawn(job, world, **args)` runs `JOBS[job](**args)` in
+and spatial tests (tests/test_torch_data_parallel*.py,
+tests/test_torch_spatial*.py). The workers import only the port, never
+JAX: `spawn(job, world, **args)` runs `JOBS[job](**args)` in
 `world` processes started with torch.multiprocessing and returns each
 rank's result. A failing rank fails the spawn."""
 import copy
@@ -221,6 +222,164 @@ def gather(n_items):
             "device": str(equal.device)}
 
 
+def spatial_op(kind, spec):
+    """The op of a spatial case, built the same way on the ranks and for
+    the unsharded reference: `spec` holds a layer's constructor arguments
+    and state, a pooling's name or a resize factor."""
+    from gandtr_tpu_torch.models import layers
+    from gandtr_tpu_torch.ops import norm, pooling, resize
+
+    def built(cls, args, state):
+        m = cls(**args)
+        m.load_state_dict(state)
+        return m
+    if kind == "conv":
+        return built(layers.Conv, spec["args"], spec["state"]).eval()
+    if kind == "pad_conv":
+        return torch.nn.Sequential(
+            layers.Pad(spec["pad"], spec["mode"]),
+            built(layers.Conv, spec["args"], spec["state"])).eval()
+    if kind == "convt":
+        return built(layers.ConvTranspose, spec["args"], spec["state"]).eval()
+    if kind == "instance_norm":
+        return norm.instance_norm
+    if kind in ("gem", "mac", "spoc"):
+        return pooling.POOLINGS[kind]
+    if kind == "resize":
+        f = spec["factor"]
+        return lambda x: resize.bilinear_resize(
+            x, int(x.shape[1] * f), int(x.shape[2] * f))
+    if kind == "stack":
+        return torch.nn.Sequential(
+            layers.Pad(1, "reflect"),
+            built(layers.Conv, {"in_channels": 3, "features": 4,
+                                "kernel_size": 3}, spec["state"][0]),
+            layers.InstanceNorm(), torch.nn.ReLU(),
+            built(layers.Conv, {"in_channels": 4, "features": 4,
+                                "kernel_size": 3, "stride": 2, "padding": 1,
+                                "pad_mode": "replicate"}, spec["state"][1]),
+            built(layers.BatchNorm, {"num_features": 4}, spec["state"][2]),
+            torch.nn.ReLU(),
+            built(layers.ConvTranspose, {"in_channels": 4, "features": 3},
+                  spec["state"][3]))
+    raise KeyError(kind)
+
+
+def spatial_primitives(cases, n_data, n_sp):
+    """Each case (name, kind, spec, x) run on the global input x over an
+    n_data x n_sp grid: {name: the gathered output}. A "halo" case gives
+    this rank's band extended by `halo_rows`; a "pool_grad" case a global
+    pooling and the gradient of sum(y * r) with respect to its input
+    (gathered); a "stack" case the stack's
+    output, the gradient of sum(y * r) with respect to the input
+    (gathered) and to its weights (summed over the ranks), and the
+    BatchNorm's running statistics after it."""
+    from gandtr_tpu_torch.parallel import mesh, spatial
+    sm = mesh.spatial_mesh(n_data, n_sp)
+    out = {"rank": (sm.data_index, sm.sp_index)}
+    for name, kind, spec, x in cases:
+        x = torch.from_numpy(x)
+        if kind == "halo":
+            band = spatial.shard_spatial(x, sm)
+            with spatial.sharded(sm):
+                out[name] = spatial.halo_rows(band, spec["lo"], spec["hi"],
+                                              spec["mode"])
+            continue
+        if kind == "pool_grad":
+            from gandtr_tpu_torch.ops import pooling
+            band = spatial.shard_spatial(x, sm).requires_grad_(True)
+            with spatial.sharded(sm):
+                y = pooling.POOLINGS[spec["pool"]](band)
+                # every rank's loss is 1 / n_sp of the image's
+                ((y * torch.from_numpy(spec["r"])).sum() / n_sp).backward()
+            out[name] = {"y": spatial.gather_spatial(y, sm),
+                         "dx": spatial.gather_spatial(band.grad, sm)}
+            continue
+        op = spatial_op(kind, spec)
+        if kind != "stack":
+            with torch.no_grad():
+                out[name] = spatial.spatial_apply(op, x, sm, downsample=1)
+            continue
+        band = spatial.shard_spatial(x, sm).requires_grad_(True)
+        r = spatial.shard_spatial(torch.from_numpy(spec["r"]), sm)
+        with spatial.sharded(sm):
+            y = op(band)
+            (y * r).sum().backward()
+        params = list(op.parameters())
+        mesh.all_reduce_grads(params)
+        out[name] = {"y": spatial.gather_spatial(y, sm),
+                     "dx": spatial.gather_spatial(band.grad, sm),
+                     "dw": [p.grad.clone() for p in params],
+                     "stats": {k: v.clone() for k, v in
+                               op[5].state_dict().items()}}
+    return out
+
+
+def spatial_net(cfg, state, dtype, device="cpu"):
+    """The callable a spatial net case runs, the same on the ranks and for
+    the unsharded reference: a model config with its state dict, in eval
+    mode (in bf16 for dtype "bfloat16"), or `{"hub": name, "lw": {P, m}}`,
+    the hub's single-scale descriptor model with an Lw on uint8 photos
+    through its device preprocessing (LAB CLAHE, normalize), as a served
+    batch runs it."""
+    from gandtr_tpu_torch import hub
+    from gandtr_tpu_torch.data.transforms import split_device_transform
+    from gandtr_tpu_torch.device import set_float32_policy
+    from gandtr_tpu_torch.models import initialize_model
+    set_float32_policy()      # float32 convs in float32 (no TF32), as hub's
+    if "hub" in cfg:
+        model = getattr(hub, cfg["hub"])(pretrained=False, device=device,
+                                         whitening=cfg["lw"],
+                                         multiscale=False)
+        if dtype == "bfloat16":
+            model.net.compute_dtype = torch.bfloat16
+        _, pre = split_device_transform(model.net.data_params["transforms"],
+                                        model.net.data_params["mean_std"])
+        return lambda x: model.net.apply(pre(x.float() / 255.0))
+    net = initialize_model(dict(cfg))
+    net.load_state_dict(state, strict=True)
+    net = net.to(device).eval()
+    if dtype == "bfloat16":
+        net = net.to(torch.bfloat16)
+        return lambda x: net(x.to(torch.bfloat16))
+    return net
+
+
+def spatial_nets(cases, device="cpu"):
+    """Each case (name, config, state dict, x, (n_data, n_sp), dtype)
+    through `spatial_apply` on its grid (`spatial_net`): {name: the
+    gathered float32 output}, and under "k3_calls" the fused ResNet
+    block's calls in each case (K3 declines under a grid). `device`
+    "cuda" runs on this rank's card (NCCL)."""
+    from gandtr_tpu_torch.ops import resblock
+    from gandtr_tpu_torch.parallel import mesh, spatial
+    if device == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    out, calls, meshes = {"k3_calls": {}}, [0], {}
+    fused = resblock.fused_resblock
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fused(*args, **kwargs)
+    resblock.fused_resblock = counted
+    try:
+        for name, cfg, state, x, grid, dtype in cases:
+            sm = meshes.get(grid) or meshes.setdefault(
+                grid, mesh.spatial_mesh(*grid))
+            fn = spatial_net(cfg, state, dtype, device)
+            calls[0] = 0
+            with torch.inference_mode():
+                out[name] = spatial.spatial_apply(
+                    fn, torch.from_numpy(x).to(device), sm,
+                    downsample=16 if "hub" in cfg else None).float().cpu()
+            out["k3_calls"][name] = calls[0]
+    finally:
+        resblock.fused_resblock = fused
+    return out
+
+
 JOBS = {"gather": gather, "gan_steps": gan_steps, "gan_resume": gan_resume,
         "gan_knobs": gan_knobs,
-        "finetune_step": finetune_step, "extract": extract}
+        "finetune_step": finetune_step, "extract": extract,
+        "spatial_primitives": spatial_primitives,
+        "spatial_nets": spatial_nets}
