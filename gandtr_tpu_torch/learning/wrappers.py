@@ -99,7 +99,10 @@ class CirMultiscaleAggregation(Wrapper):
 
     In the padded-bucket mode `pre` resizes each image's valid rectangle
     (ops/resize.py::masked_scale_resize) and emits an (x, mask) pair per
-    scale, which the model forward runs with that scale's mask."""
+    scale, which the model forward runs with that scale's mask. Under a
+    row-sharded grid each scale is a band of the resized image, cut by the
+    band plan of its height for the running net's total downsampling
+    (ops/resize.py::scale_resize)."""
 
     SCALE_SETS = {"True": True, "False": False, "ms": True, "ss": False,
                   "sms5": [1, 1 / np.sqrt(2), np.sqrt(2), 1 / 2, 2],

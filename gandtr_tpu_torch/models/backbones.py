@@ -39,8 +39,12 @@ band of rows: a cuDNN conv takes the band with a zero-mode halo row above
 and below and no row padding; K2 takes the band extended by a neighbour's
 row at each inner edge only (its own SAME zero pad is the image's pad at
 the true edges), and the neighbours' rows are cropped from its output; a
-max-pool stays local on bands of an even number of rows. A mask, and
-`ResNetFeatures` (its 3x3 max-pool), refuse the grid (ROADMAP A.6.6).
+max-pool stays local on bands of an even number of rows (the last band,
+at the image's true bottom, may be odd: the floor is the image's).
+`ResNetFeatures` runs its stem conv, its strided 3x3 and 1x1 convs (the
+`Conv` layers) on bands, and its padded 3x3 max-pool takes the row above
+from the neighbouring band (`spatial.max_pool_band`). A mask refuses the
+grid (ROADMAP A.6.6).
 """
 import torch
 import torch.nn.functional as F
@@ -125,6 +129,10 @@ class Bottleneck(nn.Module):
     """torchvision's Bottleneck: 1x1 reduce, 3x3 (stride), 1x1 expand, the
     identity or a strided 1x1 + BN downsample. NHWC in and out."""
 
+    # the strided shortcut runs beside conv2, at its stride
+    # (spatial.total_downsample)
+    side_branches = ("downsample",)
+
     def __init__(self, inplanes, planes, stride=1, downsample=False):
         super().__init__()
         self.conv1 = Conv(inplanes, planes, 1, use_bias=False)
@@ -174,13 +182,15 @@ class ResNetFeatures(nn.Sequential):
     def forward(self, x, mask=None):
         """x: (N, 3, H, W) (an NHWC tensor seen as NCHW). Returns the
         features, and with `mask` also their valid mask (N, h, w)."""
-        spatial.refuse("ResNet's features (a padded 3x3 max-pool)")
         ms = maskprop.MaskState.maybe(mask)
         h = ms.apply(x.permute(0, 2, 3, 1))
         h = self[1](self[0](h))
         ms = ms.downsample(7, 2, 3)
         h = ms.apply(torch.relu(h))
-        h, ms = maskprop.masked_max_pool(h, ms, 3, 2, 1)
+        if spatial.banded() is not None:
+            h = spatial.max_pool_band(h, 3, 2, 1)
+        else:
+            h, ms = maskprop.masked_max_pool(h, ms, 3, 2, 1)
         for layer in list(self)[4:]:
             for block in layer:
                 h, ms = block(h, ms)

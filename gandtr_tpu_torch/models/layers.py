@@ -143,13 +143,16 @@ class Conv(nn.Conv2d):
         rows o s - top + [0, d (k - 1)], so with its output band starting at
         row a / s the band needs `top` rows above and d (k - 1) - top - s +
         1 below; the image's rows split evenly only where the conv keeps H
-        / s rows."""
+        / s rows. The last band ends at the image's true bottom: it takes
+        the image's own bottom pad, may hold any number of rows, and its
+        output rows are the rest of the image's."""
         t, b = spatial.halo_of(x)
         k, s, d, p = (self.kernel_size[0], self.stride[0], self.dilation[0],
                       self.pad)
         if (t or b) and p:
             raise NotImplementedError("a padded conv of a padded band %s"
                                       % spatial.REFUSED)
+        sm = spatial.banded()
         rows = x.shape[1] - t - b
         spatial.check_divisible(rows, s, "a stride-%d conv" % s)
         top, bottom = t + p, b + p
@@ -157,13 +160,15 @@ class Conv(nn.Conv2d):
             raise NotImplementedError(
                 "a conv that does not keep H / stride rows (k %d, stride %d, "
                 "pad %d + %d) %s" % (k, s, top, bottom, spatial.REFUSED))
-        hi = d * (k - 1) - top - s + 1     # rows below the band it reads
+        reads = d * (k - 1) - top - s + 1  # rows below the band it reads
+        # the last band reads the image's own bottom pad
+        hi = bottom if sm.below is None else reads
         x = x.to(dt)
         col, below = p, b
         if p:
             kind = _PAD_MODES[self.pad_mode]
-            x = spatial.halo_rows(x, p, max(hi, 0), kind)
-            below = max(hi, 0)
+            x = spatial.halo_rows(x, p, max(reads, 0), kind, edge_hi=p)
+            below = p if sm.below is None else max(reads, 0)
             if kind != "constant":
                 x, col = _pad_cols(x, p, p, kind), 0
         if below > hi:
@@ -255,10 +260,11 @@ class BatchNorm(FrozenBatchNorm):
     `num_batches_tracked`, as torch's BatchNorm2d does.
 
     Inside a data-parallel step (parallel/mesh.py) the batch is the global
-    one: the mean and variance are all-reduced over the ranks, each rank
-    holding an equal share of the rows; under a data x spatial grid
-    (parallel/spatial.py) each rank holds an equal share of the batch's
-    rows and of the image's, and the sums run over the whole grid."""
+    one: the mean and variance are all-reduced over the ranks, and so is
+    the count of positions; under a data x spatial grid
+    (parallel/spatial.py) each rank holds a share of the batch's rows and
+    a band of the image's (the bands may differ in rows), and the sums run
+    over the whole grid."""
 
     def forward(self, x):
         if not self.training:
@@ -268,7 +274,7 @@ class BatchNorm(FrozenBatchNorm):
         ctx = mesh.active() or spatial.active()
         if ctx is not None and getattr(ctx, "sync_batchnorm", True) \
                 and ctx.world > 1:
-            return self._global_forward(x, ctx.world)
+            return self._global_forward(x)
         y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
                          self.running_var, self.weight, self.bias,
                          training=True, momentum=self.momentum, eps=self.eps)
@@ -276,15 +282,17 @@ class BatchNorm(FrozenBatchNorm):
             self.num_batches_tracked.add_(1)
         return y.permute(0, 2, 3, 1)
 
-    def _global_forward(self, x, world):
+    def _global_forward(self, x):
         """The training form over the global batch: the mean, then the
-        biased variance about it, each a sum all-reduced over the ranks
-        (autograd carries the gradients of the statistics back to every
-        rank's rows)."""
+        biased variance about it, each a sum all-reduced over the ranks,
+        the rank's count of positions beside the first (autograd carries
+        the gradients of the statistics back to every rank's rows)."""
         C = x.shape[-1]
         flat = x.reshape(-1, C)
-        count = flat.shape[0] * world
-        mean = mesh.all_reduce_sum(flat.sum(0)) / count
+        total = mesh.all_reduce_sum(torch.cat([
+            flat.sum(0), flat.new_full((1,), flat.shape[0])]))
+        count = total[-1].detach()
+        mean = total[:-1] / count
         centred = flat - mean
         var = mesh.all_reduce_sum((centred * centred).sum(0)) / count
         y = centred * torch.rsqrt(var + self.eps)

@@ -287,9 +287,10 @@ def channel_clahe(chan, clip_limit, grid_size):
     if sm is not None:
         if u8.dim() != 3:
             spatial.refuse("CLAHE of an unbatched image")
-        whole = clahe_u8(spatial.gather_image_rows(u8, sm), clip_limit,
-                         grid_size)
-        return spatial.band_of(whole, sm).to(torch.float32) / 255.0
+        counts = spatial.input_rows(u8)
+        whole = clahe_u8(spatial.gather_image_rows(u8, sm, counts),
+                         clip_limit, grid_size)
+        return spatial.band_of(whole, counts, sm).to(torch.float32) / 255.0
     return clahe_u8(u8, clip_limit, grid_size).to(torch.float32) / 255.0
 
 

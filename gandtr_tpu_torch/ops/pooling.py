@@ -32,10 +32,9 @@ def _banded(mask, what):
 
 
 def _band_mean(x, sm):
-    """The mean over (H, W) of the image whose band is x: float32 sums
-    all-reduced over sp, rounded once to x's dtype."""
-    count = x.shape[1] * x.shape[2] * sm.n_sp
-    return (spatial.sp_sum(x.float().sum(dim=(1, 2)), sm) / count).to(x.dtype)
+    """The mean over (H, W) of the image whose band is x: float32 sums and
+    the bands' counts all-reduced over sp, rounded once to x's dtype."""
+    return spatial.sp_mean(x.float(), sm)[:, 0, 0].to(x.dtype)
 
 
 def mac(x, mask=None):

@@ -21,8 +21,12 @@ scalecrop (`device_scalecrop`): a per-image resize of padded uint8 crops.
 
 Under a row-sharded grid (parallel/spatial.py) `bilinear_resize` takes a
 band and the band's output size: it gathers the input's rows over the
-grid's sp group and applies the band's rows of the row matrix. The other
-resizes refuse a grid (ROADMAP A.6.6).
+grid's sp group and applies the band's rows of the row matrix.
+`scale_resize` gathers the input image's rows, resizes the whole image as
+one process does, and keeps this rank's band of the result under the band
+plan of its new height (`spatial.band_plan` with the running net's total
+downsampling): the band is the unsharded resize's rows bit for bit. The
+other resizes refuse a grid (ROADMAP A.6.6).
 """
 import numpy as np
 import torch
@@ -70,10 +74,11 @@ def bilinear_resize(x, out_h, out_w, scale=None):
         # band's rows of the image's row matrix
         if scale not in (None, 1, 1.0):
             spatial.refuse("a bilinear resize by a scale")
-        x = spatial.gather_image_rows(x, sm)
-        n = sm.n_sp
-        ah = _interp_matrix(out_h * n, H * n, x.device)[
-            sm.sp_index * out_h:(sm.sp_index + 1) * out_h].to(x.dtype)
+        rows_in, rows_out = spatial.band_rows((H, out_h), sm)
+        x = spatial.gather_image_rows(x, sm, rows_in)
+        first = sum(rows_out[:sm.sp_index])
+        ah = _interp_matrix(sum(rows_out), sum(rows_in), x.device)[
+            first:first + out_h].to(x.dtype)
     else:
         ah = _interp_matrix(out_h, H, x.device, scale).to(x.dtype)
     aw = _interp_matrix(out_w, W, x.device, scale).to(x.dtype)
@@ -135,8 +140,18 @@ def dynamic_bilinear_resize_u8(imgs_u8, hws, out_h, out_w):
 
 
 def scale_resize(x, scale):
-    """x: (N, H, W, C) -> (N, int(H*s), int(W*s), C)."""
-    spatial.refuse("a resize by a scale (multiscale)")
+    """x: (N, H, W, C) -> (N, int(H*s), int(W*s), C). Under a grid x is a
+    band and so is the result (the module's docstring)."""
+    sm = spatial.banded()
+    if sm is None:
+        return _interpolate(x, scale)
+    rows = spatial.input_rows(x)
+    whole = _interpolate(spatial.gather_image_rows(x, sm, rows), scale)
+    plan = spatial.band_plan(whole.shape[1], sm.n_sp, spatial.downsample())
+    return spatial.band_of(whole, [r for _, r in plan], sm)
+
+
+def _interpolate(x, scale):
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale,
                       mode="bilinear", align_corners=False)
     return y.permute(0, 2, 3, 1)

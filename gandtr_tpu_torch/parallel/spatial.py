@@ -10,12 +10,20 @@ nothing adds them, so the layers do it themselves while a grid is active:
     y = spatial_apply(net, x, sm)        # shard, run, gather
 
 Rank r sits at data row r // n_sp and spatial column r % n_sp. It holds
-its data row's share of the batch (`mesh.global_batch_array`) and the band
-of image rows [s H / n_sp, (s + 1) H / n_sp) of an NHWC tensor, s its
-column. Under `with sharded(sm):` every tensor a layer sees is such a band,
-and every size a layer is given is the band's (HED's resize to its input
-size asks for the band's rows). The layers look the grid up through
-`active()` / `banded()`, as BatchNorm looks up `mesh.active()`:
+its data row's share of the batch (`mesh.global_batch_array`) and band s
+(its column) of the image rows of an NHWC tensor, by `band_plan`: every
+edge between two bands lies on a multiple of the net's total
+downsampling D (`total_downsample`), each band but the last holds
+ceil(H / n_sp / D) D rows and the last the rest. The edges then stay
+aligned at every depth of the net, and the last band, which may turn odd
+at some depth, sits at the image's true bottom edge, where a layer's own
+floor or ceil rule is the whole image's. Under `with sharded(sm, D, H):`
+every tensor a layer sees is such a band, and every size a layer is given
+is the band's (HED's resize to its input size asks for the band's rows).
+A layer that reads the input image whole takes the bands' rows from the
+input's plan, which `sharded` holds (`input_rows`); one that needs them for
+a map at depth asks the sp group (`band_rows`). The layers look the grid up through `active()` /
+`banded()`, as BatchNorm looks up `mesh.active()`:
 
 - `halo_rows` extends a band by rows of the ranks above and below (one
   batched isend / irecv with each neighbour); at the image's true top and
@@ -26,36 +34,39 @@ size asks for the band's rows). The layers look the grid up through
 - `pad2d` takes its rows through `halo_rows` and tags the result with the
   rows it added (`halo_of`); a `Conv` that follows consumes them. A `Conv`
   with its own padding exchanges its halo itself; a stride s needs bands
-  of a multiple of s rows; dilation widens the halo. A transposed conv
-  takes the rows below and crops its output band.
-- instance norm, GeM and SPoC sum their statistics over the `sp` group
-  with `mesh.all_reduce_sum`'s Function (`sp_sum`), and MAC takes the
-  maximum (`sp_amax`, its gradient split among ties as torch.amax's), so
-  their gradients reach every band; BatchNorm in training counts over the
-  whole data x sp grid.
+  of a multiple of s rows, except the last, which takes the image's own
+  bottom pad; dilation widens the halo. A transposed conv takes the rows
+  below and crops its output band. ResNet's padded 3x3 max-pool takes a
+  row from the band above and pads with -inf at the true edges only.
+- instance norm, GeM and SPoC sum their statistics, and the band's count
+  of positions, over the `sp` group with `mesh.all_reduce_sum`'s Function
+  (`sp_sum`), and MAC takes the maximum (`sp_amax`, its gradient split
+  among ties as torch.amax's), so their gradients reach every band;
+  BatchNorm in training counts over the whole data x sp grid.
 - HED's bilinear resize gathers the small score map's rows over `sp`
   (`gather_image_rows`) and applies its band's rows of the interpolation
-  matrix; CLAHE gathers the uint8 lightness, runs K1 on the whole image
-  and keeps the band; VGG16's K2 takes a band extended by a neighbour row
-  at each inner edge (its own zero pad is the true edge's) and its output
-  is cropped.
+  matrix; the multiscale resize gathers the input image's rows, resizes
+  the whole image as one process does and keeps this band of the result
+  under the new height's plan; CLAHE gathers the uint8 lightness, runs K1
+  on the whole image and keeps the band; VGG16's K2 takes a band extended
+  by a neighbour row at each inner edge (its own zero pad is the true
+  edge's) and its output is cropped.
 - K3 declines under a grid (ops/resblock.py::eligible): its instance-norm
   statistics cover only the rows it is given.
 
 Every other layer that mixes rows or reads the whole image raises
 `NotImplementedError` under a grid (`refuse`, ROADMAP A.6.6): masked
 inputs and K4, blur-pool sampling, the U-Nets, R-MAC / Rpool, attention,
-the edge filter, the geometric median, multiscale resizes,
-`GlobalLocalModule` and the grouping layers, ResNet's max pool.
+the edge filter, the geometric median, the nearest and masked resizes,
+`GlobalLocalModule` and the grouping layers.
 
 The JAX package's guards (`gandtr_tpu/parallel/mesh.py::spatial_mesh`)
 are for two silent errors of XLA's partitioner. Hazard 1, its `fastconv`
 rewrites partitioned wrongly, has no counterpart: the port has no
 `fastconv`. Hazard 2, a shard thinner than a conv's halo, raises
-`ValueError` here, as does an image whose rows do not split into equal
-bands at every depth of the net (H a multiple of n_sp times the net's
-total downsampling); `mesh.max_spatial_shards` gives the largest n_sp
-that keeps both.
+`ValueError` here, as does a plan whose last band would hold less than a
+row at the net's deepest map; `mesh.max_spatial_shards` (the JAX
+package's rule) suggests an n_sp.
 
 Backends: under gloo the ranks may share one card (tensors are staged
 through the host, `mesh._collective`) or run on the CPU; under NCCL each
@@ -112,6 +123,8 @@ class SpatialMesh:
 
 
 _ACTIVE = None
+_DOWNSAMPLE = 1
+_INPUT_ROWS = None
 
 
 def active():
@@ -125,15 +138,38 @@ def banded():
     return sm if sm is not None and sm.n_sp > 1 else None
 
 
+def downsample():
+    """The total downsampling D of the net the active grid runs: what a
+    band plan made inside it (a rescaled image's) aligns its edges to."""
+    return _DOWNSAMPLE
+
+
+def input_rows(x):
+    """Each band's rows of the net's input, in sp order, from the plan
+    `sharded` holds, for a layer that reads the input image whole (CLAHE,
+    the multiscale resize); x is this rank's band of it."""
+    sm, rows = banded(), _INPUT_ROWS
+    if rows is None or x.shape[1] != rows[sm.sp_index]:
+        raise ValueError(
+            "a band of %d rows where the input's plan is %s: the input's "
+            "layers run under sharded(sm, downsample, height)"
+            % (x.shape[1], rows))
+    return rows
+
+
 @contextlib.contextmanager
-def sharded(sm):
-    """Run the layers under the grid `sm`."""
-    global _ACTIVE
-    prev, _ACTIVE = _ACTIVE, sm
+def sharded(sm, downsample=1, height=None):
+    """Run the layers under the grid `sm`, for a net of total downsampling
+    `downsample` whose input has `height` rows (its band plan)."""
+    global _ACTIVE, _DOWNSAMPLE, _INPUT_ROWS
+    prev = _ACTIVE, _DOWNSAMPLE, _INPUT_ROWS
+    _ACTIVE, _DOWNSAMPLE = sm, int(downsample)
+    _INPUT_ROWS = None if height is None or sm.n_sp == 1 else [
+        rows for _, rows in band_plan(height, sm.n_sp, downsample)]
     try:
         yield sm
     finally:
-        _ACTIVE = prev
+        _ACTIVE, _DOWNSAMPLE, _INPUT_ROWS = prev
 
 
 def refuse(what):
@@ -150,7 +186,10 @@ def check_rows(rows, need, what):
 
 
 def check_divisible(rows, by, what):
-    if rows % by:
+    """A band of `rows` rows must split by `by`, unless it is the last band
+    (`sm.below` None), which ends at the image's true bottom edge."""
+    sm = banded()
+    if rows % by and (sm is None or sm.below is not None):
         raise ValueError("%s needs bands of a multiple of %d rows, this band "
                          "has %d%s" % (what, by, rows, _GUARD))
 
@@ -248,24 +287,48 @@ def _edge_rows(x, lo, hi, mode):
                       x.new_zeros(_rows_shape(x, hi))], 1)
 
 
-def halo_rows(x, lo, hi, mode="zero"):
+def halo_rows(x, lo, hi, mode="zero", edge_hi=None):
     """The band x (N, rows, ...) extended by `lo` rows from the rank above
     and `hi` from the rank below. At the image's true top and bottom the
     rows are made by `mode` (zero, reflect, replicate), or left out with
-    None. A band thinner than its halo raises ValueError (hazard 2)."""
+    None; `edge_hi` rows at the true bottom where given (the image's own
+    pad, where it differs from the rows a band reads below). Every rank
+    of the group passes the same `lo` and `hi`. A band thinner than its
+    halo raises ValueError (hazard 2)."""
     sm = banded()
-    if sm is None or not (lo or hi):
+    if sm is None or not (lo or hi or edge_hi):
         return x
     if mode not in _EDGE_MODES:
         raise NotImplementedError("pad mode %s" % mode)
     mode = _EDGE_MODES[mode]
+    edge_hi = hi if edge_hi is None else edge_hi
     rows = x.shape[1]
-    check_rows(rows, max(lo, hi) + (mode == "reflect"),
+    check_rows(rows, max(lo, hi, edge_hi if sm.below is None else 0)
+               + (mode == "reflect"),
                "a halo of %d rows above and %d below (%s)" % (lo, hi, mode))
     top, bottom = _HaloExchange.apply(x, lo, hi, sm)
     x = _edge_rows(x, lo if sm.above is None else 0,
-                   hi if sm.below is None else 0, mode)
+                   edge_hi if sm.below is None else 0, mode)
     return torch.cat([top, x, bottom], 1)
+
+
+def max_pool_band(x, kernel, stride, padding):
+    """F.max_pool2d(kernel, stride, padding) of the image whose band is the
+    NHWC x: `padding` rows from the band above (the pad's -inf at the
+    image's true top), the rows below that the band's last window reads
+    (none for ResNet's 3x3 stride-2 pad-1 pool), and at the true bottom
+    the image's own `padding` -inf rows, so the last band keeps the
+    image's floor rule. Bands but the last must split by `stride`. The
+    halo's gradient goes back to its owner (`halo_rows`)."""
+    sm = banded()
+    k, s, p = kernel, stride, padding
+    check_divisible(x.shape[1], s, "a stride-%d max-pool" % s)
+    x = halo_rows(x, p, max(k - p - s, 0), None)
+    top = p if sm.above is None else 0
+    bottom = p if sm.below is None else 0
+    y = torch.nn.functional.pad(x.permute(0, 3, 1, 2),
+                                (p, p, top, bottom), value=float("-inf"))
+    return torch.nn.functional.max_pool2d(y, k, s).permute(0, 2, 3, 1)
 
 
 def tag_halo(x, lo, hi):
@@ -319,48 +382,96 @@ def sp_amax(x, sm=None):
     return _BandAmax.apply(x, sm.sp_group)
 
 
+def sp_mean(x, sm=None):
+    """The mean over (H, W) of the image whose band is the float32 (N,
+    rows, W, ...) x, keeping those dims: the band's sum and its count of
+    positions summed over the sp group in one all-reduce (the bands may
+    differ in rows)."""
+    sm = sm or banded()
+    total = x.sum(dim=(1, 2), keepdim=True)
+    count = total.new_full(total.shape[:-1] + (1,), x.shape[1] * x.shape[2])
+    total = sp_sum(torch.cat([total, count], -1), sm)
+    return total[..., :-1] / total[..., -1:]
+
+
 def spatial_moments(v, sm=None):
     """(mean, biased variance) over (H, W) of an (N, rows, W, C) float32
     band, each an all-reduced sum over the sp group: the two passes of
     instance norm."""
+    mean = sp_mean(v, sm)
+    return mean, sp_mean((v - mean) ** 2, sm)
+
+
+def band_plan(H, n_sp, downsample=1):
+    """[(first row, rows)] of the n_sp bands of an image of H rows: each
+    band but the last holds ceil(H / n_sp / D) D rows (D the net's total
+    downsampling), the last the rest, so that every edge between bands is
+    a multiple of D rows and stays a whole row at every depth. Equal bands
+    where n_sp D divides H. ValueError (hazard 2) where the last band would
+    hold less than a row at the deepest map (fewer than D rows)."""
+    D = int(downsample)
+    step = -(-H // (n_sp * D)) * D
+    last = H - (n_sp - 1) * step
+    if last < D:
+        raise ValueError(
+            "%d image rows leave %d rows to the last of %d bands of %d, "
+            "less than a row at a total downsampling of %d%s"
+            % (H, last, n_sp, step, D, _GUARD))
+    return [(s * step, step if s < n_sp - 1 else last) for s in range(n_sp)]
+
+
+def band_rows(rows, sm=None):
+    """Each band's count of rows, in sp order, where this rank's is `rows`:
+    a list, or for a tuple of counts a list of lists (one all-reduce of a
+    one-hot count for all)."""
     sm = sm or banded()
-    count = v.shape[1] * v.shape[2] * sm.n_sp
-    mean = sp_sum(v.sum(dim=(1, 2), keepdim=True), sm) / count
-    var = sp_sum(((v - mean) ** 2).sum(dim=(1, 2), keepdim=True), sm) / count
-    return mean, var
+    many = isinstance(rows, (tuple, list))
+    c = torch.zeros((len(rows) if many else 1, sm.n_sp), dtype=torch.int64)
+    c[:, sm.sp_index] = torch.tensor(rows if many else [rows])
+    c = mesh.all_reduce_(c, sm.sp_group).tolist()
+    return c if many else c[0]
 
 
-def gather_image_rows(x, sm=None):
+def gather_image_rows(x, sm=None, counts=None):
     """The whole image's rows (dim 1) from every band of the sp group, on
     each of its ranks: each band written into zeros at its offset and the
-    sum all-reduced (exact: x + 0 = x). Differentiable: a band's gradient
-    is the sum of every rank's gradient of its rows."""
+    sum all-reduced (exact: x + 0 = x). `counts` is each band's rows
+    (asked of the group where not given). Differentiable: a band's
+    gradient is the sum of every rank's gradient of its rows."""
     sm = sm or banded()
-    rows, s = x.shape[1], sm.sp_index
-    full = torch.cat([x.new_zeros(_rows_shape(x, s * rows)), x,
-                      x.new_zeros(_rows_shape(x, (sm.n_sp - 1 - s) * rows))],
-                     1)
+    counts = band_rows(x.shape[1], sm) if counts is None else counts
+    s = sm.sp_index
+    above, below = sum(counts[:s]), sum(counts[s + 1:])
+    full = torch.cat([x.new_zeros(_rows_shape(x, above)), x,
+                      x.new_zeros(_rows_shape(x, below))], 1)
     return mesh.all_reduce_sum(full, group=sm.sp_group)
 
 
-def band_of(full, sm=None):
-    """This rank's band of a whole image (dim 1)."""
+def band_of(full, counts, sm=None):
+    """This rank's band of a whole image (dim 1), the bands holding
+    `counts` rows each."""
     sm = sm or banded()
-    rows = full.shape[1] // sm.n_sp
-    return full[:, sm.sp_index * rows:(sm.sp_index + 1) * rows]
+    first = sum(counts[:sm.sp_index])
+    return full[:, first:first + counts[sm.sp_index]]
 
 
 # ---- placing and collecting data
 
 def total_downsample(module):
     """The product of the strides of a net's strided convolutions and
-    pools: the factor by which its deepest map is smaller than its input
-    (4 for the ResNet generator, 16 for HED and VGG16)."""
+    pools along its main path: the factor by which its deepest map is
+    smaller than its input (4 for the ResNet generator, 16 for HED and
+    VGG16, 32 for ResNet). A module's `side_branches` (the names of its
+    children that run beside the main path at the same stride, as a
+    Bottleneck's strided `downsample`) are not counted."""
     f = 1
-    for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.MaxPool2d)):
-            s = m.stride
-            f *= s[0] if isinstance(s, tuple) else int(s)
+    if isinstance(module, (nn.Conv2d, nn.MaxPool2d)):
+        s = module.stride
+        f *= s[0] if isinstance(s, tuple) else int(s)
+    side = getattr(module, "side_branches", ())
+    for name, child in module.named_children():
+        if name not in side:
+            f *= total_downsample(child)
     return f
 
 
@@ -375,19 +486,17 @@ def _module_of(net):
 
 def shard_spatial(x, sm, downsample=1):
     """This rank's batch rows (as `mesh.global_batch_array` gives them) and
-    its band of image rows of an NHWC tensor. H must be a multiple of
-    n_sp times the net's total downsampling, else the bands would differ
-    at some depth (ValueError)."""
+    its band of image rows of an NHWC tensor, by `band_plan` for the net's
+    total downsampling (ValueError where the plan breaks hazard 2)."""
     N, H = x.shape[0], x.shape[1]
     if N % sm.n_data:
         raise ValueError("batch %d does not divide over %d data rows"
                          % (N, sm.n_data))
-    if H % (sm.n_sp * downsample):
-        raise ValueError(
-            "%d image rows do not split into %d equal bands at a total "
-            "downsampling of %d%s" % (H, sm.n_sp, downsample, _GUARD))
     x = mesh.global_batch_array(x, sm.data_index, sm.n_data)
-    return band_of(x, sm).contiguous() if sm.n_sp > 1 else x
+    if sm.n_sp == 1:
+        return x
+    plan = band_plan(H, sm.n_sp, downsample)
+    return band_of(x, [rows for _, rows in plan], sm).contiguous()
 
 
 def gather_spatial(y, sm):
@@ -413,6 +522,6 @@ def spatial_apply(net, x, sm, downsample=None):
         module = _module_of(net)
         downsample = total_downsample(module) if module is not None else 1
     band = shard_spatial(x, sm, downsample)
-    with sharded(sm):
+    with sharded(sm, downsample, x.shape[1]):
         y = net(band)
     return gather_spatial(y, sm)

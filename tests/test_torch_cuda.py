@@ -1003,6 +1003,38 @@ def test_k2_on_halo_extended_bands(cuda, C, n_bands):
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("C,H,D", [(64, 90, 16), (128, 45, 8),
+                                   (64, 543, 16)])
+def test_k2_on_an_uneven_last_band(cuda, C, H, D):
+    """K2 on the bands of `spatial.band_plan(H, 2, D)` (90 rows: 48 + 42,
+    VGG16's conv1_2 at scale 1/sqrt 2 of a 128-row image; 45 rows under
+    the 8 of downsampling left after the first pool: 24 + 21, its conv2_2;
+    543: 272 + 271), each extended by one neighbour row at its inner edge
+    and cropped, bit-equal to K2 on the whole tensor."""
+    from gandtr_tpu_torch.kernels import vggconv as kvgg
+    from gandtr_tpu_torch.ops.vggconv import conv3x3_same
+    from gandtr_tpu_torch.parallel import spatial
+    rng = np.random.RandomState(C + H)
+    x = torch.from_numpy(rng.randn(2, H, 40, C).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3, 3, C, C) / (3 * np.sqrt(C)))
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(C).astype(np.float32)).to(cuda)
+    whole = conv3x3_same(x, w, b, True, torch.bfloat16)
+    plan = spatial.band_plan(H, 2, D)
+    assert plan[0][1] != plan[1][1]
+    before = kvgg.LAUNCHES
+    bands = []
+    for s, (first, rows) in enumerate(plan):
+        lo, hi = int(s > 0), int(s < len(plan) - 1)
+        ext = x[:, first - lo:first + rows + hi].contiguous()
+        bands.append(conv3x3_same(ext, w, b, True,
+                                  torch.bfloat16)[:, lo:lo + rows])
+    torch.cuda.synchronize()
+    assert kvgg.LAUNCHES == before + len(plan)
+    assert torch.equal(torch.cat(bands, 1), whole)
+
+
 def test_spatial_generator_over_four_cards(cuda):
     """The generator of tests/test_spatial_sharding.py:23-41 (ngf 8, 2
     blocks, instance norm) at 128², H sharded 4 ways over four NCCL ranks,

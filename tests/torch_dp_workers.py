@@ -222,11 +222,23 @@ def gather(n_items):
             "device": str(equal.device)}
 
 
+class _ResNetMaxPool(torch.nn.Module):
+    """ResNet's 3x3 stride-2 pad-1 max-pool as ResNetFeatures runs it:
+    `spatial.max_pool_band` under a grid, F.max_pool2d otherwise."""
+
+    def forward(self, x):
+        from gandtr_tpu_torch.parallel import spatial
+        if spatial.banded() is not None:
+            return spatial.max_pool_band(x, 3, 2, 1)
+        return torch.nn.functional.max_pool2d(
+            x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
 def spatial_op(kind, spec):
     """The op of a spatial case, built the same way on the ranks and for
     the unsharded reference: `spec` holds a layer's constructor arguments
     and state, a pooling's name or a resize factor."""
-    from gandtr_tpu_torch.models import layers
+    from gandtr_tpu_torch.models import hed, layers
     from gandtr_tpu_torch.ops import norm, pooling, resize
 
     def built(cls, args, state):
@@ -249,6 +261,20 @@ def spatial_op(kind, spec):
         f = spec["factor"]
         return lambda x: resize.bilinear_resize(
             x, int(x.shape[1] * f), int(x.shape[2] * f))
+    if kind == "scale_resize":
+        return lambda x: resize.scale_resize(x, spec["factor"])
+    if kind == "hed_resize":
+        # HED's side output: a 2x2 max-pool, resized to its input's rows
+        return lambda x: resize.bilinear_resize(hed.MaxPool()(x),
+                                                x.shape[1], x.shape[2])
+    if kind == "roundtrip":
+        return lambda x: x
+    if kind == "stem":
+        return torch.nn.Sequential(
+            built(layers.Conv, {"in_channels": 3, "features": 4,
+                                "kernel_size": 7, "stride": 2, "padding": 3,
+                                "use_bias": False}, spec["state"][0]),
+            torch.nn.ReLU(), _ResNetMaxPool())
     if kind == "stack":
         return torch.nn.Sequential(
             layers.Pad(1, "reflect"),
@@ -267,13 +293,15 @@ def spatial_op(kind, spec):
 
 def spatial_primitives(cases, n_data, n_sp):
     """Each case (name, kind, spec, x) run on the global input x over an
-    n_data x n_sp grid: {name: the gathered output}. A "halo" case gives
-    this rank's band extended by `halo_rows`; a "pool_grad" case a global
+    n_data x n_sp grid, its bands planned for `spec["downsample"]` (1 by
+    default): {name: the gathered output}. A "halo" case gives this
+    rank's band extended by `halo_rows`; a "pool_grad" case a global
     pooling and the gradient of sum(y * r) with respect to its input
-    (gathered); a "stack" case the stack's
-    output, the gradient of sum(y * r) with respect to the input
-    (gathered) and to its weights (summed over the ranks), and the
-    BatchNorm's running statistics after it."""
+    (gathered); a "stack" or "stem" case the net's output, the gradient
+    of sum(y * r) with respect to the input (gathered) and to its weights
+    (summed over the ranks), and a "stack"'s BatchNorm's running
+    statistics after it; a "roundtrip" case the gathered band and this
+    band's rows."""
     from gandtr_tpu_torch.parallel import mesh, spatial
     sm = mesh.spatial_mesh(n_data, n_sp)
     out = {"rank": (sm.data_index, sm.sp_index)}
@@ -295,23 +323,32 @@ def spatial_primitives(cases, n_data, n_sp):
             out[name] = {"y": spatial.gather_spatial(y, sm),
                          "dx": spatial.gather_spatial(band.grad, sm)}
             continue
-        op = spatial_op(kind, spec)
-        if kind != "stack":
-            with torch.no_grad():
-                out[name] = spatial.spatial_apply(op, x, sm, downsample=1)
+        down = spec.get("downsample", 1)
+        if kind == "roundtrip":
+            band = spatial.shard_spatial(x, sm, down)
+            out[name] = {"y": spatial.gather_spatial(band, sm),
+                         "rows": band.shape[1]}
             continue
-        band = spatial.shard_spatial(x, sm).requires_grad_(True)
-        r = spatial.shard_spatial(torch.from_numpy(spec["r"]), sm)
-        with spatial.sharded(sm):
+        op = spatial_op(kind, spec)
+        if kind not in ("stack", "stem"):
+            with torch.no_grad():
+                out[name] = spatial.spatial_apply(op, x, sm, downsample=down)
+            continue
+        band = spatial.shard_spatial(x, sm, down).requires_grad_(True)
+        with spatial.sharded(sm, down, x.shape[1]):
             y = op(band)
+            r = mesh.global_batch_array(torch.from_numpy(spec["r"]),
+                                        sm.data_index, sm.n_data)
+            r = spatial.band_of(r, spatial.band_rows(y.shape[1], sm), sm)
             (y * r).sum().backward()
         params = list(op.parameters())
         mesh.all_reduce_grads(params)
         out[name] = {"y": spatial.gather_spatial(y, sm),
                      "dx": spatial.gather_spatial(band.grad, sm),
-                     "dw": [p.grad.clone() for p in params],
-                     "stats": {k: v.clone() for k, v in
-                               op[5].state_dict().items()}}
+                     "dw": [p.grad.clone() for p in params]}
+        if kind == "stack":
+            out[name]["stats"] = {k: v.clone() for k, v in
+                                  op[5].state_dict().items()}
     return out
 
 
@@ -319,23 +356,39 @@ def spatial_net(cfg, state, dtype, device="cpu"):
     """The callable a spatial net case runs, the same on the ranks and for
     the unsharded reference: a model config with its state dict, in eval
     mode (in bf16 for dtype "bfloat16"), or `{"hub": name, "lw": {P, m}}`,
-    the hub's single-scale descriptor model with an Lw on uint8 photos
-    through its device preprocessing (LAB CLAHE, normalize), as a served
-    batch runs it."""
+    the hub's descriptor model with an Lw (single-scale, or with
+    "multiscale": True the hub's scales), its module's weights `state`
+    where given, on uint8 photos through its device preprocessing (LAB
+    CLAHE, normalize) as a served batch runs it, or with "pre": False on
+    float inputs as they are. "resnet_depth" sets the port's ResNet-101
+    blocks a stage (backbones.RESNET_LAYERS) in this process. The
+    callable's `downsample` is its net's total downsampling."""
     from gandtr_tpu_torch import hub
     from gandtr_tpu_torch.data.transforms import split_device_transform
     from gandtr_tpu_torch.device import set_float32_policy
-    from gandtr_tpu_torch.models import initialize_model
+    from gandtr_tpu_torch.models import backbones, initialize_model
+    from gandtr_tpu_torch.parallel import spatial
     set_float32_policy()      # float32 convs in float32 (no TF32), as hub's
     if "hub" in cfg:
+        if cfg.get("resnet_depth"):
+            backbones.RESNET_LAYERS["resnet101"] = tuple(cfg["resnet_depth"])
+        kw = {} if "resnet" in cfg["hub"] else {
+            "multiscale": cfg.get("multiscale", False)}
         model = getattr(hub, cfg["hub"])(pretrained=False, device=device,
-                                         whitening=cfg["lw"],
-                                         multiscale=False)
+                                         whitening=cfg["lw"], **kw)
+        if state is not None:
+            model.net.module.load_state_dict(state, strict=True)
         if dtype == "bfloat16":
             model.net.compute_dtype = torch.bfloat16
         _, pre = split_device_transform(model.net.data_params["transforms"],
                                         model.net.data_params["mean_std"])
-        return lambda x: model.net.apply(pre(x.float() / 255.0))
+        ctx = {"msp": model.meta.get("msp", 1.0)}   # as HubModel passes
+
+        def fn(x):
+            x = pre(x.float() / 255.0) if cfg.get("pre", True) else x
+            return model.net.apply(x, ctx=ctx)
+        fn.downsample = spatial.total_downsample(model.net.module)
+        return fn
     net = initialize_model(dict(cfg))
     net.load_state_dict(state, strict=True)
     net = net.to(device).eval()
@@ -371,7 +424,7 @@ def spatial_nets(cases, device="cpu"):
             with torch.inference_mode():
                 out[name] = spatial.spatial_apply(
                     fn, torch.from_numpy(x).to(device), sm,
-                    downsample=16 if "hub" in cfg else None).float().cpu()
+                    downsample=getattr(fn, "downsample", None)).float().cpu()
             out["k3_calls"][name] = calls[0]
     finally:
         resblock.fused_resblock = fused
